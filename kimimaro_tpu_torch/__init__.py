@@ -1,0 +1,21 @@
+"""kimimaro_tpu_torch: TEASAR skeletonization of densely labeled 3D
+segmentation volumes on PyTorch, with hand-written CUDA kernels for an
+NVIDIA Hopper GPU.
+
+The counterpart of the JAX package kimimaro_tpu. `skeletonize` takes the
+same arguments plus `device` ("cuda" or "cpu"). The CUDA kernels are built
+from csrc/ at first use (see kimimaro_tpu_torch.kernels); importing the
+package touches neither CUDA nor the compiler.
+"""
+
+from .intake import DEFAULT_TEASAR_PARAMS, DimensionError, skeletonize
+from .skeleton import Skeleton
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DEFAULT_TEASAR_PARAMS",
+    "DimensionError",
+    "Skeleton",
+    "skeletonize",
+]

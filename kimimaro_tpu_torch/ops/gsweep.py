@@ -1,0 +1,367 @@
+"""Full-volume label-masked directional sweeps: the global engine's core.
+
+Torch counterpart of kimimaro_tpu.ops.gsweep. Connected components
+partition the foreground, so every label's geodesic field is computed in
+ONE set of sweeps over the full volume: propagation between voxels is
+admitted only when their compact cc ids are equal.
+
+Sweep semantics: plane i is relaxed from plane i-1 through the nine
+(dy, dz) offsets; six directed sweeps make one round.
+
+Modes:
+  euclid:   new = min(cur, min9(prev_same_label + step_cost))
+  node:     new = min(cur, min9(prev_same_label) + nodecost[cur])
+  maxflood: new = max(cur, max9(prev_same_label))
+  minid:    int32 CCL ids, occupancy cc != 0
+clamp_positive resets positives to +inf (rolling-ball invalidation);
+`okmask` additionally restricts occupancy.
+
+`sweep0` (B1) and `sweep0_dual` (B2) launch the CUDA kernels of
+csrc/gsweep.cu for CUDA tensors; for CPU tensors they run the plain
+versions beside them. Non-axis-0 sweeps run on transposed layouts (the
+MaskViews rotation of the JAX package).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .stencils import pad_const
+
+INF = float("inf")
+NEG_INF = float("-inf")
+BIGID = 2**31 - 1  # minid mode fill (matches ops.ccl.BIGID)
+
+_MODES = {"euclid": 0, "node": 1, "maxflood": 2, "minid": 3}
+_KINDS = {"ball_rail": 0, "max2": 1}
+_MASK_DTYPES = (torch.uint8, torch.bool)
+
+
+def _costs9(anis_perm) -> list:
+    out = []
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            c = np.float32(np.sqrt(
+                anis_perm[0] ** 2
+                + (dy * anis_perm[1]) ** 2
+                + (dz * anis_perm[2]) ** 2
+            ))
+            out.append(((dy, dz), float(c)))
+    return out
+
+
+def _fill(mode: str):
+    if mode == "maxflood":
+        return NEG_INF
+    if mode == "minid":
+        return BIGID
+    return INF
+
+
+# --------------------------------------------------------------------------- #
+# B1: one directed sweep
+
+
+def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
+                  clamp_positive: bool, descending: bool):
+    """Plain torch version of the B1 kernel: a Python loop over planes
+    (the JAX package's `_sweep0_scan`)."""
+    fill = _fill(mode)
+    costs9 = _costs9(anis_perm)
+    n, H, W = d.shape
+    occ = (cc != 0) if mode == "minid" else (cc > 0)
+    if okmask is not None:
+        occ = occ & (okmask != 0)
+    cc_eff = torch.where(occ, cc, -1)
+    clamp = clamp_positive and mode in ("euclid", "node")
+    out = torch.empty_like(d)
+    order = range(n - 1, -1, -1) if descending else range(n)
+    prev_v = prev_c = None
+    for p in order:
+        cur, ccc = d[p], cc[p]
+        if prev_v is None:
+            new = torch.where(occ[p], cur, fill)
+        else:
+            pv = pad_const(prev_v, 1, fill)
+            pc = pad_const(prev_c, 1, -1)
+            cand = torch.full_like(cur, fill)
+            for (dy, dz), c in costs9:
+                sv = pv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+                sc = pc[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+                sv = torch.where(sc == ccc, sv, fill)
+                if mode == "euclid":
+                    sv = sv + c
+                if mode == "maxflood":
+                    cand = torch.maximum(cand, sv)
+                else:
+                    cand = torch.minimum(cand, sv)
+            if mode == "node":
+                cand = cand + nodecost[p]
+            if mode == "maxflood":
+                new = torch.where(occ[p], torch.maximum(cur, cand), fill)
+            else:
+                new = torch.where(occ[p], torch.minimum(cur, cand), fill)
+        if clamp:
+            new = torch.where(new > 0.0, INF, new)
+        out[p] = new
+        prev_v, prev_c = new, cc_eff[p]
+    return out
+
+
+def sweep0(d, cc, nodecost, okmask, anis_perm, mode: str,
+           clamp_positive: bool, descending: bool):
+    """One directed sweep along axis 0 of an (n, H, W) volume (B1)."""
+    if d.device.type == "cpu":
+        return _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode,
+                             clamp_positive, descending)
+    if mode not in _MODES:
+        raise ValueError(f"unknown sweep mode {mode!r}")
+    if (mode == "node") != (nodecost is not None):
+        raise ValueError("nodecost is required in node mode and only there")
+    vdt = torch.int32 if mode == "minid" else torch.float32
+    kernels.require_cuda(
+        "gsweep_sweep0", d, cc, nodecost, okmask,
+        dtypes=((vdt,), (torch.int32,), (torch.float32,), _MASK_DTYPES),
+        shape=d.shape)
+    n, H, W = d.shape
+    out = torch.empty_like(d)
+    rc = kernels.lib().kt_gsweep_sweep0(
+        kernels.ptr(d), kernels.ptr(cc), kernels.ptr(nodecost),
+        kernels.ptr(okmask), kernels.ptr(out), n, H, W,
+        kernels.costs_arg(_costs9(anis_perm)), _MODES[mode],
+        int(bool(clamp_positive)), int(bool(descending)),
+        kernels.stream_ptr(d.device))
+    kernels.check(rc, "gsweep_sweep0")
+    kernels.LAUNCHES["gsweep_sweep0"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# B2: two fields in one pass
+
+
+def _sweep0_dual_plain(da, db, cc, nodecost, okmask, anis_perm, kind: str,
+                       descending: bool):
+    """Plain torch version of the B2 kernel (the JAX package's
+    `_dual_kernel_factory`, plane by plane)."""
+    fill = NEG_INF if kind == "max2" else INF
+    costs9 = _costs9(anis_perm)
+    n, H, W = da.shape
+    occ = cc > 0
+    cc_eff = torch.where(occ, cc, -1)
+    out_a = torch.empty_like(da)
+    out_b = torch.empty_like(db)
+    order = range(n - 1, -1, -1) if descending else range(n)
+    pa = torch.full((H + 2, W + 2), fill, dtype=da.dtype, device=da.device)
+    pb = torch.full_like(pa, fill)
+    pc = torch.full((H + 2, W + 2), -1, dtype=cc.dtype, device=cc.device)
+    for p in order:
+        cur_a, cur_b, ccc = da[p], db[p], cc[p]
+        occupied = occ[p]
+        occ_a = occupied & (okmask[p] != 0) if kind == "ball_rail" \
+            else occupied
+        cand_a = torch.full_like(cur_a, fill)
+        cand_b = torch.full_like(cur_b, fill)
+        for (dy, dz), c in costs9:
+            same = pc[1 + dy:1 + dy + H, 1 + dz:1 + dz + W] == ccc
+            sva = torch.where(same, pa[1 + dy:1 + dy + H, 1 + dz:1 + dz + W],
+                              fill)
+            svb = torch.where(same, pb[1 + dy:1 + dy + H, 1 + dz:1 + dz + W],
+                              fill)
+            if kind == "ball_rail":
+                cand_a = torch.minimum(cand_a, sva + c)
+                cand_b = torch.minimum(cand_b, svb)
+            else:
+                cand_a = torch.maximum(cand_a, sva)
+                cand_b = torch.maximum(cand_b, svb)
+        if kind == "ball_rail":
+            new_a = torch.where(occ_a, torch.minimum(cur_a, cand_a), INF)
+            new_a = torch.where(new_a > 0.0, INF, new_a)  # clamp_positive
+            cand_b = cand_b + nodecost[p]
+            new_b = torch.where(occupied, torch.minimum(cur_b, cand_b), INF)
+        else:
+            new_a = torch.where(occupied, torch.maximum(cur_a, cand_a), fill)
+            new_b = torch.where(occupied, torch.maximum(cur_b, cand_b), fill)
+        out_a[p] = new_a
+        out_b[p] = new_b
+        # field A's occupancy difference folds into its carried VALUES
+        pa[1:H + 1, 1:W + 1] = (torch.where(occ_a, new_a, fill)
+                                if kind == "ball_rail" else new_a)
+        pb[1:H + 1, 1:W + 1] = new_b
+        pc[1:H + 1, 1:W + 1] = cc_eff[p]
+    return out_a, out_b
+
+
+def sweep0_dual(da, db, cc, nodecost, okmask, anis_perm, kind: str,
+                descending: bool):
+    """One directed axis-0 sweep of two fields with one cc read (B2).
+    kind "ball_rail": A = euclid + okmask + clamp_positive, B = node with
+    `nodecost`; kind "max2": two maxflood fields."""
+    if da.device.type == "cpu":
+        return _sweep0_dual_plain(da, db, cc, nodecost, okmask, anis_perm,
+                                  kind, descending)
+    if kind not in _KINDS:
+        raise ValueError(f"unknown dual sweep kind {kind!r}")
+    if kind == "ball_rail" and (nodecost is None or okmask is None):
+        raise ValueError("ball_rail needs nodecost and okmask")
+    if kind == "max2":
+        nodecost = okmask = None
+    kernels.require_cuda(
+        "gsweep_sweep0_dual", da, db, cc, nodecost, okmask,
+        dtypes=((torch.float32,), (torch.float32,), (torch.int32,),
+                (torch.float32,), _MASK_DTYPES),
+        shape=da.shape)
+    n, H, W = da.shape
+    out_a = torch.empty_like(da)
+    out_b = torch.empty_like(db)
+    rc = kernels.lib().kt_gsweep_sweep0_dual(
+        kernels.ptr(da), kernels.ptr(db), kernels.ptr(cc),
+        kernels.ptr(nodecost), kernels.ptr(okmask), kernels.ptr(out_a),
+        kernels.ptr(out_b), n, H, W, kernels.costs_arg(_costs9(anis_perm)),
+        _KINDS[kind], int(bool(descending)), kernels.stream_ptr(da.device))
+    kernels.check(rc, "gsweep_sweep0_dual")
+    kernels.LAUNCHES["gsweep_sweep0_dual"] += 1
+    return out_a, out_b
+
+
+# --------------------------------------------------------------------------- #
+# Round/relax driver
+
+# layout cycle: xyz --x sweeps--> (1,0,2) = yxz --y sweeps-->
+#               (2,1,0) of yxz = zxy --z sweeps--> (1,2,0) back to xyz
+_PERM_TO_Y = (1, 0, 2)
+_PERM_Y_TO_Z = (2, 1, 0)
+_PERM_Z_TO_X = (1, 2, 0)
+
+
+def _permute(t, perm):
+    return t.permute(*perm).contiguous()
+
+
+class MaskViews:
+    """The three layout views of a static per-relax operand (cc ids,
+    nodecost or okmask), built once and reused across relaxations."""
+
+    __slots__ = ("x", "y", "z")
+
+    def __init__(self, vol):
+        self.x = vol.contiguous()
+        self.y = _permute(self.x, _PERM_TO_Y)
+        self.z = _permute(self.y, _PERM_Y_TO_Z)
+
+
+def _views(v: Optional[MaskViews]):
+    return (None, None, None) if v is None else (v.x, v.y, v.z)
+
+
+def one_round(d, cc_v: MaskViews, nc_v: Optional[MaskViews],
+              ok_v: Optional[MaskViews], anisotropy, mode: str,
+              clamp_positive: bool):
+    """One full round: +-x, +-y, +-z sweeps with layout rotation."""
+    ax, ay, az = (float(a) for a in anisotropy)
+    nc, ok = _views(nc_v), _views(ok_v)
+
+    def pair(dd, ccv, ncv, okv, anis_perm):
+        dd = sweep0(dd, ccv, ncv, okv, anis_perm, mode, clamp_positive, False)
+        return sweep0(dd, ccv, ncv, okv, anis_perm, mode, clamp_positive,
+                      True)
+
+    d = pair(d, cc_v.x, nc[0], ok[0], (ax, ay, az))
+    d = _permute(d, _PERM_TO_Y)
+    d = pair(d, cc_v.y, nc[1], ok[1], (ay, ax, az))
+    d = _permute(d, _PERM_Y_TO_Z)
+    d = pair(d, cc_v.z, nc[2], ok[2], (az, ax, ay))
+    return _permute(d, _PERM_Z_TO_X)
+
+
+def _change_mask(nd, d, conv: str):
+    if conv == "reach":
+        return torch.isfinite(nd) != torch.isfinite(d)
+    if conv == "negative":
+        return (torch.where(nd <= 0, nd, INF) != torch.where(d <= 0, d, INF))
+    return nd != d
+
+
+def relax_full(d, cc_v: MaskViews, nc_v, ok_v, anisotropy, rounds: int,
+               mode: str = "euclid", clamp_positive: bool = False,
+               conv: str = "exact"):
+    """`rounds` full rounds; the LAST round doubles as the convergence
+    check. Returns (d, changed_mask): the per-voxel last-round change mask
+    (empty at a fixpoint; callers reduce it per label, since cc partitions
+    the foreground)."""
+    for _ in range(max(int(rounds), 1) - 1):
+        d = one_round(d, cc_v, nc_v, ok_v, anisotropy, mode, clamp_positive)
+    nd = one_round(d, cc_v, nc_v, ok_v, anisotropy, mode, clamp_positive)
+    return nd, _change_mask(nd, d, conv)
+
+
+def relax_escalated(d, cc_v: MaskViews, nc_v, ok_v, anisotropy, rounds: int,
+                    mode: str = "euclid", clamp_positive: bool = False,
+                    conv: str = "exact", extra_stages: int = 2,
+                    extra_rounds: int = 4):
+    """relax_full plus up to `extra_stages` stages of `extra_rounds` more
+    rounds, each run only while the previous stage's change mask is not
+    empty. Returns (d, changed_mask) of the last executed stage."""
+    d, mask = relax_full(d, cc_v, nc_v, ok_v, anisotropy, rounds, mode,
+                         clamp_positive, conv)
+    for _ in range(int(extra_stages)):
+        if not bool(mask.any()):
+            break
+        d, mask = relax_full(d, cc_v, nc_v, ok_v, anisotropy,
+                             int(extra_rounds), mode, clamp_positive, conv)
+    return d, mask
+
+
+def one_round_dual(da, db, cc_v: MaskViews, nc_v, ok_v, anisotropy,
+                   kind: str):
+    """One full +-x/+-y/+-z round of the fused two-field sweep."""
+    ax, ay, az = (float(a) for a in anisotropy)
+    nc, ok = _views(nc_v), _views(ok_v)
+
+    def pair(aa, bb, ccv, ncv, okv, anis_perm):
+        aa, bb = sweep0_dual(aa, bb, ccv, ncv, okv, anis_perm, kind, False)
+        return sweep0_dual(aa, bb, ccv, ncv, okv, anis_perm, kind, True)
+
+    da, db = pair(da, db, cc_v.x, nc[0], ok[0], (ax, ay, az))
+    da, db = _permute(da, _PERM_TO_Y), _permute(db, _PERM_TO_Y)
+    da, db = pair(da, db, cc_v.y, nc[1], ok[1], (ay, ax, az))
+    da, db = _permute(da, _PERM_Y_TO_Z), _permute(db, _PERM_Y_TO_Z)
+    da, db = pair(da, db, cc_v.z, nc[2], ok[2], (az, ax, ay))
+    return _permute(da, _PERM_Z_TO_X), _permute(db, _PERM_Z_TO_X)
+
+
+def relax_full_dual(da, db, cc_v: MaskViews, nc_v, ok_v, anisotropy,
+                    rounds: int, kind: str = "ball_rail"):
+    """`rounds` fused two-field rounds; the last round doubles as the
+    convergence check. Returns ((da, db), (mask_a, mask_b)): per-field
+    last-round change masks (field A under conv="negative" for
+    ball_rail, exact otherwise)."""
+    for _ in range(max(int(rounds), 1) - 1):
+        da, db = one_round_dual(da, db, cc_v, nc_v, ok_v, anisotropy, kind)
+    na, nb = one_round_dual(da, db, cc_v, nc_v, ok_v, anisotropy, kind)
+    mask_a = _change_mask(na, da,
+                          "negative" if kind == "ball_rail" else "exact")
+    mask_b = nb != db
+    return (na, nb), (mask_a, mask_b)
+
+
+def relax_escalated_dual(da, db, cc_v: MaskViews, nc_v, ok_v, anisotropy,
+                         rounds: int, kind: str = "ball_rail",
+                         extra_stages: int = 2, extra_rounds: int = 4):
+    """relax_full_dual plus escalation stages, jointly gated: a stage runs
+    while EITHER field's mask changed. Extra rounds on a converged field
+    are exact no-ops, so each field equals its separately escalated
+    relax."""
+    (da, db), (ma, mb) = relax_full_dual(da, db, cc_v, nc_v, ok_v,
+                                         anisotropy, rounds, kind)
+    for _ in range(int(extra_stages)):
+        if not (bool(ma.any()) or bool(mb.any())):
+            break
+        (da, db), (ma, mb) = relax_full_dual(da, db, cc_v, nc_v, ok_v,
+                                             anisotropy, int(extra_rounds),
+                                             kind)
+    return (da, db), (ma, mb)
