@@ -1,5 +1,5 @@
 // B5: one directed axis-0 sweep of a single (n, H, W) volume, gated by an
-// ok mask (no component ids).
+// ok mask (no component ids). B4 (below) is its lane-batched form.
 //
 // Replaces the Pallas kernel kimimaro_tpu/ops/pallas_sweep.py `sweep_axis0`
 // (`_sweep_kernel_factory`), which the host trace path relaxes label crops
@@ -24,17 +24,23 @@
 
 namespace {
 
-template <bool NODE, bool CLAMP>
-__global__ void axis0_plane(const float* __restrict__ d,
-                            const uint8_t* __restrict__ ok,
-                            const float* __restrict__ nc,
-                            float* __restrict__ out, int H, int W,
-                            int64_t plane, int64_t prev, kt::Costs9 costs) {
-    const int z = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (y >= H || z >= W) return;
+// The nine bit indices of a voxel graph's bitfield, one per (dy, dz) move.
+struct Bits9 {
+    int b[9];
+};
+
+// One voxel of a directed plane sweep of the volume that starts at `base`
+// in the buffers. With VG, a candidate from the neighbour u on the previous
+// plane counts only where bit bits.b[k] of vg[u] allows the move (the bit
+// of the neighbour, not of the voxel).
+template <bool NODE, bool CLAMP, bool VG>
+__device__ __forceinline__ void sweep_cell(
+    const float* __restrict__ d, const uint8_t* __restrict__ ok,
+    const float* __restrict__ nc, const uint32_t* __restrict__ vg,
+    float* __restrict__ out, int H, int W, int64_t base, int64_t plane,
+    int64_t prev, int y, int z, const kt::Costs9& costs, const Bits9& bits) {
     const int64_t HW = (int64_t)H * W;
-    const int64_t i = plane * HW + (int64_t)y * W + z;
+    const int64_t i = base + plane * HW + (int64_t)y * W + z;
     const float cur = d[i];
     if (prev < 0) {
         out[i] = cur;
@@ -48,15 +54,31 @@ __global__ void axis0_plane(const float* __restrict__ d,
             const int zz = z + dz;
             float s = INFINITY;
             if (yy >= 0 && yy < H && zz >= 0 && zz < W) {
-                s = out[prev * HW + (int64_t)yy * W + zz];
+                const int64_t j = base + prev * HW + (int64_t)yy * W + zz;
+                s = out[j];
+                if (VG && ((vg[j] >> bits.b[k]) & 1u) == 0u) s = INFINITY;
             }
-            cand = NODE ? fminf(cand, s) : fminf(cand, __fadd_rn(s, costs.c[k]));
+            cand = NODE ? fminf(cand, s)
+                        : fminf(cand, __fadd_rn(s, costs.c[k]));
         }
     }
     if (NODE) cand = __fadd_rn(cand, nc[i]);
     float nv = ok[i] ? fminf(cur, cand) : INFINITY;
     if (CLAMP && nv > 0.0f) nv = INFINITY;
     out[i] = nv;
+}
+
+template <bool NODE, bool CLAMP>
+__global__ void axis0_plane(const float* __restrict__ d,
+                            const uint8_t* __restrict__ ok,
+                            const float* __restrict__ nc,
+                            float* __restrict__ out, int H, int W,
+                            int64_t plane, int64_t prev, kt::Costs9 costs) {
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (y >= H || z >= W) return;
+    sweep_cell<NODE, CLAMP, false>(d, ok, nc, nullptr, out, H, W, 0, plane,
+                                   prev, y, z, costs, Bits9{});
 }
 
 template <bool NODE, bool CLAMP>
@@ -77,9 +99,107 @@ int run_axis0(const void* d, const void* ok, const void* nc, void* out, int n,
     return 0;
 }
 
+// B4: the lane-batched form. Replaces the Pallas kernel
+// kimimaro_tpu/ops/pallas_sweep.py `sweep_axis0_batched`
+// (`_batched_kernel_factory`), the crop engine's relax
+// (kimimaro_tpu/ops/geodesic.py `_batched_relax_pallas`). Each lane is an
+// independent (n, H, W) volume of a (B, n, H, W) batch; one launch per plane
+// covers every lane (blockIdx.z = lane). With a voxel graph, a candidate
+// from the neighbour u on the previous plane counts only where bit bits9[k]
+// of u's bitfield allows the move (the bit of the neighbour, not of the
+// voxel). What bounds it is the same as B5: a relax is (rounds + 1) x 6 x n
+// plane launches of a few thousand threads per lane, so the launches, not
+// the bytes, set its time.
+template <bool NODE, bool CLAMP, bool VG>
+__global__ void batched_plane(const float* __restrict__ d,
+                              const uint8_t* __restrict__ ok,
+                              const float* __restrict__ nc,
+                              const uint32_t* __restrict__ vg,
+                              float* __restrict__ out, int n, int H, int W,
+                              int64_t plane, int64_t prev, kt::Costs9 costs,
+                              Bits9 bits) {
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (y >= H || z >= W) return;
+    const int64_t base = (int64_t)blockIdx.z * n * H * W;
+    sweep_cell<NODE, CLAMP, VG>(d, ok, nc, vg, out, H, W, base, plane, prev,
+                                y, z, costs, bits);
+}
+
+template <bool NODE, bool CLAMP, bool VG>
+int run_batched(const void* d, const void* ok, const void* nc, const void* vg,
+                void* out, int B, int n, int H, int W, const kt::Costs9& costs,
+                const Bits9& bits, int descending, cudaStream_t st) {
+    dim3 grid = kt::plane_grid(H, W);
+    grid.z = B;
+    const dim3 block = kt::plane_block();
+    for (int s = 0; s < n; ++s) {
+        int64_t plane, prev;
+        kt::sweep_planes(s, n, descending, &plane, &prev);
+        batched_plane<NODE, CLAMP, VG><<<grid, block, 0, st>>>(
+            (const float*)d, (const uint8_t*)ok, (const float*)nc,
+            (const uint32_t*)vg, (float*)out, n, H, W, plane, prev, costs,
+            bits);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+
+template <bool NODE, bool CLAMP>
+int run_batched_vg(int has_vg, const void* d, const void* ok, const void* nc,
+                   const void* vg, void* out, int B, int n, int H, int W,
+                   const kt::Costs9& costs, const Bits9& bits, int descending,
+                   cudaStream_t st) {
+    return has_vg ? run_batched<NODE, CLAMP, true>(d, ok, nc, vg, out, B, n, H,
+                                                   W, costs, bits, descending,
+                                                   st)
+                  : run_batched<NODE, CLAMP, false>(d, ok, nc, vg, out, B, n,
+                                                    H, W, costs, bits,
+                                                    descending, st);
+}
+
 }  // namespace
 
 extern "C" {
+
+// B4. d/out/nc: float32, ok: uint8 (bool), vg: uint32, all (B, n, H, W)
+// contiguous; nc may be NULL when node_mode is 0, vg and bits9 are both NULL
+// or both given (bits9: nine bit indices in (dy, dz) order). Returns a
+// cudaError_t code (0 = success).
+int kt_sweep_axis0_batched(const void* d, const void* ok, const void* nc,
+                           const void* vg, void* out, int B, int n, int H,
+                           int W, const float* costs9, const int* bits9,
+                           int node_mode, int clamp, int descending,
+                           void* stream) {
+    if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+    if (node_mode && nc == nullptr) return (int)cudaErrorInvalidValue;
+    if ((vg == nullptr) != (bits9 == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const kt::Costs9 costs = kt::make_costs9(costs9);
+    Bits9 bits;
+    for (int k = 0; k < 9; ++k) {
+        bits.b[k] = bits9 ? bits9[k] : 0;
+        if (bits.b[k] < 0 || bits.b[k] > 31) return (int)cudaErrorInvalidValue;
+    }
+    const int has_vg = vg != nullptr;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (node_mode) {
+        return clamp ? run_batched_vg<true, true>(has_vg, d, ok, nc, vg, out,
+                                                  B, n, H, W, costs, bits,
+                                                  descending, st)
+                     : run_batched_vg<true, false>(has_vg, d, ok, nc, vg, out,
+                                                   B, n, H, W, costs, bits,
+                                                   descending, st);
+    }
+    return clamp ? run_batched_vg<false, true>(has_vg, d, ok, nc, vg, out, B,
+                                               n, H, W, costs, bits,
+                                               descending, st)
+                 : run_batched_vg<false, false>(has_vg, d, ok, nc, vg, out, B,
+                                                n, H, W, costs, bits,
+                                                descending, st);
+}
 
 // d/out/nc: float32, ok: uint8 (bool), all (n, H, W) contiguous; nc may be
 // NULL when node_mode is 0. Returns a cudaError_t code (0 = success).

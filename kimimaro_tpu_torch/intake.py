@@ -3,11 +3,14 @@
 Torch counterpart of kimimaro_tpu.intake on its main path: the preamble
 (CCL, EDT, per-label metadata, border targets) runs as full-volume device
 passes on `device`; the global lock-step engine (gengine) traces every
-label it can hold, and the labels it hands back are traced one by one by
-the host trace path (trace.trace).
+label it can hold; the labels it hands back (soma candidates, manual
+target overflow, bboxes beyond its crop tiers, unconverged labels) go to
+the batched crop engine (engine.trace_batched); and only the labels the
+crop engine cannot hold are traced one by one by the host trace path
+(trace.trace).
 
 Stages: upload, ccl, edt, label_info, border_targets, gengine,
-host_fallback, finalize, merge.
+crop_engine, finalize, host_fallback, merge.
 """
 
 from __future__ import annotations
@@ -204,9 +207,15 @@ def skeletonize(
         firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
         firstvox_arr[1:] = np.stack(
             np.unravel_index(fv_flat, tuple(cc_dev.shape)), axis=-1)
-        results, fallback_jobs = gengine.trace_global(
+        results, crop_jobs = gengine.trace_global(
             cc_dev, dbf_dev, jobs, teasar_params, anisotropy, fix_branching,
             firstvox_arr=firstvox_arr)
+    profiling.count("crop_engine_jobs", len(crop_jobs))
+    with phase("crop_engine", device):
+        crop_results, fallback_jobs = engine.trace_batched(
+            cc_dev, dbf_dev, crop_jobs, teasar_params, anisotropy,
+            fix_branching)
+        results.update(crop_results)
     profiling.count("engine_jobs", len(jobs) - len(fallback_jobs))
     profiling.count("fallback_jobs", len(fallback_jobs))
 
@@ -232,7 +241,7 @@ def skeletonize(
             skel.space = "physical"
             skeletons[orig_segid].append(skel)
 
-    # labels the global engine handed back: the host trace path
+    # labels neither engine could hold: the host trace path
     with phase("host_fallback", device):
         _run_host_fallback(
             fallback_jobs, cc_dev, dbf_dev, remapping, skeletons,
@@ -244,9 +253,11 @@ def skeletonize(
 
 def _run_host_fallback(fallback_jobs, cc_dev, dbf_dev, remapping, skeletons,
                        teasar_params, anisotropy, fix_branching):
-    """Per-label host trace loop for the jobs the global engine could not
-    hold (kimimaro's plain serial path, intake.py:434-517). The crops stay
-    on the device of `cc_dev`."""
+    """Per-label host trace loop for the jobs the crop engine could not
+    hold: more than T_CAP manual targets, path capacity overflow, or
+    relaxations still unconverged after its escalation (kimimaro's plain
+    serial path, intake.py:434-517). The crops stay on the device of
+    `cc_dev`."""
     for job in fallback_jobs:
         segid = job["segid"]
         mn = np.asarray(job["offset"], dtype=np.int64)

@@ -33,11 +33,12 @@ NVCC_FLAGS = (
     "--fmad=false",
 )
 
-# launches per kernel since the last reset (B1, B2, B3, B5)
+# launches per kernel since the last reset (B1, B2, B3, B4, B5)
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_dual": 0,
     "crop_argmax": 0,
+    "sweep_axis0_batched": 0,
     "sweep_axis0": 0,
 }
 
@@ -104,6 +105,9 @@ def lib() -> ctypes.CDLL:
         so.kt_crop_argmax.restype = i
         so.kt_sweep_axis0.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p]
         so.kt_sweep_axis0.restype = i
+        so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p,
+                                              p, i, i, i, p]
+        so.kt_sweep_axis0_batched.restype = i
         _LIB = so
     return _LIB
 

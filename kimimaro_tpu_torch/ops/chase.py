@@ -2,12 +2,15 @@
 
 Counterpart of kimimaro_tpu.ops.fused_trace (`RELAX_ROUNDS`, `_chase`)
 without the fused on-device path loop: the host trace path (trace.py) and
-the global engine (gengine.py) use these.
+the global engine (gengine.py) use the host `_chase`; the crop engine
+(engine.py) walks all lanes of a batch at once on the device with
+`chase_batched`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Default sweep-round count of a relaxation stage. Rounds needed = number
 # of "bends" in the worst geodesic; compact shapes converge in a handful,
@@ -46,3 +49,61 @@ def _chase(d_pad, start, max_len: int):
         k = int(np.argmin(win))
         cur = cur + np.array([k // 9 - 1, (k // 3) % 3 - 1, k % 3 - 1])
     return path, i, reached
+
+
+# the 27 window offsets in lexicographic order (index 13 is the centre)
+_WINDOW27 = np.array([(k // 9 - 1, (k // 3) % 3 - 1, k % 3 - 1)
+                      for k in range(27)], dtype=np.int64)
+_CHASE_CHECK = 8  # steps between all-lanes-done checks
+
+
+def _wrap_clamp(idx, size, hi):
+    """JAX's index rule for a dynamic slice or scalar read: a negative
+    index counts from the end (once), then clamps to [0, hi]."""
+    idx = torch.where(idx < 0, idx + size, idx)
+    return torch.minimum(torch.clamp(idx, min=0), hi)
+
+
+def chase_batched(d_pad, start, max_len: int):
+    """`_chase` for every lane of a batch on the device, as the JAX crop
+    engine's vmapped `fused_trace._chase` runs it: a lane steps while it
+    has not reached a rail and has fewer than `max_len` vertices.
+
+    d_pad: (B, X+2, Y+2, Z+2) float32 rail fields padded by one +inf voxel;
+    start: (B, 3) int64 crop coordinates. Returns (path (B, L, 3) int64
+    with -1 padding, length (B,), reached_rail (B,)). The first minimum of
+    the 26-window in lexicographic offset order wins; windows and reads
+    follow JAX's dynamic-slice index rule at the padded edge."""
+    B = d_pad.shape[0]
+    L = int(max_len)
+    dev = d_pad.device
+    size = torch.tensor(d_pad.shape[1:], dtype=torch.int64, device=dev)
+    strides = torch.tensor([d_pad.shape[2] * d_pad.shape[3], d_pad.shape[3],
+                            1], dtype=torch.int64, device=dev)
+    flat = d_pad.reshape(B, -1)
+    win27 = torch.as_tensor(_WINDOW27, device=dev)
+    win_lin = ((win27 + 1) * strides).sum(dim=1)
+    lanes = torch.arange(B, device=dev)
+
+    path = torch.full((B, L, 3), -1, dtype=torch.int64, device=dev)
+    cur = start.to(device=dev, dtype=torch.int64)
+    i = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for step in range(L):
+        go = ~done & (i < L)
+        if step % _CHASE_CHECK == 0 and not bool(go.any()):
+            break
+        slot = torch.clamp(i, max=L - 1)
+        path[lanes, slot] = torch.where(go[:, None], cur, path[lanes, slot])
+        c = _wrap_clamp(cur + 1, size, size - 1)
+        at_rail = flat.gather(1, (c * strides).sum(1, keepdim=True))[:, 0]
+        at_rail = at_rail <= 0.0
+        o = _wrap_clamp(cur, size, size - 3)
+        win = flat.gather(1, (o * strides).sum(1, keepdim=True)
+                          + win_lin[None, :])
+        win[:, 13] = float("inf")
+        nxt = cur + win27[torch.argmin(win, dim=1)]
+        cur = torch.where((go & ~at_rail)[:, None], nxt, cur)
+        i = torch.where(go, i + 1, i)
+        done = done | (go & at_rail)
+    return path, i, done

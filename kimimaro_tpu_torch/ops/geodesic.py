@@ -1,10 +1,11 @@
 """Shortest-path fields on voxel grids by directional plane sweeps.
 
 Torch counterpart of the parts of kimimaro_tpu.ops.geodesic that the host
-trace path uses. Distances are the fixpoint of monotone relaxation: a
-round is six directional plane sweeps (+-x, +-y, +-z; kernel B5 through
-`ops.sweep.sweep_axis0`), and rounds repeat until one changes nothing, so
-the result is exactly the Dijkstra distance.
+trace path and the crop engine use. Distances are the fixpoint of
+monotone relaxation: a round is six directional plane sweeps (+-x, +-y,
++-z; kernel B5 through `ops.sweep.sweep_axis0`, or B4 through
+`ops.sweep.sweep_axis0_batched` for a batch of lanes), and rounds repeat
+until one changes nothing, so the result is exactly the Dijkstra distance.
 
 Two edge-cost modes:
   - euclidean: step cost = anisotropic length of the offset
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from .stencils import neighborhood_offsets, shifted
-from .sweep import sweep_axis0
+from .sweep import sweep_axis0, sweep_axis0_batched
 
 INF = float("inf")
 
@@ -53,13 +54,19 @@ def _sweep(dist, ok, node_cost, axis: int, direction: int, anisotropy,
     return torch.movedim(out, 0, axis).contiguous()
 
 
-def _changed(nd, d, conv: str) -> bool:
+def _lane_changed(nd, d, conv: str):
+    """Per-lane change flags of a (B, ...) batch under `conv`."""
     if conv == "reach":
-        return bool((torch.isfinite(nd) != torch.isfinite(d)).any())
-    if conv == "negative":
-        return bool((torch.where(nd <= 0, nd, INF)
-                     != torch.where(d <= 0, d, INF)).any())
-    return bool((nd != d).any())
+        diff = torch.isfinite(nd) != torch.isfinite(d)
+    elif conv == "negative":
+        diff = torch.where(nd <= 0, nd, INF) != torch.where(d <= 0, d, INF)
+    else:
+        diff = nd != d
+    return diff.flatten(1).any(dim=1)
+
+
+def _changed(nd, d, conv: str) -> bool:
+    return bool(_lane_changed(nd[None], d[None], conv)[0])
 
 
 def _relax_stage(d, ok, node_cost, anisotropy, clamp_positive: bool,
@@ -77,6 +84,46 @@ def _relax_stage(d, ok, node_cost, anisotropy, clamp_positive: bool,
         changed = _changed(nd, d, conv)
         d = nd
     return d, not changed
+
+
+def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
+                         clamp_positive: bool = False, conv: str = "exact"):
+    """`rounds` full 6-sweep rounds plus one checking round over a batch
+    of (B, X, Y, Z) lanes (counterpart of geodesic.relax_rounds_batchable
+    under vmap). Returns (d, converged): converged[b] when lane b's last
+    round changed nothing under `conv` ("exact", "reach" or "negative").
+
+    Axes 1 and 2 are swept through permuted contiguous copies (ok and nc
+    are permuted once per call, d twice per axis and round). The loop
+    stops early after a round that changed no value of any lane: the field
+    is then a fixpoint, so the values and flags equal a full run's."""
+    node_mode = nc is not None
+    layouts = []
+    for a in range(3):
+        h, w = [i for i in range(3) if i != a]
+        perm = (0, 1 + a, 1 + h, 1 + w)
+        inv = tuple(int(i) for i in np.argsort(perm))
+        anis_perm = (float(anisotropy[a]), float(anisotropy[h]),
+                     float(anisotropy[w]))
+        okp = ok.permute(perm).contiguous()
+        ncp = nc.permute(perm).contiguous() if node_mode else None
+        layouts.append((perm, inv, anis_perm, okp, ncp))
+
+    changed = torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+    for _ in range(int(rounds) + 1):
+        nd = d
+        for perm, inv, anis_perm, okp, ncp in layouts:
+            dm = nd.permute(perm).contiguous()
+            for desc in (False, True):
+                dm = sweep_axis0_batched(dm, okp, ncp, anis_perm, node_mode,
+                                         bool(clamp_positive), desc)
+            nd = dm.permute(inv).contiguous()
+        same = not bool((nd != d).any())
+        changed = _lane_changed(nd, d, conv)
+        d = nd
+        if same:
+            break
+    return d, ~changed
 
 
 def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),

@@ -65,10 +65,13 @@ def _pdrf_kernel(dbf_inf, daf, dbf_max, pdrf_scale, pdrf_exponent: int,
                  max_daf):
     """PDRF = pdrf_scale * (1 - DBF/dbf_max^1.01)^exponent + DAF/max(DAF).
     Background voxels (DBF = +inf) get +inf cost and are impassable.
-    dbf_max, pdrf_scale: float32 scalars; max_daf: 0-dim float32 tensor."""
+    pdrf_scale: a float32 scalar; dbf_max: a float32 scalar or a tensor
+    that broadcasts against the fields (one value per lane of a batch);
+    max_daf: a float32 tensor of the same kind."""
     dev = dbf_inf.device
     one = torch.ones((), dtype=torch.float32, device=dev)
-    m = one / pow_1_01(torch.tensor(dbf_max, dtype=torch.float32, device=dev))
+    m = one / pow_1_01(torch.as_tensor(dbf_max, dtype=torch.float32,
+                                       device=dev))
     p = 1.0 - dbf_inf * m
     e = int(pdrf_exponent)
     p = integer_pow(p, e) if e > 0 else torch.ones_like(p)

@@ -113,6 +113,69 @@ def test_sweep_axis0_kernel_matches_plain(gen, node_mode):
             _assert_bit_equal((got,), (want,))
 
 
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_batched_kernel_matches_plain(gen, node_mode):
+    shape = (5,) + SHAPE
+    d = torch.where(_rand(gen, shape) < 0.25, _rand(gen, shape) * 10 - 5,
+                    float("inf"))
+    ok = _rand(gen, shape) < 0.8
+    nc = _rand(gen, shape) * 3
+    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                       device="cuda", dtype=torch.int32)
+    bits9 = (25, 21, 19, 23, 1, 19, 24, 20, 18)
+    for clamp in (False, True):
+        for desc in (False, True):
+            for g, b in ((None, None), (vg, bits9)):
+                before = kernels.LAUNCHES["sweep_axis0_batched"]
+                got = tsweep.sweep_axis0_batched(d, ok, nc, ANIS, node_mode,
+                                                 clamp, desc, vg=g, bits9=b)
+                assert kernels.LAUNCHES["sweep_axis0_batched"] == before + 1
+                want = tsweep._sweep_axis0_batched_plain(
+                    d, ok, nc, ANIS, node_mode, clamp, desc, g, b)
+                _assert_bit_equal((got,), (want,))
+
+
+def test_crop_engine_cuda_matches_cpu(gen):
+    """engine.trace_batched on the card equals the same call on the CPU:
+    an L-tube, a bent tube and a ball in soma mode, in two buckets."""
+    from kimimaro_tpu_torch import engine
+    from kimimaro_tpu_torch.ops import edt
+
+    vol = np.zeros((40, 40, 16), dtype=np.int32)
+    vol[4:36, 18:22, 2:6] = 1
+    vol[18:22, 4:36, 2:6] = 1
+    for x in range(4, 36):
+        y = 30 + int(round(3 * np.sin(x / 4.0)))
+        vol[x, y:y + 2, 9:12] = 2
+    g = np.indices(vol.shape).transpose(1, 2, 3, 0)
+    vol[np.sum((g - (9, 9, 10)) ** 2, axis=-1) <= 30] = 3
+    tp = {"scale": 1.5, "const": 30, "pdrf_exponent": 4,
+          "pdrf_scale": 100000, "soma_detection_threshold": 60,
+          "soma_acceptance_threshold": 70}
+    jobs = []
+    for segid in (1, 2, 3):
+        pts = np.argwhere(vol == segid)
+        mn, mx = pts.min(axis=0), pts.max(axis=0)
+        jobs.append({"segid": segid, "offset": mn, "shape": mx - mn + 1,
+                     "before": [], "after": [], "root": None})
+    out = {}
+    for device in ("cuda", "cpu"):
+        cc = torch.from_numpy(vol).to(device)
+        dbf = edt.edt(cc, (16.0, 16.0, 40.0))
+        before = kernels.LAUNCHES["sweep_axis0_batched"]
+        out[device] = engine.trace_batched(cc, dbf, jobs, tp,
+                                           (16.0, 16.0, 40.0), True)
+        if device == "cuda":
+            assert kernels.LAUNCHES["sweep_axis0_batched"] > before
+    (a, fa), (b, fb) = out["cuda"], out["cpu"]
+    assert [j["segid"] for j in fa] == [j["segid"] for j in fb]
+    assert set(a) == set(b) and len(a) >= 2
+    for segid in a:
+        for (va, ra), (vb, rb) in zip(a[segid], b[segid]):
+            np.testing.assert_array_equal(va, vb)
+            np.testing.assert_array_equal(ra, rb)
+
+
 def test_kernel_wrappers_reject_bad_operands(gen):
     d = torch.zeros(SHAPE, device="cuda")
     cc = torch.zeros(SHAPE, dtype=torch.int64, device="cuda")

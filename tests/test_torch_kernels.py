@@ -1,6 +1,7 @@
-"""The plain versions of the port's four kernels (B1 gsweep.sweep0, B2
-gsweep.sweep0_dual, B3 crop_argmax, B5 sweep.sweep_axis0) against the JAX
-package on the same seeded inputs, bit for bit.
+"""The plain versions of the port's five kernels (B1 gsweep.sweep0, B2
+gsweep.sweep0_dual, B3 crop_argmax, B4 sweep.sweep_axis0_batched, B5
+sweep.sweep_axis0) against the JAX package on the same seeded inputs, bit
+for bit.
 
 On CPU tensors each wrapper runs its plain torch version, so these tests
 pin the semantics every CUDA kernel is compared with on the card
@@ -18,6 +19,7 @@ import torch
 from kimimaro_tpu import gengine as jgengine
 from kimimaro_tpu.ops import gsweep as jgsweep
 from kimimaro_tpu.ops import pallas_sweep
+from kimimaro_tpu.ops.stencils import GRAPH_BITS
 from kimimaro_tpu_torch.ops import crop_argmax as tcrop
 from kimimaro_tpu_torch.ops import gsweep as tgsweep
 from kimimaro_tpu_torch.ops import sweep as tsweep
@@ -124,6 +126,56 @@ def test_sweep_axis0_matches_pallas_interpret(interpret, node_mode, clamp,
         _j(flip(d)), _j(flip(ok)), _j(flip(nc)), ANIS, node_mode, clamp)))
     got = tsweep.sweep_axis0(_t(d), _t(ok), _t(nc), ANIS, node_mode, clamp,
                              descending=descending)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _voxel_graph(rng, shape):
+    """Random symmetric walls (tests/test_pallas_sweep.py:143): each
+    directed edge dropped with p = 0.3, and with it the neighbour's
+    reverse bit."""
+    vg = np.full(shape, 0xFFFFFFFF, dtype=np.uint32)
+    for off, bit in GRAPH_BITS.items():
+        rev = GRAPH_BITS[tuple(-o for o in off)]
+        drop = rng.rand(*shape) < 0.3
+        vg &= ~np.where(drop, np.uint32(1 << bit), np.uint32(0))
+        src, dst = [slice(None)], [slice(None)]
+        for o, n in zip(off, shape[1:]):
+            src.append(slice(o, n) if o >= 0 else slice(0, n + o))
+            dst.append(slice(0, n - o) if o >= 0 else slice(-o, n))
+        sub = np.zeros(shape, bool)
+        sub[tuple(src)] = drop[tuple(dst)]
+        vg &= ~np.where(sub, np.uint32(1 << rev), np.uint32(0))
+    return vg
+
+
+@pytest.mark.parametrize("graph", (False, True))
+@pytest.mark.parametrize("descending", (False, True))
+@pytest.mark.parametrize("clamp", (False, True))
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_batched_matches_pallas_interpret(interpret, node_mode,
+                                                      clamp, descending,
+                                                      graph):
+    """B4's plain version equals pallas_sweep.sweep_axis0_batched
+    (interpret mode) over lanes, with and without voxel-graph gating on
+    the neighbour's bits (the bit table of a descending z sweep)."""
+    rng = np.random.RandomState(13)
+    shape = (3,) + SHAPE
+    d = np.where(rng.rand(*shape) < 0.25,
+                 rng.rand(*shape) * 10 - (5.0 if clamp else 0.0),
+                 np.inf).astype(np.float32)
+    ok = rng.rand(*shape) < 0.8
+    nc = (rng.rand(*shape) * 3).astype(np.float32)
+    vg = bits9 = None
+    if graph:
+        vg = _voxel_graph(rng, shape)
+        bits9 = tuple(GRAPH_BITS[(-dy, -dz, -1)] for dy in (-1, 0, 1)
+                      for dz in (-1, 0, 1))
+    want = np.asarray(pallas_sweep.sweep_axis0_batched(
+        _j(d), _j(ok), _j(nc), ANIS, node_mode, clamp, descending=descending,
+        vg=_j(vg), bits9=bits9))
+    got = tsweep.sweep_axis0_batched(_t(d), _t(ok), _t(nc), ANIS, node_mode,
+                                     clamp, descending=descending, vg=_t(vg),
+                                     bits9=bits9)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

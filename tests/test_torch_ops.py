@@ -78,6 +78,40 @@ def test_relax_full_matches_jax(mode):
     np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
 
 
+@pytest.mark.parametrize("conv", ("exact", "reach", "negative"))
+def test_relax_rounds_batched_matches_vmapped_jax(conv):
+    """relax_rounds_batched equals relax_rounds_batchable under jax.vmap:
+    values and per-lane convergence flags, for a field that converges in
+    the rounds given and one that does not (node mode for "exact",
+    euclid otherwise; a clamped ball for "negative")."""
+    rng = np.random.RandomState(21)
+    B, shape = 3, (9, 8, 7)
+    ok = rng.rand(B, *shape) < 0.85
+    d = np.full((B,) + shape, np.inf, dtype=np.float32)
+    for b in range(B):
+        s = tuple(rng.randint(0, n) for n in shape)
+        d[(b,) + s] = -60.0 if conv == "negative" else 0.0
+        ok[(b,) + s] = True
+    ok[2, :, 3, :] = False  # lane 2 winds: it needs more rounds
+    ok[2, 8, 3, :] = True
+    ok[2, 0, 5, :] = False
+    nc = (rng.rand(B, *shape) * 2 + 0.1).astype(np.float32)
+    node = conv == "exact"
+    clamp = conv == "negative"
+    for rounds in (0, 1, 3):
+        want, wconv = jax.vmap(
+            lambda dd, oo, nn: jgeo.relax_rounds_batchable(
+                dd, oo, nn if node else None, ANIS, rounds,
+                clamp_positive=clamp, conv=conv))(
+            jnp.asarray(d), jnp.asarray(ok), jnp.asarray(nc))
+        got, gconv = tgeo.relax_rounds_batched(
+            torch.from_numpy(d), torch.from_numpy(ok),
+            torch.from_numpy(nc) if node else None, ANIS, rounds,
+            clamp_positive=clamp, conv=conv)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(gconv.numpy(), np.asarray(wconv))
+
+
 def _ball_rail_inputs(vol):
     rng = np.random.RandomState(3)
     valid = ((rng.rand(*vol.shape) < 0.8) & (vol > 0)).astype(np.uint8)

@@ -1,7 +1,8 @@
 """kimimaro_tpu_torch.skeletonize against kimimaro_tpu.skeletonize on the
 global-engine fixtures of tests/test_gengine.py: equal vertices, edges and
 radii. The port's global engine must trace the labels (not hand them
-all back), and a soma-sized label must take the host trace path."""
+all back), a soma-sized label must take the crop engine, and a label with
+more manual targets than the crop engine holds the host trace path."""
 
 import os
 import subprocess
@@ -115,19 +116,36 @@ def test_skeletonize_engine_options_match_jax(case):
     _assert_same(want, got)
 
 
-def test_skeletonize_leftover_label_takes_host_trace_path():
+def test_skeletonize_leftover_label_takes_crop_engine():
     """A ball with a DBF max above the soma cut is not global-eligible:
-    the port traces it through trace.trace (the JAX package through its
-    crop engine); the skeletons still agree."""
+    both packages trace it through their crop engine; the skeletons
+    agree."""
     vol = _blob_volume(seed=1)
     x, y, z = np.ogrid[:40, :36, :30]
     vol[((x - 30) ** 2 + (y - 26) ** 2 + ((z - 21) * 0.5) ** 2) <= 49] = 9
     teasar = dict(TEASAR, soma_detection_threshold=80,
                   soma_acceptance_threshold=200)
     want, got, counters = _run_both(vol, teasar, fix_borders=True)
-    assert counters["fallback_jobs"] >= 1
     assert counters["gengine_jobs"] >= 2
+    assert counters["crop_engine_jobs"] >= 1
+    assert counters["fallback_jobs"] == 0
     assert 9 in got
+    _assert_same(want, got)
+
+
+def test_skeletonize_leftover_label_takes_host_trace_path():
+    """A label given more than 16 manual targets is held by neither
+    engine: the crop engine hands it to the host trace path; the
+    skeletons agree."""
+    vol = _blob_volume(seed=1)
+    lab = np.bincount(vol.ravel())[1:].argmax() + 1
+    pts = np.argwhere(vol == lab)[::11][:17]
+    want, got, counters = _run_both(
+        vol, TEASAR, fix_borders=True,
+        extra_targets_before=[tuple(int(c) for c in p) for p in pts])
+    assert counters["gengine_jobs"] >= 2
+    assert counters["crop_engine_jobs"] >= 1
+    assert counters["fallback_jobs"] >= 1
     _assert_same(want, got)
 
 
