@@ -24,13 +24,23 @@ Phases (any failure exits non-zero):
      times, counters, launches and the peak device memory;
   7. cross-check: 64 labels of the dense run, from one crop bucket,
      traced by the crop engine at full lane width on the card equal
-     their global-engine skeletons.
+     their global-engine skeletons;
+  8. cross sections: B6 and X1 against their plain versions at small
+     shapes; cross_sectional_area on the dense run's largest skeletons
+     (bench.py's selection, >= 12,000 vertices) and on the soma volume's
+     two balls (W = 512 rungs), each run twice, with ms/vertex, rung
+     counters, launches and peak memory, each equal to the CPU on a
+     subset (the smallest dense skeletons up to 300 vertices, the smaller
+     ball); the per-label path (cross_sectional_area_single, fill_holes,
+     zero normals on the dense rung: B4) CUDA against CPU; then B6 and X1
+     bit-equal to their plain versions on the inputs those runs handed
+     them, with times and bounds.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. Launch counts are reset just before each main-path run of
-phases 4 to 6 and read just after it; the table's launches are their
-sum, so neither the comparisons of phase 3 nor the cross-checks count.
+phases 4 to 6 and 8 and read just after it; the table's launches are
+their sum, so neither the kernel comparisons nor the cross-checks count.
 """
 
 from __future__ import annotations
@@ -76,6 +86,21 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds timed with CUDA events), without a warm-up:
+    for the plain versions, whose cost is their Python loop."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def require_equal(name, got, want):
@@ -224,7 +249,14 @@ def check_b3(cases, gen):
     ms = cuda_ms(lambda: ca.crop_argmax(field, cc, offs, lids, crop), 5)
     plain = cuda_ms(lambda: ca._crop_argmax_plain(field, cc, offs, lids,
                                                   crop), 1)
-    return ms, plain, err
+    # least time: each field and cc cell some window covers read once,
+    # the offsets and ids read and the (coordinates, value) rows written
+    seen = torch.zeros(field.shape, dtype=torch.bool, device="cuda")
+    for o in offs.tolist():
+        seen[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1],
+             o[2]:o[2] + crop[2]] = True
+    nbytes = 8 * int(seen.sum()) + offs.shape[0] * (16 + 16)
+    return ms, plain, err, 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def check_b5(shapes, gen):
@@ -553,7 +585,7 @@ def dense_main_path(vol):
         capture=True)
     if len(skels) < 0.9 * DENSE_LABELS * (n / 512) ** 3:
         raise AssertionError(f"dense run: only {len(skels)} skeletons")
-    return captured, launches
+    return skels, captured, launches
 
 
 def hollow_main_path(vol):
@@ -579,7 +611,7 @@ def hollow_main_path(vol):
     log(f"[soma] every label with a component above the dust threshold has "
         f"a skeleton ({len(skels)}; {len(missing)} labels split into "
         f"dust only)")
-    return launches
+    return skels, launches
 
 
 def cross_check(captured):
@@ -668,6 +700,387 @@ def crop_cross_check(captured):
         f"global-engine skeletons")
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: cross sections (kernels B6 and X1, and B4 on the dense rung)
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
+ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+# integer operations per window cell and round of kernel X1 (the dilation:
+# eight re-based neighbours of ~10 operations, the centre and the mask;
+# the sweep: four directed passes of three neighbours and the in-word fill)
+X1_OPS_PER_CELL_ROUND = {"dilate": 87, "sweep": 224}
+
+
+class XsSpy:
+    """Wraps the B6 and X1 wrappers while installed: keeps the first
+    inputs of every distinct shape (and method and rounds) they are
+    handed, and the count of calls and lanes per shape."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        self.fetch = {}
+        self.flood = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import xsfetch, xsslab
+
+        fetch, flood = xsfetch.fetch_secb, xsslab.section_flood
+
+        def fetch_spy(volp, zb, wx0, wy0, labels):
+            key = ("fetch_secb", tuple(zb.shape[1:]))
+            self._count(key, zb.shape[0])
+            if key not in self.fetch:
+                self.fetch[key] = (volp, zb.clone(), wx0.clone(), wy0.clone(),
+                                   labels.clone())
+            return fetch(volp, zb, wx0, wy0, labels)
+
+        def flood_spy(seed, secb, zb, rounds, method):
+            key = ("section_flood", tuple(seed.shape[1:]), method, rounds)
+            self._count(key, seed.shape[0])
+            if key not in self.flood:
+                self.flood[key] = (seed.clone(), secb.clone(), zb.clone(),
+                                   rounds, method)
+            return flood(seed, secb, zb, rounds, method)
+
+        xsfetch.fetch_secb, xsslab.section_flood = fetch_spy, flood_spy
+        return lambda: self._restore(fetch, flood)
+
+    def _count(self, key, lanes):
+        calls, n = self.calls.get(key, (0, 0))
+        self.calls[key] = (calls + 1, n + int(lanes))
+
+    @staticmethod
+    def _restore(fetch, flood):
+        from kimimaro_tpu_torch.ops import xsfetch, xsslab
+
+        xsfetch.fetch_secb, xsslab.section_flood = fetch, flood
+
+
+def b6_bound_ms(volp, zb, wx0, wy0):
+    """Least time of one B6 call on these inputs: the distinct volume
+    cells the windows read, the zb words and the output words, each moved
+    once, over the HBM rate."""
+    import torch
+
+    tx, ty, tz = volp.shape
+    B, Wx, Wy = zb.shape
+    dev = volp.device
+    seen = torch.zeros(volp.numel(), dtype=torch.bool, device=dev)
+    for b in range(0, B, 256):
+        z = zb[b:b + 256].long()[..., None] + torch.arange(5, device=dev)
+        gx = wx0[b:b + 256].long().view(-1, 1, 1, 1) + torch.arange(
+            Wx, device=dev).view(1, Wx, 1, 1)
+        gy = wy0[b:b + 256].long().view(-1, 1, 1, 1) + torch.arange(
+            Wy, device=dev).view(1, 1, Wy, 1)
+        flat = (gx * ty + gy) * tz + z
+        seen[flat[(z >= 0) & (z < tz)]] = True
+    nbytes = 4 * int(seen.sum()) + 2 * 4 * zb.numel() + 3 * 4 * B
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def x1_bound(seed, run, method):
+    """Least time of one X1 call on these inputs: four words per cell
+    moved once over the HBM rate, against the integer operations of the
+    rounds this data ran over the 32-bit ALU peak. Returns (ms, by)."""
+    B, Wx, Wy = seed.shape
+    t_bytes = 4 * 4 * seed.numel() / HBM_BYTES_PER_S
+    ops = X1_OPS_PER_CELL_ROUND[method] * Wx * Wy * int(run.sum())
+    t_ops = ops / ALU_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_xs_small(gen):
+    """B6 and X1 against their plain versions at small shapes: windows on
+    the volume faces, cells whose z leaves the volume, both flood methods,
+    shared-memory and device-memory planes, lanes that never converge."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import xsfetch, xsslab
+
+    err = 0.0
+    tx, ty, tz = 37, 29, 23
+    vol = torch.randint(0, 4, (tx, ty, tz), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    B, Wx, Wy = 6, 13, 17
+    wx0 = torch.tensor([0, tx - Wx, 5, 11, 0, 24], dtype=torch.int32,
+                       device="cuda")
+    wy0 = torch.tensor([0, ty - Wy, 3, 0, 12, 7], dtype=torch.int32,
+                       device="cuda")
+    labels = torch.tensor([1, 2, 3, 1, 0, 9], dtype=torch.int32,
+                          device="cuda")
+    zb = torch.randint(-6, tz + 2, (B, Wx, Wy), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    err = max(err, require_equal(
+        "B6 small", xsfetch.fetch_secb(vol, zb, wx0, wy0, labels),
+        xsfetch._fetch_secb_plain(vol, zb, wx0, wy0, labels)))
+    log("[xs] B6 bit-equal on 6 lanes of (13, 17) windows in (37, 29, 23): "
+        "windows on the faces, z outside the volume, absent labels")
+    never = 0
+    for method, W, rounds in (("dilate", 13, 1), ("dilate", 32, 36),
+                              ("dilate", 100, 8), ("sweep", 13, 0),
+                              ("sweep", 64, 6), ("sweep", 128, 2),
+                              ("sweep", 200, 1)):
+        secb = (torch.randint(0, 32, (5, W, W - 3), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                & torch.randint(0, 32, (5, W, W - 3), generator=gen,
+                                device="cuda", dtype=torch.int32))
+        secb = torch.where(torch.rand(secb.shape, generator=gen,
+                                      device="cuda") < 0.75, secb, 0)
+        ii = torch.arange(W, device="cuda").view(1, W, 1)
+        jj = torch.arange(W - 3, device="cuda").view(1, 1, W - 3)
+        slope = torch.rand((2, 5, 1, 1), generator=gen, device="cuda") * 2 - 1
+        zb = (torch.floor(slope[0] * ii + slope[1] * jj).to(torch.int32) - 2)
+        seed = torch.zeros_like(secb)
+        seed[:, W // 2, (W - 3) // 2] = 31
+        seed &= secb
+        got = xsslab.section_flood(seed, secb, zb, rounds, method)
+        want = xsslab._section_flood_plain(seed, secb, zb, rounds, method)
+        err = max(err, require_equal(f"X1 {method} W={W} rounds={rounds}",
+                                     got, want))
+        never += int(got[1].sum())
+    if never == 0:
+        raise AssertionError("X1 small checks: no lane ran out of rounds")
+    log(f"[xs] X1 bit-equal at small shapes, dilate and sweep, shared and "
+        f"device-memory planes; {never} lanes ran out of rounds")
+    return err
+
+
+def xs_select(skels):
+    """bench.py's selection: the largest skeletons until at least 12,000
+    vertices."""
+    sel, nv = [], 0
+    for s in sorted(skels.values(), key=len, reverse=True):
+        sel.append(s)
+        nv += len(s)
+        if nv >= 12000:
+            break
+    return sel, nv
+
+
+def xs_run(tag, vol, sel, spy=None):
+    """cross_sectional_area(vol, sel) on the card twice (the first run with
+    `spy` installed), the launch counts reset just before each run and read
+    just after it. Returns (skeletons of the second run, counters, seconds
+    of the second run, launches summed over both runs)."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for run in ("first", "second"):
+        restore = spy.install() if (spy is not None and run == "first") \
+            else None
+        skels = {s.id: s.clone() for s in sel}
+        profiling.reset_stats()
+        profiling.collect(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            kimimaro_tpu_torch.cross_sectional_area(
+                vol, skels, anisotropy=ANIS, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            if restore is not None:
+                restore()
+            profiling.collect(False)
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        counters = profiling.get_stats()["counters"]
+        nv = sum(len(s) for s in sel)
+        log(f"[{tag}] {run} run: {len(sel)} skeletons, {nv} vertices, "
+            f"{secs:.3f} s, {1000 * secs / nv:.4f} ms/vertex, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[{tag}] {run} run counters: {json.dumps(counters)}")
+        log(f"[{tag}] {run} run launches: {json.dumps(launches)}")
+        for k in ("fetch_secb", "section_flood"):
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} was not launched in the {tag} "
+                                     f"{run} run")
+        for s in skels.values():
+            a = s.cross_sectional_area
+            if a.shape != (len(s),) or not np.isfinite(a).all():
+                raise AssertionError(f"{tag}: label {s.id} has bad areas")
+    return skels, counters, secs, total
+
+
+def xs_equal_cpu(tag, vol, sel, got):
+    """The same call on the CPU (plain versions of every kernel) equals
+    the card's: contacts exact, areas within rtol 1e-5 (f32 sums taken in
+    another order)."""
+    import kimimaro_tpu_torch
+
+    t0 = time.perf_counter()
+    want = kimimaro_tpu_torch.cross_sectional_area(
+        vol, {s.id: s.clone() for s in sel}, anisotropy=ANIS, device="cpu")
+    for s in sel:
+        a, b = got[s.id], want[s.id]
+        np.testing.assert_allclose(a.cross_sectional_area,
+                                   b.cross_sectional_area, rtol=1e-5, atol=0,
+                                   err_msg=f"{tag} label {s.id}")
+        np.testing.assert_array_equal(a.cross_sectional_area_contacts,
+                                      b.cross_sectional_area_contacts,
+                                      err_msg=f"{tag} label {s.id}")
+    log(f"[{tag}] CPU run of {len(sel)} skeletons ({sum(len(s) for s in sel)}"
+        f" vertices, {time.perf_counter() - t0:.1f} s) equals the card's")
+
+
+def check_xs_recorded(spy):
+    """B6 and X1 against their plain versions on the inputs the main path
+    handed them, one batch per shape; W = 512 floods on the four lanes
+    that ran the fewest rounds (the plain sweep is a Python loop of rows).
+    Returns {key: (ms, plain_ms, bound_ms, bound_by, lanes)}."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import xsfetch, xsslab
+
+    out = {}
+    err = 0.0
+    for key, (volp, zb, wx0, wy0, labels) in sorted(spy.fetch.items()):
+        got = xsfetch.fetch_secb(volp, zb, wx0, wy0, labels)
+        want, plain = timed_once(lambda: xsfetch._fetch_secb_plain(
+            volp, zb, wx0, wy0, labels))
+        err = max(err, require_equal(f"B6 {spy.tag} {key}", got, want))
+        ms = cuda_ms(lambda: xsfetch.fetch_secb(volp, zb, wx0, wy0, labels),
+                     5)
+        bound = b6_bound_ms(volp, zb, wx0, wy0)
+        out[key] = (ms, plain, bound, "bytes", zb.shape[0])
+        log(f"[xs] B6 {spy.tag} {zb.shape[0]} lanes of {key[1]} in "
+            f"{tuple(volp.shape)}: bit-equal, {ms:.4f} ms vs plain "
+            f"{plain:.3f} ms, bound {bound:.4f} ms")
+    for key, (seed, secb, zb, rounds, method) in sorted(spy.flood.items()):
+        got = xsslab.section_flood(seed, secb, zb, rounds, method)
+        if seed.shape[1] >= 512:
+            pick = torch.argsort(got[2], stable=True)[:4]
+            seed, secb, zb = seed[pick], secb[pick], zb[pick]
+            got = xsslab.section_flood(seed, secb, zb, rounds, method)
+        want, plain = timed_once(lambda: xsslab._section_flood_plain(
+            seed, secb, zb, rounds, method))
+        err = max(err, require_equal(f"X1 {spy.tag} {key}", got, want))
+        ms = cuda_ms(lambda: xsslab.section_flood(seed, secb, zb, rounds,
+                                                  method), 3)
+        bound, by = x1_bound(seed, got[2], method)
+        out[key] = (ms, plain, bound, by, seed.shape[0])
+        log(f"[xs] X1 {spy.tag} {seed.shape[0]} lanes of {key[1]} {method} "
+            f"rounds={rounds}: bit-equal, rounds run "
+            f"{int(got[2].min())}-{int(got[2].max())}, {ms:.4f} ms vs plain "
+            f"{plain:.3f} ms, bound {bound:.4f} ms ({by})")
+    return out, err
+
+
+def per_label_path():
+    """cross_sectional_area_single and fill_holes=True on the blob fixture
+    of phase 4, CUDA against CPU, and ops.xsarea.cross_section_areas with
+    zero normals, which go to the dense rungs (kernel B4). Returns the
+    launches of its CUDA runs."""
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.ops import xsarea
+
+    vol = blob_volume(seed=1)
+    skels = kimimaro_tpu_torch.skeletonize(
+        vol, teasar_params=dict(TEASAR, const=30), anisotropy=ANIS,
+        dust_threshold=10, device="cpu")
+    lab = max(skels, key=lambda k: len(skels[k]))
+    binimg = vol == lab
+    verts = np.argwhere(binimg)[::25]
+    normals = np.tile(np.float32([[0.0, 0.6, 0.8]]), (len(verts), 1))
+    normals[:3] = 0.0
+    out = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launches()
+        single = kimimaro_tpu_torch.cross_sectional_area_single(
+            binimg, skels[lab].clone(), anisotropy=ANIS, smoothing_window=3,
+            device=device)
+        filled = kimimaro_tpu_torch.cross_sectional_area(
+            vol, {k: s.clone() for k, s in skels.items()}, anisotropy=ANIS,
+            fill_holes=True, device=device)
+        dense = xsarea.cross_section_areas(binimg, verts, normals, ANIS,
+                                           device=device)
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
+            for k in ("fetch_secb", "section_flood", "sweep_axis0_batched"):
+                if launches[k] <= 0:
+                    raise AssertionError(f"{k} was not launched on the "
+                                         f"per-label path")
+            for k, v in launches.items():
+                total[k] += v
+        out[device] = (single, filled, dense)
+    (sa, fa, da), (sb, fb, db) = out["cuda"], out["cpu"]
+    pairs = [(sa, sb)] + [(fa[k], fb[k]) for k in skels]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.cross_sectional_area,
+                                   b.cross_sectional_area, rtol=1e-5, atol=0)
+        np.testing.assert_array_equal(a.cross_sectional_area_contacts,
+                                      b.cross_sectional_area_contacts)
+    np.testing.assert_allclose(da[0], db[0], rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(da[1], db[1])
+    log(f"[xs-label] cross_sectional_area_single (label {lab}, "
+        f"{len(skels[lab])} vertices), fill_holes over {len(skels)} labels "
+        f"and {len(verts)} dense-rung planes (3 zero normals): CUDA equals "
+        f"CPU; launches {json.dumps(total)}")
+    return total
+
+
+def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
+    """Phase 8. Returns (launches summed over its main-path runs, the
+    kernel-table entries of B6 and X1, and the log lines' numbers)."""
+    import torch
+
+    err_small = check_xs_small(gen)
+
+    sel, nv = xs_select(dense_skels)
+    dspy = XsSpy("dense")
+    got, counters, secs, launches = xs_run("xs-dense", dense, sel, dspy)
+    log(f"[xs-dense] ms/vertex {1000 * secs / nv:.4f} over {nv} vertices of "
+        f"{len(sel)} skeletons (warm run {secs:.3f} s)")
+    # the CPU subset: the selection's smallest skeletons up to 300
+    # vertices (the plain floods are Python loops of window rows)
+    small, nsmall = [], 0
+    for s in sorted(sel, key=len):
+        if small and nsmall + len(s) > 300:
+            break
+        small.append(s)
+        nsmall += len(s)
+    xs_equal_cpu("xs-dense", dense, small, got)
+
+    balls = [soma_skels[k] for k in sorted(soma_skels)[-2:]]
+    sspy = XsSpy("soma")
+    sgot, scount, ssecs, slaunches = xs_run("xs-soma", hollow, balls, sspy)
+    if scount.get("xsb_rung3_queries", 0) <= 0:
+        raise AssertionError(f"soma balls: no query reached rung 3 "
+                             f"({scount})")
+    xs_equal_cpu("xs-soma", hollow, [min(balls, key=len)], sgot)
+
+    llaunches = per_label_path()
+    for part in (slaunches, llaunches):
+        for k, v in part.items():
+            launches[k] += v
+
+    for spy in (dspy, sspy):
+        log(f"[xs] {spy.tag} shapes handed to B6/X1 (calls, lanes): "
+            + "; ".join(f"{k}: {v}" for k, v in sorted(spy.calls.items())))
+    timings, err_d = check_xs_recorded(dspy)
+    _, err_s = check_xs_recorded(sspy)
+    torch.cuda.synchronize()
+    err = max(err_small, err_d, err_s)
+    # the table's row: each kernel at the dense run's most used shape
+    rep = {}
+    for name in ("fetch_secb", "section_flood"):
+        key = max((k for k in dspy.calls if k[0] == name),
+                  key=lambda k: dspy.calls[k][1])
+        rep[name] = (key, timings[key])
+    return launches, rep, err
+
+
 def main() -> int:
     import torch
 
@@ -726,7 +1139,7 @@ def main() -> int:
          "kimimaro_tpu/ops/pallas_sweep.py:117", b5,
          "node sweep of a 96^3 crop"),
     )
-    for k, src, rep, (ms, plain, err), what in meta:
+    for k, src, rep, (ms, plain, err, *_), what in meta:
         log(f"[kernels] {k}: {ms:.3f} ms vs plain {plain:.3f} ms ({what}), "
             f"max abs err {err}")
 
@@ -736,28 +1149,68 @@ def main() -> int:
     dense = dense_volume(n)
     log(f"[dense] volume {dense.shape}, {len(np.unique(dense))} labels, made "
         f"in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    captured, dense_launches = dense_main_path(dense)
+    dense_skels, captured, dense_launches = dense_main_path(dense)
     t0 = time.perf_counter()
     hollow = hollow_volume(dense)
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    soma_launches = hollow_main_path(hollow)
-    del hollow
-    for part in (dense_launches, soma_launches):
+    soma_skels, soma_launches = hollow_main_path(hollow)
+    cross_check(captured)
+    crop_cross_check(captured)
+    del captured
+
+    # 8. cross sections: the dense and soma volumes' skeletons, the
+    # per-label path, and B6/X1 at the shapes those runs handed them
+    xs_launches, xs_rep, xs_err = cross_sections(dense, dense_skels, hollow,
+                                                 soma_skels, gen)
+    for part in (dense_launches, soma_launches, xs_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was never launched on the main path")
-    cross_check(captured)
-    crop_cross_check(captured)
 
-    for k, src, rep, (ms, plain, err), what in meta:
+    # least times of the timed calls: each input byte read once and each
+    # output byte written once over the HBM rate, against the operations
+    # over the float32 peak; bytes and operations per voxel from the
+    # operands of the timed call (B1 d, cc, okmask in, d out; B2 two
+    # fields, cc, nodecost, okmask in, two out; B4/B5 d, ok, nodecost in,
+    # d out)
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+        return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    vox = n ** 3
+    bounds = {
+        "gsweep_sweep0": bound(13 * vox, 20 * vox),
+        "gsweep_sweep0_dual": bound(25 * vox, 40 * vox),
+        "crop_argmax": (b3[3], "bytes"),
+        "sweep_axis0_batched": bound(13 * 64 * 64 * 64 * 32,
+                                     12 * 64 * 64 * 64 * 32),
+        "sweep_axis0": bound(13 * 96 ** 3, 12 * 96 ** 3),
+    }
+    for k, src, rep, (ms, plain, err, *_), what in meta:
         table.append({"name": k, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[k],
                       "max_abs_err": err, "ms": round(ms, 4),
-                      "plain_ms": round(plain, 4)})
+                      "plain_ms": round(plain, 4),
+                      "bound_ms": round(bounds[k][0], 4),
+                      "bound_by": bounds[k][1], "library_ms": None})
+    for k, src, rep in (
+            ("fetch_secb", "kimimaro_tpu_torch/csrc/xsfetch.cu",
+             "kimimaro_tpu/ops/xsfetch.py:159"),
+            ("section_flood", "kimimaro_tpu_torch/csrc/xsflood.cu",
+             "kimimaro_tpu/ops/xsslab.py:74")):
+        key, (ms, plain, bms, by, lanes) = xs_rep[k]
+        log(f"[kernels] {k}: {ms:.4f} ms vs plain {plain:.3f} ms, bound "
+            f"{bms:.4f} ms ({by}) at {key} x {lanes} lanes of the dense run")
+        table.append({"name": k, "route": "cuda", "source": src,
+                      "replaces": rep, "launches": launches[k],
+                      "max_abs_err": xs_err, "ms": round(ms, 4),
+                      "plain_ms": round(plain, 4),
+                      "bound_ms": round(bms, 4), "bound_by": by,
+                      "library_ms": None})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

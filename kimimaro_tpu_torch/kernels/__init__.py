@@ -6,8 +6,9 @@ repository root, and loaded with ctypes. Nothing here touches CUDA or the
 library at import time, so the package imports on machines without a GPU;
 the CPU code paths never call `lib()`.
 
-Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep) adds one to
-its entry in `LAUNCHES` where it launches its kernel, and nowhere else.
+Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep, ops.xsfetch,
+ops.xsslab) adds one to its entry in `LAUNCHES` where it launches its
+kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -23,23 +24,26 @@ from typing import Dict, Optional
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu")
+_SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu")
 _HEADERS = ("plane.cuh",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     # the sweeps' f32 operation order is part of their contract
     "--fmad=false",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-# launches per kernel since the last reset (B1, B2, B3, B4, B5)
+# launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1)
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_dual": 0,
     "crop_argmax": 0,
     "sweep_axis0_batched": 0,
     "sweep_axis0": 0,
+    "fetch_secb": 0,
+    "section_flood": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,25 +69,44 @@ def _library_path() -> Path:
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return _BUILD_DIR / f"libkimimaro_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the output of those that
+    failed once all have ended."""
+    procs = [subprocess.Popen([str(c) for c in cmd], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for p in procs:
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> float:
     """Compile the kernels if the library for the current sources is not
-    built yet. Returns the seconds spent compiling (0.0 when cached)."""
+    built yet: one nvcc per source, all started together, then one link.
+    Returns the seconds spent compiling (0.0 when cached)."""
     out = _library_path()
     if out.exists():
         return 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in _SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    try:
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-I", _CSRC, "-o", o, _CSRC / s]
+                 for s, o in zip(_SOURCES, objs))
+        _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return time.perf_counter() - t0
 
@@ -108,6 +131,10 @@ def lib() -> ctypes.CDLL:
         so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p,
                                               p, i, i, i, p]
         so.kt_sweep_axis0_batched.restype = i
+        so.kt_xs_fetch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        so.kt_xs_fetch.restype = i
+        so.kt_xs_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        so.kt_xs_flood.restype = i
         _LIB = so
     return _LIB
 

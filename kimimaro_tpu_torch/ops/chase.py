@@ -27,10 +27,11 @@ def _chase(d_pad, start, max_len: int):
 
     d_pad: the rail field (numpy) padded by one +inf voxel on every side;
     the walk runs on the host. Returns (path (L, 3) int32 with -1 padding,
-    length, reached_rail). Indices clamp at the padded volume's edge like
-    the JAX package's dynamic slices."""
+    length, reached_rail). The centre read and the 3x3x3 window follow
+    JAX's index rule for scalar reads and dynamic slices: a negative index
+    counts from the end once, then clamps to the volume."""
     L = int(max_len)
-    hi = np.asarray(d_pad.shape, dtype=np.int64) - 3
+    size = np.asarray(d_pad.shape, dtype=np.int64)
     path = np.full((L, 3), -1, dtype=np.int32)
     cur = np.asarray(start, dtype=np.int64).reshape(3)
     i = 0
@@ -38,17 +39,23 @@ def _chase(d_pad, start, max_len: int):
     while i < L:
         path[i] = cur
         i += 1
-        c = np.clip(cur + 1, 0, np.asarray(d_pad.shape) - 1)
+        c = _wrap_clamp_host(cur + 1, size, size - 1)
         if d_pad[c[0], c[1], c[2]] <= 0.0:
             reached = True
             break
-        o = np.clip(cur, 0, hi)
+        o = _wrap_clamp_host(cur, size, size - 3)
         win = d_pad[o[0]:o[0] + 3, o[1]:o[1] + 3, o[2]:o[2] + 3]
         win = win.reshape(27).copy()
         win[13] = INF
         k = int(np.argmin(win))
         cur = cur + np.array([k // 9 - 1, (k // 3) % 3 - 1, k % 3 - 1])
     return path, i, reached
+
+
+def _wrap_clamp_host(idx, size, hi):
+    """`_wrap_clamp` on numpy index vectors."""
+    idx = np.where(idx < 0, idx + size, idx)
+    return np.minimum(np.maximum(idx, 0), hi)
 
 
 # the 27 window offsets in lexicographic order (index 13 is the centre)

@@ -299,15 +299,16 @@ def _chase_lanes():
 
 
 def test_lane_batched_chase_matches_host_chase():
-    """chase_batched walks every lane that stays in its crop as the host
-    `_chase` walks one: first minimum in offset order, rails at d <= 0,
-    and a lane that cannot reach a rail runs to the buffer's end."""
+    """chase_batched walks every lane as the host `_chase` walks one:
+    first minimum in offset order, rails at d <= 0, a lane that cannot
+    reach a rail runs to the buffer's end, and lane 4's walk outside the
+    crop follows the same wrapped indices."""
     from kimimaro_tpu_torch.ops.chase import _chase, chase_batched
 
     d_pad, starts = _chase_lanes()
     path, plen, reached = chase_batched(torch.from_numpy(d_pad),
                                         torch.from_numpy(starts), 12)
-    for b in range(4):
+    for b in range(5):
         wp, wl, wr = _chase(d_pad[b], starts[b], 12)
         assert int(plen[b]) == wl and bool(reached[b]) == wr
         np.testing.assert_array_equal(path[b, :wl].numpy(), wp[:wl])

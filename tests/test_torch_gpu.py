@@ -208,3 +208,105 @@ def test_skeletonize_cuda_matches_cpu(gen):
     assert set(a) == set(b) and len(a) >= 3
     for k in a:
         assert kimimaro_tpu_torch.Skeleton.equivalent(a[k], b[k])
+
+
+def _xs_windows(seed, B, Wx, Wy, density=0.7):
+    """Random section words, slab bases (slope <= 1) and seed words."""
+    rng = np.random.RandomState(seed)
+    secb = (rng.randint(0, 32, size=(B, Wx, Wy))
+            & rng.randint(0, 32, size=(B, Wx, Wy))).astype(np.int32)
+    secb[rng.rand(B, Wx, Wy) > density] = 0
+    ii, jj = np.meshgrid(np.arange(Wx), np.arange(Wy), indexing="ij")
+    zb = np.floor(rng.uniform(-1, 1, (B, 1, 1)) * ii
+                  + rng.uniform(-1, 1, (B, 1, 1)) * jj).astype(np.int32) - 2
+    seed_w = np.zeros_like(secb)
+    seed_w[:, Wx // 2, Wy // 2] = 31
+    return [torch.from_numpy(a).cuda() for a in (seed_w & secb, secb, zb)]
+
+
+@pytest.mark.parametrize("method,W,rounds", [
+    ("dilate", 13, 2), ("dilate", 32, 36), ("dilate", 100, 8),
+    ("dilate", 130, 4), ("sweep", 13, 0), ("sweep", 64, 6),
+    ("sweep", 128, 6), ("sweep", 200, 3)])
+def test_section_flood_kernel_matches_plain(gen, method, W, rounds):
+    """X1 in shared memory (small windows) and in device memory (the
+    dilation above 64, the sweep above 128), lanes that converge and lanes
+    that run out of rounds."""
+    from kimimaro_tpu_torch.ops import xsslab
+
+    seed, secb, zb = _xs_windows(W, 5, W, W - 3)
+    before = kernels.LAUNCHES["section_flood"]
+    got = xsslab.section_flood(seed, secb, zb, rounds, method)
+    assert kernels.LAUNCHES["section_flood"] == before + 1
+    want = xsslab._section_flood_plain(seed, secb, zb, rounds, method)
+    _assert_bit_equal(got, want)
+
+
+def test_fetch_secb_kernel_matches_plain(gen):
+    """B6 on windows at the volume faces and inside, with cells whose z
+    falls outside the volume."""
+    from kimimaro_tpu_torch.ops import xsfetch
+
+    rng = np.random.RandomState(0)
+    tx, ty, tz = 37, 29, 23
+    vol = torch.from_numpy(
+        rng.randint(0, 4, size=(tx, ty, tz)).astype(np.int32)).cuda()
+    B, Wx, Wy = 6, 13, 17
+    wx0 = torch.tensor([0, tx - Wx, 5, 11, 0, 24], dtype=torch.int32,
+                       device="cuda")
+    wy0 = torch.tensor([0, ty - Wy, 3, 0, 12, 7], dtype=torch.int32,
+                       device="cuda")
+    labels = torch.tensor([1, 2, 3, 1, 0, 9], dtype=torch.int32,
+                          device="cuda")
+    zb = torch.from_numpy(rng.randint(-6, tz + 2, size=(B, Wx, Wy))
+                          .astype(np.int32)).cuda()
+    before = kernels.LAUNCHES["fetch_secb"]
+    got = xsfetch.fetch_secb(vol, zb, wx0, wy0, labels)
+    assert kernels.LAUNCHES["fetch_secb"] == before + 1
+    want = xsfetch._fetch_secb_plain(vol, zb, wx0, wy0, labels)
+    _assert_bit_equal((got,), (want,))
+    assert bool(got.any())
+
+
+def test_cross_sectional_area_cuda_matches_cpu(gen):
+    """Cross sections on the card equal the same calls on the CPU: the
+    batched path, and the per-label path (fill_holes) with its dense rung
+    on two zero normals."""
+    from kimimaro_tpu_torch.ops import xsarea
+
+    labels = np.zeros((48, 40, 36), dtype=np.uint32)
+    labels[4:44, 6:10, 6:10] = 7
+    labels[10:14, 4:36, 20:24] = 900
+    labels[30:34, 28:32, 2:34] = 31
+    labels[38:46, 20:28, 22:30] = 4242
+    skels = kimimaro_tpu_torch.skeletonize(
+        labels, teasar_params={"scale": 1.5, "const": 2}, dust_threshold=10,
+        anisotropy=(16, 16, 40), fix_borders=False, device="cpu")
+    for kw in ({}, {"fill_holes": True}):
+        out = {}
+        for device in ("cuda", "cpu"):
+            before = dict(kernels.LAUNCHES)
+            out[device] = kimimaro_tpu_torch.cross_sectional_area(
+                labels, {k: s.clone() for k, s in skels.items()},
+                anisotropy=(16, 16, 40), device=device, **kw)
+            if device == "cuda":
+                for k in ("fetch_secb", "section_flood"):
+                    assert kernels.LAUNCHES[k] > before[k]
+        for k in skels:
+            a, b = out["cuda"][k], out["cpu"][k]
+            np.testing.assert_allclose(a.cross_sectional_area,
+                                       b.cross_sectional_area, rtol=1e-5,
+                                       atol=0)
+            np.testing.assert_array_equal(a.cross_sectional_area_contacts,
+                                          b.cross_sectional_area_contacts)
+    binimg = labels == 4242
+    verts = np.argwhere(binimg)[::40]
+    normals = np.tile(np.float32([[0.0, 0.6, 0.8]]), (len(verts), 1))
+    normals[:2] = 0.0
+    before = kernels.LAUNCHES["sweep_axis0_batched"]
+    a = xsarea.cross_section_areas(binimg, verts, normals, (16, 16, 40),
+                                   device="cuda")
+    assert kernels.LAUNCHES["sweep_axis0_batched"] > before
+    b = xsarea.cross_section_areas(binimg, verts, normals, (16, 16, 40))
+    np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(a[1], b[1])
