@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels from kimimaro_tpu_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel (B1-B5) against its plain torch version on the
      card, bit for bit, at a small shape and at the main path's shape,
-     with both times;
+     with both times; B2 also at shapes that stress its strips and on
+     each side of its shared-memory rule, B3 over whole windows and over
+     random boxes, both run twice with identical results;
   4. small main path: skeletonize on a blob fixture with a soma-sized
      label (taken by the crop engine) and a label with more manual
      targets than the crop engine holds (taken by the host trace path) on
@@ -17,7 +19,9 @@ Phases (any failure exits non-zero):
   5. the main path at real size: a dense anisotropic Voronoi volume of
      512^3 with 2,124 labels (bench.py's generator, seed 0), run twice,
      with phase times, skeleton and launch counts, and 8 labels traced by
-     the global engine cross-checked against the host trace path;
+     the global engine cross-checked against the host trace path; then B3
+     bit-equal to its plain version on calls that run made (its row of the
+     kernel table);
   6. the soma volume at real size: bench.py's hollow variant of that
      volume (carved holes, nested pits, two soma-scale balls that the
      global engine hands to the crop engine), run twice, with phase
@@ -41,6 +45,11 @@ The second-to-last line is the kernel table as JSON; the last line is
 no result. Launch counts are reset just before each main-path run of
 phases 4 to 6 and 8 and read just after it; the table's launches are
 their sum, so neither the kernel comparisons nor the cross-checks count.
+
+    python3 chip_smoke.py --profile
+
+runs the dense volume under torch.profiler instead and prints the card's
+busy share and the operations that took most device time.
 """
 
 from __future__ import annotations
@@ -184,41 +193,88 @@ def check_b1(shapes, gen):
     return ms, plain, err
 
 
-def check_b2(shapes, gen):
+# B2 beyond the three shapes of B1: n = 1 and n = 2, H = 1, H = 5, a last
+# strip shorter than the others (H = 301 is strips of 3 rows on 132 SMs),
+# W = 1, W = 33 (no 16-byte rows: the plain-load stages), a rotated
+# non-cubic layout, and a plane on each side of the shared-memory rule
+B2_STRESS_SHAPES = ((1, 7, 16), (2, 9, 16), (5, 1, 48), (6, 5, 32),
+                    (6, 301, 48), (7, 12, 1), (5, 20, 33), (64, 512, 128),
+                    (3, 640, 640), (3, 704, 704))
+# what kt_gsweep_dual_plan must answer on an H100 (132 SMs, 227 KB)
+B2_PERSISTENT = {(3, 640, 640): True, (3, 704, 704): False}
+
+
+def b2_inputs(shape, kind, gen):
     import torch
 
+    cc = torch.randint(0, 4, shape, generator=gen, device="cuda",
+                       dtype=torch.int32)
+    r = lambda: torch.rand(shape, generator=gen, device="cuda")
+    if kind == "ball_rail":
+        da = torch.where(r() < 0.2, -r() * 60, float("inf"))
+        db = torch.where(r() < 0.2, r(), float("inf"))
+        return da, db, cc, r() * 3, (r() < 0.8).to(torch.uint8)
+    da = torch.where(cc > 0, r() * 10, float("-inf"))
+    db = torch.where(cc > 0, r() * 10, float("-inf"))
+    return da, db, cc, None, None
+
+
+def check_b2(shapes, gen):
+    """B2 against its plain version at each shape, both kinds and both
+    directions, each call made twice (the step counters start from zero
+    again); the times are a ball_rail sweep of the last shape. Returns
+    (ms, plain_ms, err, {kind: ms} at the last shape)."""
     from kimimaro_tpu_torch.ops import gsweep
 
     anis = (16.0, 16.0, 40.0)
     err = 0.0
+    ms_kind = {}
     for shape in shapes:
+        plan = gsweep.dual_plan(shape[1], shape[2], "ball_rail")
+        want_plan = B2_PERSISTENT.get(tuple(shape), True)
+        if plan["persistent"] != want_plan:
+            raise AssertionError(f"B2 {shape}: plan {plan}, expected "
+                                 f"persistent={want_plan}")
         for kind in ("max2", "ball_rail"):
-            cc = torch.randint(0, 4, shape, generator=gen, device="cuda",
-                               dtype=torch.int32)
-            r = lambda: torch.rand(shape, generator=gen, device="cuda")
-            if kind == "ball_rail":
-                da = torch.where(r() < 0.2, -r() * 60, float("inf"))
-                db = torch.where(r() < 0.2, r(), float("inf"))
-                nc, ok = r() * 3, (r() < 0.8).to(torch.uint8)
-            else:
-                da = torch.where(cc > 0, r() * 10, float("-inf"))
-                db = torch.where(cc > 0, r() * 10, float("-inf"))
-                nc = ok = None
+            da, db, cc, nc, ok = b2_inputs(shape, kind, gen)
             for desc in (False, True):
                 got = gsweep.sweep0_dual(da, db, cc, nc, ok, anis, kind, desc)
+                again = gsweep.sweep0_dual(da, db, cc, nc, ok, anis, kind,
+                                           desc)
                 want = gsweep._sweep0_dual_plain(da, db, cc, nc, ok, anis,
                                                  kind, desc)
                 err = max(err, require_equal(f"B2 {kind} desc={desc} {shape}",
                                              got, want))
-        log(f"[kernels] B2 bit-equal on {shape}: ball_rail, max2 x direction")
-    ms = cuda_ms(lambda: gsweep.sweep0_dual(da, db, cc, nc, ok, anis, kind,
-                                            False), 5)
+                require_equal(f"B2 {kind} desc={desc} {shape} run twice",
+                              again, got)
+            if shape == shapes[-1]:
+                ms_kind[kind] = cuda_ms(lambda: gsweep.sweep0_dual(
+                    da, db, cc, nc, ok, anis, kind, False), 5)
+        log(f"[kernels] B2 bit-equal on {shape}: ball_rail, max2 x direction, "
+            f"twice; plan {json.dumps(plan)}")
     plain = cuda_ms(lambda: gsweep._sweep0_dual_plain(da, db, cc, nc, ok,
                                                       anis, kind, False), 1)
-    return ms, plain, err
+    return ms_kind["ball_rail"], plain, err, ms_kind
+
+
+def b3_bound_ms(field, box_off, box_size):
+    """Least time of one B3 call on these inputs: each field and cc cell
+    some lane's box covers read once, the per-lane rows (origin, id, box)
+    read and the (coordinates, value) rows written, over the HBM rate."""
+    import torch
+
+    seen = torch.zeros(field.shape, dtype=torch.bool, device="cuda")
+    for o, b in zip(box_off.tolist(), box_size.tolist()):
+        seen[o[0]:o[0] + b[0], o[1]:o[1] + b[1], o[2]:o[2] + b[2]] = True
+    nbytes = 8 * int(seen.sum()) + box_off.shape[0] * (40 + 16)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def check_b3(cases, gen):
+    """B3 against its plain version at each case, over the whole windows
+    and over random boxes inside them (some empty), each call made twice
+    (the atomics' order must not show). The times are the last case over
+    its whole windows."""
     import torch
 
     from kimimaro_tpu_torch.ops import crop_argmax as ca
@@ -240,23 +296,128 @@ def check_b3(cases, gen):
         lids = torch.tensor([1, 2, 3, 0, 4, 9], dtype=torch.int32,
                             device="cuda").repeat(n_lanes // 6 + 1)[:n_lanes]
         lids = lids.contiguous()
-        got = ca.crop_argmax(field, cc, offs, lids, crop)
-        want = ca._crop_argmax_plain(field, cc, offs, lids, crop)
-        err = max(err, require_equal(f"B3 {shape} crop={crop} "
-                                     f"lanes={n_lanes}", got, want))
+        # random boxes inside the windows, every seventh one empty
+        crop_t = torch.tensor(crop, device="cuda")
+        u = torch.rand((2, n_lanes, 3), generator=gen, device="cuda")
+        size = (u[0] * (crop_t + 1)).floor().clamp(max=crop_t)
+        size[::7] = 0
+        rel = (u[1] * (crop_t - size + 1)).floor().clamp(max=crop_t - size)
+        boxes = ((offs + rel.to(torch.int32)).contiguous(),
+                 size.to(torch.int32).contiguous())
+        for bx, what in ((None, "windows"), (boxes, "boxes")):
+            got = ca.crop_argmax(field, cc, offs, lids, crop, bx)
+            again = ca.crop_argmax(field, cc, offs, lids, crop, bx)
+            want = ca._crop_argmax_plain(field, cc, offs, lids, crop, bx)
+            name = f"B3 {shape} crop={crop} lanes={n_lanes} {what}"
+            err = max(err, require_equal(name, got, want))
+            require_equal(name + " run twice", again, got)
         log(f"[kernels] B3 bit-equal on {shape}, crop {crop}, {n_lanes} "
-            f"lanes (ties, -inf labels, empty lanes)")
+            f"lanes, whole windows and random boxes, twice (ties, -inf "
+            f"labels, empty lanes, empty boxes)")
     ms = cuda_ms(lambda: ca.crop_argmax(field, cc, offs, lids, crop), 5)
+    ms_box = cuda_ms(lambda: ca.crop_argmax(field, cc, offs, lids, crop,
+                                            boxes), 5)
     plain = cuda_ms(lambda: ca._crop_argmax_plain(field, cc, offs, lids,
                                                   crop), 1)
-    # least time: each field and cc cell some window covers read once,
-    # the offsets and ids read and the (coordinates, value) rows written
-    seen = torch.zeros(field.shape, dtype=torch.bool, device="cuda")
-    for o in offs.tolist():
-        seen[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1],
-             o[2]:o[2] + crop[2]] = True
-    nbytes = 8 * int(seen.sum()) + offs.shape[0] * (16 + 16)
-    return ms, plain, err, 1e3 * nbytes / HBM_BYTES_PER_S
+    bound = b3_bound_ms(field, offs, crop_t.to(torch.int32).expand(
+        n_lanes, 3))
+    log(f"[kernels] B3 {n_lanes} lanes of {crop} in {shape}: whole windows "
+        f"{ms:.3f} ms (bound {bound:.3f} ms), random boxes {ms_box:.3f} ms "
+        f"(bound {b3_bound_ms(field, *boxes):.3f} ms)")
+    return ms, plain, err, bound
+
+
+class B3Spy:
+    """While installed, keeps the arguments of the global engine's B3
+    calls at the indices in `keep`, and counts the calls."""
+
+    def __init__(self, keep=(0, 1, 8)):
+        self.keep = keep
+        self.calls = 0
+        self.kept = {}
+
+    def install(self):
+        from kimimaro_tpu_torch import gengine
+
+        inner = gengine.crop_argmax
+
+        def spy(field, cc, offs, lids, crop, boxes=None):
+            if self.calls in self.keep:
+                self.kept[self.calls] = (
+                    field.clone(), cc, offs, lids, crop,
+                    None if boxes is None else tuple(b.clone()
+                                                     for b in boxes))
+            self.calls += 1
+            return inner(field, cc, offs, lids, crop, boxes)
+
+        gengine.crop_argmax = spy
+
+        def restore():
+            gengine.crop_argmax = inner
+            self.kept = self._to(self.kept, "cpu")
+
+        return restore
+
+    @classmethod
+    def _to(cls, x, device):
+        """The kept arguments with every tensor moved: they wait on the
+        host while the timed runs go on."""
+        import torch
+
+        if isinstance(x, dict):
+            return {k: cls._to(v, device) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(cls._to(v, device) for v in x)
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    def on_card(self):
+        return self._to(self.kept, "cuda")
+
+
+def check_b3_recorded(spy):
+    """B3 against its plain version on calls the dense run made (the root
+    selection, the first path iteration, a later one), each made twice;
+    with the time of the same lanes tier by tier over their whole tier
+    crops, the form the one call replaced. Returns the kernel-table numbers
+    of the first path iteration: (ms, plain_ms, err, bound_ms)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import crop_argmax as ca
+
+    if 1 not in spy.kept:
+        raise AssertionError(f"the dense run made {spy.calls} B3 calls")
+    err = 0.0
+    row = None
+    kept = spy.on_card()
+    for k, (field, cc, offs, lids, crops, boxes) in sorted(kept.items()):
+        got = ca.crop_argmax(field, cc, offs, lids, crops, boxes)
+        again = ca.crop_argmax(field, cc, offs, lids, crops, boxes)
+        want, plain = timed_once(lambda: ca._crop_argmax_plain(
+            field, cc, offs, lids, crops, boxes))
+        e = require_equal(f"B3 dense call {k}", got, want)
+        require_equal(f"B3 dense call {k} run twice", again, got)
+        err = max(err, e)
+        ms = cuda_ms(lambda: ca.crop_argmax(field, cc, offs, lids, crops,
+                                            boxes), 5)
+        bound = b3_bound_ms(field, *boxes)
+        # the same lanes, one call per tier over the whole tier crops
+        edges = [0] + (torch.nonzero((crops[1:] != crops[:-1]).any(dim=1))
+                       .flatten() + 1).tolist() + [crops.shape[0]]
+        tiers = [(a, b, tuple(crops[a].tolist()))
+                 for a, b in zip(edges[:-1], edges[1:])]
+        ms_tiers = cuda_ms(lambda: [ca.crop_argmax(
+            field, cc, offs[a:b].contiguous(), lids[a:b].contiguous(), c)
+            for a, b, c in tiers], 2)
+        scanning = int((boxes[1].prod(dim=1) > 0).sum())
+        voxels = int(boxes[1].long().prod(dim=1).sum())
+        log(f"[kernels] B3 dense call {k}: {offs.shape[0]} lanes in "
+            f"{len(tiers)} tiers, {scanning} scanning {voxels} box voxels "
+            f"({voxels / field.numel():.2f} volumes): bit-equal, twice; "
+            f"{ms:.3f} ms vs plain {plain:.1f} ms, bound {bound:.3f} ms; "
+            f"tier by tier over whole crops {ms_tiers:.3f} ms")
+        if k == 1:
+            row = (ms, plain, err, bound)
+    return row[0], row[1], err, row[3]
 
 
 def check_b5(shapes, gen):
@@ -514,12 +675,13 @@ def hollow_volume(dense, seed=4):
     return vol
 
 
-def run_main_path(tag, vol, require, capture=False, **kwargs):
+def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
     """skeletonize(vol) on CUDA twice, the launch counts reset just before
     each run and read just after it; each run must launch every kernel in
     `require`. Returns (skeletons and counters of the second run, launches
     summed over both runs, and with `capture` the global engine's inputs
-    and results of the second run)."""
+    and results of the second run). `b3_spy` is installed for the first
+    run."""
     import torch
 
     import kimimaro_tpu_torch
@@ -538,6 +700,8 @@ def run_main_path(tag, vol, require, capture=False, **kwargs):
     for run in ("first", "second"):
         if capture and run == "second":
             gengine.trace_global = spy
+        restore_b3 = b3_spy.install() if (b3_spy is not None
+                                          and run == "first") else None
         profiling.reset_stats()
         profiling.collect(True)
         torch.cuda.synchronize()
@@ -550,10 +714,12 @@ def run_main_path(tag, vol, require, capture=False, **kwargs):
                 dust_threshold=1000, fix_borders=True, fix_branching=True,
                 device="cuda", **kwargs)
             torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         finally:
             gengine.trace_global = trace_global
+            if restore_b3 is not None:
+                restore_b3()
             profiling.collect(False)
-        secs = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         for k, v in launches.items():
             total[k] += v
@@ -579,13 +745,22 @@ def run_main_path(tag, vol, require, capture=False, **kwargs):
 
 
 def dense_main_path(vol):
+    """Returns (skeletons, the global engine's inputs and results, launches,
+    the B3 calls recorded in the first run)."""
     n = vol.shape[0]
-    skels, _, launches, captured = run_main_path(
+    b3_spy = B3Spy()
+    skels, counters, launches, captured = run_main_path(
         "dense", vol, ("gsweep_sweep0", "gsweep_sweep0_dual", "crop_argmax"),
-        capture=True)
+        capture=True, b3_spy=b3_spy)
     if len(skels) < 0.9 * DENSE_LABELS * (n / 512) ** 3:
         raise AssertionError(f"dense run: only {len(skels)} skeletons")
-    return skels, captured, launches
+    # one B3 call per grouped argmax: the root selection and one per path
+    # iteration, whatever the number of crop tiers
+    want = 2 * (counters["gengine_iterations"] + 1)
+    if launches["crop_argmax"] != want:
+        raise AssertionError(f"dense runs: {launches['crop_argmax']} B3 "
+                             f"calls, expected {want}")
+    return skels, captured, launches, b3_spy
 
 
 def hollow_main_path(vol):
@@ -1081,6 +1256,43 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
     return launches, rep, err
 
 
+def profile_dense(top=25):
+    """`--profile`: one warm dense 512^3 run under torch.profiler. Prints
+    the card's busy share (device time of all kernels and copies over the
+    run's wall time) and the operations that took most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import kimimaro_tpu_torch
+
+    def run():
+        t0 = time.perf_counter()
+        kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    vol = dense_volume(DENSE_N)
+    log(f"[profile] first run {run():.2f} s, second run {run():.2f} s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        secs = run()
+    # device-side events only (kernels, copies, memsets): a host operator's
+    # row repeats the time of the kernels it launched
+    rows = sorted(((e.key, e.count, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows) / 1e6
+    log(f"[profile] profiled run {secs:.2f} s; device time {busy:.3f} s in "
+        f"{sum(r[1] for r in rows)} kernels and copies, busy share "
+        f"{busy / secs:.3f}")
+    for key, count, us in rows[:top]:
+        log(f"[profile] {us / 1e6:8.4f} s {count:7d} x  {key[:100]}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1089,6 +1301,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from kimimaro_tpu_torch import kernels
+
+    if sys.argv[1:] == ["--profile"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        log(smi)
+        return profile_dense()
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -1112,9 +1332,12 @@ def main() -> int:
     n = DENSE_N
     table = []
     b1 = check_b1([(11, 9, 8), (13, 37, 45), (n, n, n)], gen)
-    b2 = check_b2([(11, 9, 8), (13, 37, 45), (n, n, n)], gen)
-    b3 = check_b3([((20, 18, 16), (8, 7, 6), 6),
-                   ((n, n, n), (96, 96, 96), 2048)], gen)
+    b2 = check_b2([(11, 9, 8), (13, 37, 45), *B2_STRESS_SHAPES, (n, n, n)],
+                  gen)
+    log(f"[kernels] B2 sweeps of {n}^3: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in b2[3].items()))
+    b3_windows = check_b3([((20, 18, 16), (8, 7, 6), 6),
+                           ((n, n, n), (96, 96, 96), 2048)], gen)
     # B4 at a small shape, at the shapes the main path gives it (the soma
     # volume's (256, 256, 64) bucket of 2 lanes, swept along x and y, then
     # along z through the permuted copy; the crop cross-check's 64 lanes of
@@ -1130,7 +1353,7 @@ def main() -> int:
         ("gsweep_sweep0_dual", "kimimaro_tpu_torch/csrc/gsweep.cu",
          "kimimaro_tpu/ops/gsweep.py:528", b2, f"ball_rail sweep of {n}^3"),
         ("crop_argmax", "kimimaro_tpu_torch/csrc/argmax.cu",
-         "kimimaro_tpu/ops/pallas_argmax.py:205", b3,
+         "kimimaro_tpu/ops/pallas_argmax.py:205", b3_windows,
          f"2048 lanes of 96^3 crops in {n}^3"),
         ("sweep_axis0_batched", "kimimaro_tpu_torch/csrc/sweep.cu",
          "kimimaro_tpu/ops/pallas_sweep.py:308", b4,
@@ -1149,7 +1372,13 @@ def main() -> int:
     dense = dense_volume(n)
     log(f"[dense] volume {dense.shape}, {len(np.unique(dense))} labels, made "
         f"in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    dense_skels, captured, dense_launches = dense_main_path(dense)
+    dense_skels, captured, dense_launches, b3_spy = dense_main_path(dense)
+    # B3 at the shapes the dense run handed it: the kernel table's row
+    b3 = check_b3_recorded(b3_spy)
+    del b3_spy
+    log(f"[kernels] crop_argmax: {b3[0]:.3f} ms vs plain {b3[1]:.3f} ms, "
+        f"bound {b3[3]:.3f} ms (the dense run's first path iteration), max "
+        f"abs err {b3[2]}")
     t0 = time.perf_counter()
     hollow = hollow_volume(dense)
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
@@ -1190,7 +1419,9 @@ def main() -> int:
                                      12 * 64 * 64 * 64 * 32),
         "sweep_axis0": bound(13 * 96 ** 3, 12 * 96 ** 3),
     }
-    for k, src, rep, (ms, plain, err, *_), what in meta:
+    timed = {k: (b3 if k == "crop_argmax" else t) for k, _, _, t, _ in meta}
+    for k, src, rep, _, what in meta:
+        ms, plain, err, *_ = timed[k]
         table.append({"name": k, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[k],
                       "max_abs_err": err, "ms": round(ms, 4),

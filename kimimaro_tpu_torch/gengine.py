@@ -7,9 +7,10 @@ the foreground, so:
     rail distance, rolling-ball invalidation) is computed for ALL labels
     at once as ONE cc-masked relaxation over the full volume (ops.gsweep,
     kernels B1 and B2);
-  * per-label argmax/target selection reduces a fixed-shape crop around
-    each label's bbox (ops.crop_argmax, kernel B3): flat-index argmax
-    order inside any containing crop equals global (x,y,z)-lex order;
+  * per-label argmax/target selection reduces each label's bbox inside a
+    fixed-shape crop around it (ops.crop_argmax, kernel B3, one call for
+    all tiers): flat-index argmax order inside any containing box equals
+    global (x,y,z)-lex order;
   * all labels chase their paths simultaneously on a per-voxel descent
     code of the shared rail field;
   * the path loop advances in lock-step iterations: iteration k runs path
@@ -73,15 +74,14 @@ def _lane_bucket(n: int) -> int:
 # device helpers
 
 
-def _grouped_argmax(packed, cc, offs, lids, groups):
-    """Per-label argmax with per-group crops (one B3 launch per tier).
+def _grouped_argmax(packed, cc, offs, lids, crops, boxes):
+    """Per-label argmax over the lanes of every tier in one B3 call.
+    crops: (N, 3) each lane's tier crop (its window is [off, off + crop));
+    boxes: (origin, size) of what each lane scans inside its window, the
+    label's bbox, or size 0 for a lane with nothing to scan (it answers
+    -inf at its window origin, like a lane whose label holds only -inf).
     Returns (coords (N, 3) global int32, values (N,))."""
-    coords, vals = [], []
-    for (a, b, crop) in groups:
-        c, v = crop_argmax(packed, cc, offs[a:b], lids[a:b], crop)
-        coords.append(c)
-        vals.append(v)
-    return torch.cat(coords, 0), torch.cat(vals, 0)
+    return crop_argmax(packed, cc, offs, lids, crops, boxes)
 
 
 def _lanes_touched(mask, cc, lids, live):
@@ -180,10 +180,10 @@ def _probe_phase(cc_v, src_flat, anisotropy, rounds):
 
 
 def _root_daf_phase(probe, cc_v, offs, lids, roots_in, has_root, live_d,
-                    groups, anisotropy, rounds):
+                    crops, boxes, anisotropy, rounds):
     """Auto roots from the probe field, then the DAF relaxation."""
     packed = torch.where(torch.isfinite(probe), probe, NEG_INF)
-    auto_root, _ = _grouped_argmax(packed, cc_v.x, offs, lids, groups)
+    auto_root, _ = _grouped_argmax(packed, cc_v.x, offs, lids, crops, boxes)
     roots = torch.where(has_root[:, None], roots_in, auto_root)
     d0 = _sources(probe.shape, _flat(roots[live_d], probe.shape),
                   probe.device)
@@ -231,7 +231,7 @@ def _pdrf_rail_phase(daf, dbf, m_fl, d_fl, cc_v, roots_flat, pdrf_scale,
 
 def _iteration(st, it, it_w, daf, dbf, cc_v, offs, lids, roots,
                before_stack, after_stack, max_paths_arr, scale, const,
-               groups, anisotropy, rounds, fix_branching, L):
+               crops, boxes, anisotropy, rounds, fix_branching, L):
     """One lock-step path iteration for every still-active label:
     target -> chase -> rolling-ball invalidation -> rail rezero + warm
     re-relax. `st` holds the loop state (valid, pdrf, d_rail, nb, na,
@@ -246,9 +246,13 @@ def _iteration(st, it, it_w, daf, dbf, cc_v, offs, lids, roots,
     N = lids.shape[0]
     cc_x = cc_v.x
 
-    # --- target selection
+    # --- target selection. A done lane scans nothing: `done` is sticky
+    # and masks everything its target and value feed (`active`)
     packed = torch.where(valid != 0, daf, NEG_INF)
-    auto_t, am_val = _grouped_argmax(packed, cc_x, offs, lids, groups)
+    box_off, box_size = boxes
+    auto_t, am_val = _grouped_argmax(
+        packed, cc_x, offs, lids, crops,
+        (box_off, torch.where(done[:, None], 0, box_size)))
     has_valid = am_val > NEG_INF
 
     use_before = nb > 0
@@ -426,6 +430,8 @@ def trace_global(
     # unlimited by default; the real bound is MAX_SEGS buffer segments
     max_paths_arr = np.full(N, 1 << 30, dtype=np.int32)
     job_off = np.zeros((N, 3), dtype=np.int64)
+    # what a lane's argmax scans: its label's bbox (nothing on padding rows)
+    box_size = np.zeros((N, 3), dtype=np.int32)
     crop_of = np.empty((N, 3), dtype=np.int64)
     for (a, b, c) in groups:
         crop_of[a:b] = np.asarray(c)
@@ -435,6 +441,7 @@ def trace_global(
         lids[i] = job["segid"]
         mn = np.asarray(job["offset"], dtype=np.int64)
         job_off[i] = mn
+        box_size[i] = np.asarray(job["shape"], dtype=np.int64)
         offs[i] = np.maximum(np.minimum(mn, np.asarray(vol_shape) - crop_of[i]),
                              0)
         for t_i, t in enumerate(job["before"]):
@@ -459,6 +466,8 @@ def trace_global(
     cc_v = gsweep.MaskViews(cc_dev.to(torch.int32))
     dbf = dbf_dev.to(torch.float32)
     lids_d, offs_d, live_d = dev(lids), dev(offs), dev(live)
+    crops_d = dev(crop_of.astype(np.int32))
+    boxes_d = (dev(job_off.astype(np.int32)), dev(box_size))
     live_idx = np.flatnonzero(live)
     setup_taint = np.zeros(N, dtype=bool)
 
@@ -485,7 +494,7 @@ def trace_global(
 
         roots, daf, mask = _root_daf_phase(
             probe, cc_v, offs_d, lids_d, dev(roots_in), dev(has_root),
-            live_d, groups, anis, r_main)
+            live_d, crops_d, boxes_d, anis, r_main)
         daf = _continue_until(daf, mask)
         del probe
 
@@ -564,8 +573,8 @@ def trace_global(
             for it_w in range(K_ITER):
                 n_act, ball_mask, rail_mask = _iteration(
                     st, it, it_w, daf, dbf, cc_v, offs_d, lids_d, roots,
-                    before_d, after_d, mp_d, scale, const, groups, anis,
-                    r_iter, bool(fix_branching), L)
+                    before_d, after_d, mp_d, scale, const, crops_d, boxes_d,
+                    anis, r_iter, bool(fix_branching), L)
                 it += 1
                 seg_rows = it_w + 1
                 # taint labels whose ball/rail relax still changed past

@@ -17,13 +17,15 @@ clamp_positive resets positives to +inf (rolling-ball invalidation);
 `okmask` additionally restricts occupancy.
 
 `sweep0` (B1) and `sweep0_dual` (B2) launch the CUDA kernels of
-csrc/gsweep.cu for CUDA tensors; for CPU tensors they run the plain
+csrc/gsweep.cu for CUDA tensors (B1 one launch per plane, B2 one
+persistent launch per sweep); for CPU tensors they run the plain
 versions beside them. Non-axis-0 sweeps run on transposed layouts (the
 MaskViews rotation of the JAX package).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -218,14 +220,40 @@ def sweep0_dual(da, db, cc, nodecost, okmask, anis_perm, kind: str,
     n, H, W = da.shape
     out_a = torch.empty_like(da)
     out_b = torch.empty_like(db)
+    # the strips' edge-row mailboxes (two edges, two steps, two fields of
+    # W cells a strip), zero before every sweep
+    plan = _dual_plan(H, W, kind, da.device.index)
+    mail = torch.zeros((plan["strips"] * 8 * W,), dtype=torch.int64,
+                       device=da.device) if plan["persistent"] else None
     rc = kernels.lib().kt_gsweep_sweep0_dual(
         kernels.ptr(da), kernels.ptr(db), kernels.ptr(cc),
         kernels.ptr(nodecost), kernels.ptr(okmask), kernels.ptr(out_a),
-        kernels.ptr(out_b), n, H, W, kernels.costs_arg(_costs9(anis_perm)),
-        _KINDS[kind], int(bool(descending)), kernels.stream_ptr(da.device))
+        kernels.ptr(out_b), kernels.ptr(mail), n, H, W,
+        kernels.costs_arg(_costs9(anis_perm)), _KINDS[kind],
+        int(bool(descending)), kernels.stream_ptr(da.device))
     kernels.check(rc, "gsweep_sweep0_dual")
     kernels.LAUNCHES["gsweep_sweep0_dual"] += 1
     return out_a, out_b
+
+
+def dual_plan(H: int, W: int, kind: str) -> dict:
+    """How the B2 kernel runs an (H, W) plane on the current CUDA device:
+    `persistent` (one launch per sweep, `strips` CTAs of `rows` rows
+    each) or the per-plane form for planes too large to hold."""
+    return dict(_dual_plan(int(H), int(W), kind,
+                           torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _dual_plan(H: int, W: int, kind: str, device_index) -> dict:
+    import ctypes
+
+    rows, strips = ctypes.c_int(), ctypes.c_int()
+    persistent = kernels.lib().kt_gsweep_dual_plan(
+        int(H), int(W), _KINDS[kind], ctypes.byref(rows),
+        ctypes.byref(strips))
+    return {"persistent": bool(persistent), "rows": rows.value,
+            "strips": strips.value}
 
 
 # --------------------------------------------------------------------------- #

@@ -66,38 +66,108 @@ def test_sweep0_kernel_matches_plain(gen, mode, descending):
         _assert_bit_equal((got,), (want,))
 
 
-@pytest.mark.parametrize("kind", ("ball_rail", "max2"))
-def test_sweep0_dual_kernel_matches_plain(gen, kind):
-    cc = torch.randint(0, 4, SHAPE, generator=gen, device="cuda",
+def _dual_inputs(gen, shape, kind):
+    cc = torch.randint(0, 4, shape, generator=gen, device="cuda",
                        dtype=torch.int32)
     if kind == "ball_rail":
-        da = torch.where(_rand(gen) < 0.2, -_rand(gen) * 60, float("inf"))
-        db = torch.where(_rand(gen) < 0.2, _rand(gen), float("inf"))
-        nc, ok = _rand(gen) * 3, (_rand(gen) < 0.8).to(torch.uint8)
-    else:
-        da = torch.where(cc > 0, _rand(gen), float("-inf"))
-        db = torch.where(cc > 0, _rand(gen) * 7, float("-inf"))
-        nc = ok = None
+        da = torch.where(_rand(gen, shape) < 0.2, -_rand(gen, shape) * 60,
+                         float("inf"))
+        db = torch.where(_rand(gen, shape) < 0.2, _rand(gen, shape),
+                         float("inf"))
+        return (da, db, cc, _rand(gen, shape) * 3,
+                (_rand(gen, shape) < 0.8).to(torch.uint8))
+    da = torch.where(cc > 0, _rand(gen, shape), float("-inf"))
+    db = torch.where(cc > 0, _rand(gen, shape) * 7, float("-inf"))
+    return da, db, cc, None, None
+
+
+# B2's strips: n = 1 and 2, H = 1, H = 5, a last strip shorter than the
+# others (H = 301 on 132 SMs), W = 1, W = 33 (rows off the 16-byte grid),
+# a rotated non-cubic layout, and a plane on each side of the
+# shared-memory rule (persistent up to about 640 x 640 on an H100)
+@pytest.mark.parametrize("shape", (
+    (11, 9, 8), SHAPE, (1, 7, 16), (2, 9, 16), (5, 1, 48), (6, 5, 32),
+    (6, 301, 48), (7, 12, 1), (5, 20, 33), (24, 512, 128), (3, 640, 640),
+    (3, 704, 704)))
+@pytest.mark.parametrize("kind", ("ball_rail", "max2"))
+def test_sweep0_dual_kernel_matches_plain(gen, kind, shape):
+    da, db, cc, nc, ok = _dual_inputs(gen, shape, kind)
     for desc in (False, True):
+        before = kernels.LAUNCHES["gsweep_sweep0_dual"]
         got = tgsweep.sweep0_dual(da, db, cc, nc, ok, ANIS, kind, desc)
+        assert kernels.LAUNCHES["gsweep_sweep0_dual"] == before + 1
+        again = tgsweep.sweep0_dual(da, db, cc, nc, ok, ANIS, kind, desc)
         want = tgsweep._sweep0_dual_plain(da, db, cc, nc, ok, ANIS, kind,
                                           desc)
         _assert_bit_equal(got, want)
+        _assert_bit_equal(again, got)  # the mailboxes start from zero
 
 
-def test_crop_argmax_kernel_matches_plain(gen):
-    shape, crop = (40, 36, 30), (16, 12, 10)
+def test_sweep0_dual_plan_follows_the_shape_rule(gen):
+    """One persistent launch per sweep where a strip fits in shared
+    memory, the per-plane form above that."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    small = tgsweep.dual_plan(512, 512, "ball_rail")
+    assert small == {"persistent": True, "rows": 4, "strips": 128}
+    assert tgsweep.dual_plan(640, 640, "max2")["persistent"]
+    assert not tgsweep.dual_plan(704, 704, "ball_rail")["persistent"]
+    assert not tgsweep.dual_plan(704, 704, "max2")["persistent"]
+
+
+def _argmax_inputs(gen, shape, crop, n_lanes):
     cc = torch.randint(0, 5, shape, generator=gen, device="cuda",
                        dtype=torch.int32)
     field = torch.round(_rand(gen, shape) * 3)
+    field = torch.where(_rand(gen, shape) < 0.2, -0.0, field)
     field = torch.where(cc == 4, float("-inf"), field).contiguous()
     hi = torch.tensor([s - c for s, c in zip(shape, crop)], device="cuda")
-    offs = (_rand(gen, (64, 3)) * (hi + 1)).floor().to(torch.int32)
-    lids = torch.tensor([1, 2, 3, 0, 4, 9], dtype=torch.int32,
-                        device="cuda").repeat(11)[:64].contiguous()
-    got = tcrop.crop_argmax(field, cc, offs.contiguous(), lids, crop)
-    want = tcrop._crop_argmax_plain(field, cc, offs, lids, crop)
+    offs = (_rand(gen, (n_lanes, 3)) * (hi + 1)).floor().to(torch.int32)
+    lids = torch.tensor([1, 2, 3, 0, 4, 9], dtype=torch.int32, device="cuda")
+    lids = lids.repeat(n_lanes // 6 + 1)[:n_lanes].contiguous()
+    return field, cc, offs.contiguous(), lids
+
+
+@pytest.mark.parametrize("boxed", (False, True))
+def test_crop_argmax_kernel_matches_plain(gen, boxed):
+    """B3 over whole windows and over random boxes inside them (every
+    fifth one empty): ties, -0.0, a label of only -inf, an absent id; two
+    runs agree (the order of the atomics does not show)."""
+    shape, crop = (40, 36, 30), (16, 12, 10)
+    field, cc, offs, lids = _argmax_inputs(gen, shape, crop, 64)
+    boxes = None
+    if boxed:
+        crop_t = torch.tensor(crop, device="cuda")
+        size = (_rand(gen, (64, 3)) * (crop_t + 1)).floor().clamp(max=crop_t)
+        size[::5] = 0
+        rel = (_rand(gen, (64, 3)) * (crop_t - size + 1)).floor()
+        rel = rel.clamp(max=crop_t - size)
+        boxes = ((offs + rel.to(torch.int32)).contiguous(),
+                 size.to(torch.int32).contiguous())
+    before = kernels.LAUNCHES["crop_argmax"]
+    got = tcrop.crop_argmax(field, cc, offs, lids, crop, boxes)
+    assert kernels.LAUNCHES["crop_argmax"] == before + 1
+    again = tcrop.crop_argmax(field, cc, offs, lids, crop, boxes)
+    want = tcrop._crop_argmax_plain(field, cc, offs, lids, crop, boxes)
     _assert_bit_equal(got, want)
+    _assert_bit_equal(again, got)
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def test_crop_argmax_kernel_per_lane_crops(gen):
+    """Lanes of three crop tiers in one call equal one call per tier."""
+    shape = (40, 36, 30)
+    tiers = ((8, 8, 8), (16, 12, 10), (32, 16, 16))
+    parts = [_argmax_inputs(gen, shape, c, 12) for c in tiers]
+    field, cc = parts[0][0], parts[0][1]
+    offs = torch.cat([p[2] for p in parts])
+    lids = torch.cat([p[3] for p in parts])
+    crops = torch.tensor(tiers, dtype=torch.int32,
+                         device="cuda").repeat_interleave(12, dim=0)
+    got = tcrop.crop_argmax(field, cc, offs, lids, crops)
+    want_c, want_v = zip(*[tcrop.crop_argmax(field, cc, p[2], p[3], c)
+                           for p, c in zip(parts, tiers)])
+    _assert_bit_equal(got, (torch.cat(want_c), torch.cat(want_v)))
 
 
 @pytest.mark.parametrize("node_mode", (False, True))

@@ -216,3 +216,169 @@ def test_crop_argmax_rejects_window_outside_volume():
     offs[2] = (13, 0, 0)
     with pytest.raises(ValueError):
         tcrop.crop_argmax(_t(field), _t(cc), _t(offs), _t(lids), crop)
+
+
+def _label_boxes(cc, offs, lids, crop, rng, slack=0):
+    """Per lane the bounding box of cc == lid inside the window, grown by
+    up to `slack` cells on each side (kept inside the window); a lane
+    without such a voxel gets a size-0 box at the window origin."""
+    box_off = offs.copy()
+    box_size = np.zeros_like(offs)
+    for i, (o, lid) in enumerate(zip(offs, lids)):
+        win = cc[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1],
+                 o[2]:o[2] + crop[2]]
+        pts = np.argwhere(win == lid)
+        if len(pts) == 0:
+            continue
+        lo = np.maximum(pts.min(axis=0) - rng.randint(0, slack + 1, 3), 0)
+        hi = np.minimum(pts.max(axis=0) + 1 + rng.randint(0, slack + 1, 3),
+                        crop)
+        box_off[i] = o + lo
+        box_size[i] = hi - lo
+    return box_off.astype(np.int32), box_size.astype(np.int32)
+
+
+def _argmax_variant(name):
+    """The seeded case with the field rewritten to stress one rule."""
+    field, cc, offs, lids, crop = _argmax_case(3)
+    rng = np.random.RandomState(17)
+    if name == "ties":
+        # one value over every label: the first voxel in (x, y, z) wins,
+        # across x, across y and across z
+        field[:] = 2.0
+    elif name == "signed_zero":
+        field = np.where(rng.rand(*field.shape) < 0.5, -0.0, 0.0)
+        field = field.astype(np.float32)
+        field[cc == 4] = -np.inf
+    elif name == "negative":
+        field = -np.round(rng.rand(*field.shape) * 3 + 1).astype(np.float32)
+        field[cc == 4] = -np.inf
+    elif name == "all_neg_inf":
+        field[:] = -np.inf
+    return field, cc, offs, lids, crop
+
+
+@pytest.mark.parametrize("slack", (0, 2))
+@pytest.mark.parametrize("name", ("random", "ties", "signed_zero",
+                                  "negative", "all_neg_inf"))
+def test_crop_argmax_boxes_match_windows_and_jax(name, slack):
+    """B3 over per-lane boxes that hold the label equals B3 over the whole
+    windows and gengine._crop_argmax, bit for bit: -inf-only labels, absent
+    ids (size-0 boxes), ties across x, y and z, -0.0 against 0.0."""
+    field, cc, offs, lids, crop = _argmax_variant(name)
+    rng = np.random.RandomState(5)
+    boxes = _label_boxes(cc, offs, lids, crop, rng, slack)
+    assert (boxes[1][3] == 0).all()  # the absent id scans nothing
+    idx, val = jgengine._crop_argmax(_j(field), _j(cc).astype(jnp.uint16),
+                                     _j(offs), _j(lids), crop)
+    want_c = np.asarray(jgengine._unflatten_crop(idx, _j(offs), crop))
+    want_v = np.asarray(val)
+    args = (_t(field), _t(cc), _t(offs), _t(lids), crop)
+    for got_c, got_v in (tcrop.crop_argmax(*args),
+                         tcrop.crop_argmax(*args, boxes=(_t(boxes[0]),
+                                                         _t(boxes[1])))):
+        np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                      want_v.view(np.int32))
+        np.testing.assert_array_equal(got_c.numpy(), want_c)
+        np.testing.assert_array_equal(got_c.numpy()[3], offs[3])
+
+
+def test_crop_argmax_first_maximum_across_each_axis():
+    """Two equal maxima that differ along one axis only: the smaller
+    coordinate wins on every axis, inside a box that starts elsewhere."""
+    cc = np.ones((9, 8, 7), dtype=np.int32)
+    offs = np.zeros((3, 3), dtype=np.int32)
+    lids = np.ones(3, dtype=np.int32)
+    crop = (9, 8, 7)
+    for axis in range(3):
+        field = np.zeros(cc.shape, dtype=np.float32)
+        a, b = [4, 4, 4], [4, 4, 4]
+        a[axis], b[axis] = 2, 5
+        field[tuple(a)] = field[tuple(b)] = 7.0
+        box = (_t(np.tile(np.int32([1, 2, 1]), (3, 1))),
+               _t(np.tile(np.int32([7, 5, 5]), (3, 1))))
+        got_c, got_v = tcrop.crop_argmax(_t(field), _t(cc), _t(offs),
+                                         _t(lids), crop, boxes=box)
+        np.testing.assert_array_equal(got_c.numpy(), np.tile(a, (3, 1)))
+        np.testing.assert_array_equal(got_v.numpy(), np.float32([7, 7, 7]))
+
+
+def test_crop_argmax_rejects_box_outside_window():
+    field, cc, offs, lids, crop = _argmax_case(0)
+    rng = np.random.RandomState(0)
+    box_off, box_size = _label_boxes(cc, offs, lids, crop, rng)
+    box_size[1] = (9, 2, 2)  # wider than the window's 8
+    with pytest.raises(ValueError):
+        tcrop.crop_argmax(_t(field), _t(cc), _t(offs), _t(lids), crop,
+                          boxes=(_t(box_off), _t(box_size)))
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_grouped_argmax_one_call_equals_per_tier(seed):
+    """gengine._grouped_argmax (one B3 call over the lanes of every tier,
+    each scanning its label's bbox, padding lanes scanning nothing) equals
+    one crop_argmax per tier over the whole tier crops, and the JAX
+    package's per-tier form."""
+    from kimimaro_tpu_torch import gengine as tgengine
+
+    rng = np.random.RandomState(seed)
+    shape = (40, 36, 30)
+    cc = np.zeros(shape, dtype=np.int32)
+    # labels of three sizes, so that three tiers hold lanes
+    blocks = [((2, 3, 1), (6, 5, 4)), ((20, 2, 2), (7, 7, 6)),
+              ((30, 25, 20), (5, 6, 7)), ((4, 12, 8), (14, 12, 10)),
+              ((22, 14, 12), (12, 15, 13)), ((1, 26, 14), (30, 9, 15))]
+    for lab, (o, s) in enumerate(blocks, start=1):
+        m = rng.rand(*s) < 0.8
+        m[0, 0, 0] = m[-1, -1, -1] = True
+        cc[o[0]:o[0] + s[0], o[1]:o[1] + s[1], o[2]:o[2] + s[2]][m] = lab
+    field = np.round(rng.rand(*shape) * 4).astype(np.float32)
+    field[rng.rand(*shape) < 0.2] = -np.inf
+    field[cc == 3] = -np.inf
+    tiers = [(8, 8, 8), (16, 16, 16), (32, 16, 16)]
+    groups, lids, offs, crops, box_off, box_size = [], [], [], [], [], []
+    for t, members in enumerate(((1, 2, 3), (4, 5), (6,))):
+        start = len(lids)
+        for lab in members:
+            o, s = blocks[lab - 1]
+            lids.append(lab)
+            offs.append(np.maximum(np.minimum(
+                o, np.array(shape) - tiers[t]), 0))
+            box_off.append(o)
+            box_size.append(s)
+        for _ in range(tgengine._lane_bucket(len(members)) - len(members)):
+            lids.append(0)  # a padding lane
+            offs.append((0, 0, 0))
+            box_off.append((0, 0, 0))
+            box_size.append((0, 0, 0))
+        crops.extend([tiers[t]] * (len(lids) - start))
+        groups.append((start, len(lids), tiers[t]))
+    lids = np.int32(lids)
+    offs, crops = np.int32(offs), np.int32(crops)
+    box_off, box_size = np.int32(box_off), np.int32(box_size)
+    assert len(lids) == 12 and (lids == 0).sum() == 6
+
+    got_c, got_v = tgengine._grouped_argmax(
+        _t(field), _t(cc), _t(offs), _t(lids), _t(crops),
+        (_t(box_off), _t(box_size)))
+    tier_c, tier_v = [], []
+    for a, b, crop in groups:
+        c, v = tcrop.crop_argmax(_t(field), _t(cc), _t(offs[a:b]),
+                                 _t(lids[a:b]), crop)
+        tier_c.append(c)
+        tier_v.append(v)
+    tier_c, tier_v = torch.cat(tier_c), torch.cat(tier_v)
+    live = lids > 0
+    # a padding lane's label 0 is the background, which the per-tier form
+    # scans and the one call does not; the engine never reads those rows
+    np.testing.assert_array_equal(got_v.numpy()[live], tier_v.numpy()[live])
+    np.testing.assert_array_equal(got_c.numpy()[live], tier_c.numpy()[live])
+    assert np.isneginf(got_v.numpy()[~live]).all()
+    np.testing.assert_array_equal(got_c.numpy()[~live], offs[~live])
+    jax_c, jax_v = jgengine._grouped_argmax(
+        _j(field), _j(cc).astype(jnp.uint16), _j(offs), _j(lids), groups)
+    np.testing.assert_array_equal(got_v.numpy()[live],
+                                  np.asarray(jax_v)[live])
+    np.testing.assert_array_equal(got_c.numpy()[live],
+                                  np.asarray(jax_c)[live])
+    assert np.isneginf(got_v.numpy()[2])  # label 3 holds only -inf
