@@ -8,9 +8,12 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels from kimimaro_tpu_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel (B1-B5) against its plain torch version on the
      card, bit for bit, at a small shape and at the main path's shape,
-     with both times; B2 also at shapes that stress its strips and on
-     each side of its shared-memory rule, B3 over whole windows and over
-     random boxes, both run twice with identical results;
+     with both times; B1, B2 and B5 also at shapes that stress their
+     strips (n = 1, n = 2, H = 1, H = 5, H = 301, W = 1, W = 33) and on
+     each side of their shape rules (B1 and B2: persistent or per plane;
+     B5: one cluster, grid-wide strips or per plane), each call made
+     twice with identical results, and B5 at a soma-scale crop; B3 over
+     whole windows and over random boxes, twice;
   4. small main path: skeletonize on a blob fixture with a soma-sized
      label (taken by the crop engine) and a label with more manual
      targets than the crop engine holds (taken by the host trace path) on
@@ -50,6 +53,13 @@ their sum, so neither the kernel comparisons nor the cross-checks count.
 
 runs the dense volume under torch.profiler instead and prints the card's
 busy share and the operations that took most device time.
+
+    python3 chip_smoke.py --host-soma
+
+runs one soma-mode label of 512^3 (a 3,680 nm soma with a neurite, alone
+in the volume) through skeletonize instead: the crop engine hands it to
+the host trace path, whose relaxes are B5 sweeps. It prints the run's
+seconds, phases, counters and launches.
 """
 
 from __future__ import annotations
@@ -149,7 +159,9 @@ def sweep_inputs(shape, mode, has_ok, clamp, gen):
     cc = torch.randint(0, 4, shape, generator=gen, device=dev,
                        dtype=torch.int32)
     if mode == "minid":
-        cc = torch.where(cc == 3, -7, cc)
+        # raw labels bitcast to int32: -1 equals the carried id of an
+        # unoccupied voxel in the plain version
+        cc = torch.where(cc == 3, -7, torch.where(cc == 2, -1, cc))
         d = torch.where(cc != 0, torch.randint(1, 999, shape, generator=gen,
                                                device=dev, dtype=torch.int32),
                         2**31 - 1).to(torch.int32)
@@ -164,27 +176,69 @@ def sweep_inputs(shape, mode, has_ok, clamp, gen):
     return d.contiguous(), cc, nc, ok
 
 
+# B1 beyond its timed shapes: n = 1 and n = 2, H = 1, H = 5, a last strip
+# shorter than the others (H = 301 is strips of 3 rows on 132 SMs), W = 1,
+# W = 33 (no 16-byte rows: the plain-load stages), rotated non-cubic layouts
+B1_STRESS_SHAPES = ((1, 7, 16), (2, 9, 16), (5, 1, 48), (6, 5, 32),
+                    (6, 301, 48), (7, 12, 1), (5, 20, 33), (24, 512, 128),
+                    (9, 128, 512))
+# the square planes on each side of kt_gsweep_sweep0_plan's rule on an H100
+# (132 SMs, 227 KB), by (mode, okmask): (persistent, per plane)
+B1_RULE = {("euclid", False): (896, 912), ("euclid", True): (848, 864),
+           ("node", False): (784, 800), ("node", True): (784, 800),
+           ("maxflood", False): (896, 912), ("maxflood", True): (848, 864),
+           ("minid", False): (896, 912), ("minid", True): (848, 864)}
+B1_MODES = ("euclid", "node", "maxflood", "minid")
+
+
+def b1_case(shape, mode, has_ok, clamp, gen, anis):
+    """B1 against its plain version in both directions, each call made
+    twice (the mailboxes start from zero again)."""
+    from kimimaro_tpu_torch.ops import gsweep
+
+    d, cc, nc, ok = sweep_inputs(shape, mode, has_ok, clamp, gen)
+    err = 0.0
+    for desc in (False, True):
+        got = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp, desc)
+        again = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp, desc)
+        want = gsweep._sweep0_plain(d, cc, nc, ok, anis, mode, clamp, desc)
+        name = f"B1 {mode} ok={has_ok} clamp={clamp} desc={desc} {shape}"
+        err = max(err, require_equal(name, got, want))
+        require_equal(name + " run twice", again, got)
+    return err
+
+
 def check_b1(shapes, gen):
+    """B1 against its plain version at each shape in all four modes, with
+    and without an okmask and clamp, both directions, twice; then on each
+    side of its shared-memory rule. Returns the time of a euclid + okmask
+    + clamp sweep of the last shape."""
     from kimimaro_tpu_torch.ops import gsweep
 
     anis = (16.0, 16.0, 40.0)
     err = 0.0
     for shape in shapes:
-        for mode in ("euclid", "node", "maxflood", "minid"):
+        for mode in B1_MODES:
             for has_ok in (False, True):
                 for clamp in (False, True):
-                    d, cc, nc, ok = sweep_inputs(shape, mode, has_ok, clamp,
-                                                 gen)
-                    for desc in (False, True):
-                        got = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp,
-                                            desc)
-                        want = gsweep._sweep0_plain(d, cc, nc, ok, anis, mode,
-                                                    clamp, desc)
-                        err = max(err, require_equal(
-                            f"B1 {mode} ok={has_ok} clamp={clamp} "
-                            f"desc={desc} {shape}", got, want))
+                    err = max(err, b1_case(shape, mode, has_ok, clamp, gen,
+                                           anis))
+        plan = gsweep.sweep0_plan(shape[1], shape[2], "euclid", True)
         log(f"[kernels] B1 bit-equal on {shape}: 4 modes x okmask x clamp "
-            f"x direction")
+            f"x direction, twice; plan {json.dumps(plan)}")
+    for (mode, has_ok), sides in sorted(B1_RULE.items()):
+        for side, persistent in zip(sides, (True, False)):
+            plan = gsweep.sweep0_plan(side, side, mode, has_ok)
+            if plan["persistent"] != persistent:
+                raise AssertionError(f"B1 {mode} ok={has_ok} {side}^2: plan "
+                                     f"{plan}, expected persistent="
+                                     f"{persistent}")
+            for clamp in (False, True):
+                err = max(err, b1_case((2, side, side), mode, has_ok, clamp,
+                                       gen, anis))
+    log(f"[kernels] B1 bit-equal on each side of its shared-memory rule, "
+        f"every mode and okmask (persistent / per-plane planes: "
+        f"{json.dumps({f'{m} ok={o}': v for (m, o), v in B1_RULE.items()})})")
     d, cc, nc, ok = sweep_inputs(shapes[-1], "euclid", True, True, gen)
     ms = cuda_ms(lambda: gsweep.sweep0(d, cc, None, ok, anis, "euclid", True,
                                        False), 5)
@@ -420,34 +474,172 @@ def check_b3_recorded(spy):
     return row[0], row[1], err, row[3]
 
 
-def check_b5(shapes, gen):
+# B5 beyond its timed shape: n = 1, H = 1, W = 1, W = 33, a last strip
+# shorter than the others, non-cubic; and the square planes on each side of
+# kt_sweep_axis0_plan's rules on an H100 (132 SMs, 227 KB), by node mode:
+# one cluster of 16 CTAs while each relaxes its strip in one pass, then
+# grid-wide strips, then one launch per plane
+B5_STRESS_SHAPES = ((1, 7, 16), (2, 9, 16), (5, 1, 48), (7, 12, 1),
+                    (5, 20, 33), (17, 40, 24), (5, 301, 48))
+B5_RULE = {False: ((170, "cluster"), (171, "strips"), (1184, "strips"),
+                   (1200, "plane")),
+           True: ((170, "cluster"), (171, "strips"), (1024, "strips"),
+                  (1040, "plane"))}
+# a soma-scale crop of the host trace path (--host-soma's label: about
+# 460 x 460 x 184 voxels) as it is swept along x or y, and along z
+B5_SOMA_SHAPES = ((460, 460, 184), (184, 460, 460))
+
+
+def b5_inputs(shape, clamp, gen):
+    """A field with a quarter finite, finite positive values on both end
+    planes (the first plane of a sweep passes through unclamped and
+    unmasked), an ok mask and node costs."""
     import torch
 
+    r = lambda *s: torch.rand(s or shape, generator=gen, device="cuda")
+    d = torch.where(r() < 0.25, r() * 10 - (5.0 if clamp else 0.0),
+                    float("inf"))
+    d[0] = r(*shape[1:]) + 0.5
+    d[-1] = r(*shape[1:]) + 0.5
+    return d.contiguous(), (r() < 0.8).contiguous(), (r() * 3).contiguous()
+
+
+def b5_case(shape, node, clamp, gen, anis):
+    """B5 against its plain version in both directions, each call made
+    twice; the first plane must pass through unchanged."""
+    from kimimaro_tpu_torch.ops import sweep
+
+    d, ok, nc = b5_inputs(shape, clamp, gen)
+    err = 0.0
+    for desc in (False, True):
+        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
+        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
+        want = sweep._sweep_axis0_plain(d, ok, nc, anis, node, clamp, desc)
+        name = f"B5 node={node} clamp={clamp} desc={desc} {shape}"
+        err = max(err, require_equal(name, got, want))
+        require_equal(name + " run twice", again, got)
+        first = -1 if desc else 0
+        require_equal(name + " first plane", got[first], d[first])
+    return err
+
+
+def check_b5(shapes, gen):
+    """B5 against its plain version at each shape (node and euclid, clamp,
+    both directions, twice), on each side of its form rules and at a
+    soma-scale crop. Returns the time of a node sweep of a 96^3 crop (the
+    table's row) and the soma-scale times."""
     from kimimaro_tpu_torch.ops import sweep
 
     anis = (40.0, 16.0, 16.0)
     err = 0.0
     for shape in shapes:
-        r = lambda: torch.rand(shape, generator=gen, device="cuda")
         for node in (False, True):
             for clamp in (False, True):
-                d = torch.where(r() < 0.25, r() * 10 - (5.0 if clamp else 0.0),
-                                float("inf")).contiguous()
-                ok = (r() < 0.8).contiguous()
-                nc = (r() * 3).contiguous()
-                for desc in (False, True):
-                    got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
-                    want = sweep._sweep_axis0_plain(d, ok, nc, anis, node,
-                                                    clamp, desc)
-                    err = max(err, require_equal(
-                        f"B5 node={node} clamp={clamp} desc={desc} {shape}",
-                        got, want))
+                err = max(err, b5_case(shape, node, clamp, gen, anis))
+        plans = {m: sweep.sweep_axis0_plan(shape[1], shape[2], m)["form"]
+                 for m in (False, True)}
         log(f"[kernels] B5 bit-equal on {shape}: node/euclid x clamp x "
-            f"direction")
+            f"direction, twice; form euclid {plans[False]}, node "
+            f"{plans[True]}")
+    for node, sides in B5_RULE.items():
+        for side, form in sides:
+            plan = sweep.sweep_axis0_plan(side, side, node)
+            if plan["form"] != form:
+                raise AssertionError(f"B5 node={node} {side}^2: plan {plan}, "
+                                     f"expected {form}")
+            for clamp in (False, True):
+                err = max(err, b5_case((2, side, side), node, clamp, gen,
+                                       anis))
+    log(f"[kernels] B5 bit-equal on each side of its form rules: "
+        f"{json.dumps({('node' if k else 'euclid'): v for k, v in B5_RULE.items()})}")
+    d, ok, nc = b5_inputs((96, 96, 96), False, gen)
     ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, True, False), 5)
     plain = cuda_ms(lambda: sweep._sweep_axis0_plain(d, ok, nc, anis, True,
                                                      False, False), 1)
-    return ms, plain, err
+    soma = {}
+    for shape in B5_SOMA_SHAPES:
+        err = max(err, b5_case(shape, True, False, gen, anis))
+        d, ok, nc = b5_inputs(shape, False, gen)
+        for node in (True, False):
+            soma[(shape, node)] = cuda_ms(lambda: sweep.sweep_axis0(
+                d, ok, nc, anis, node, False), 5)
+        plan = sweep.sweep_axis0_plan(shape[1], shape[2], True)
+        log(f"[kernels] B5 soma-scale crop {shape} ({d.numel() / 1e6:.1f} M "
+            f"voxels, form {plan['form']}, {plan['ctas']} CTAs of "
+            f"{plan['rows']} rows): bit-equal; node sweep "
+            f"{soma[(shape, True)]:.3f} ms, euclid "
+            f"{soma[(shape, False)]:.3f} ms, bound "
+            f"{1e3 * 13 * d.numel() / HBM_BYTES_PER_S:.3f} ms (bytes)")
+    del d, ok, nc
+    return ms, plain, err, soma
+
+
+class B5Spy:
+    """While installed, keeps the arguments of the first host trace path
+    B5 call of every (shape, mode, clamp, direction), up to `keep` of them,
+    and counts the calls by the form their plane takes."""
+
+    def __init__(self, keep=64):
+        self.keep = keep
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import geodesic, sweep
+
+        inner = geodesic.sweep_axis0
+
+        def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False):
+            if d.device.type == "cuda":
+                key = (tuple(d.shape), bool(node_mode), bool(clamp_positive),
+                       bool(descending))
+                if key not in self.kept and len(self.kept) < self.keep:
+                    self.kept[key] = (d.clone(), ok, nc, tuple(anis))
+                form = sweep.sweep_axis0_plan(d.shape[1], d.shape[2],
+                                              node_mode)["form"]
+                self.calls[form] = self.calls.get(form, 0) + 1
+            return inner(d, ok, nc, anis, node_mode, clamp_positive,
+                         descending)
+
+        geodesic.sweep_axis0 = spy
+
+        def restore():
+            geodesic.sweep_axis0 = inner
+
+        return restore
+
+
+def check_b5_recorded(spy):
+    """B5 against its plain version on the calls the host trace path made
+    (phases 4 and 5), each made twice, with the kernel's time. Returns the
+    max abs error."""
+    from kimimaro_tpu_torch.ops import sweep
+
+    err = 0.0
+    ms_total = plain_total = 0.0
+    forms = {}
+    for key, (d, ok, nc, anis) in sorted(spy.kept.items()):
+        shape, node, clamp, desc = key
+        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
+        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
+        want, plain = timed_once(lambda: sweep._sweep_axis0_plain(
+            d, ok, nc, anis, node, clamp, desc))
+        err = max(err, require_equal(f"B5 host call {key}", got, want))
+        require_equal(f"B5 host call {key} run twice", again, got)
+        ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, node, clamp,
+                                               desc), 3)
+        form = sweep.sweep_axis0_plan(shape[1], shape[2], node)["form"]
+        forms[form] = forms.get(form, 0) + 1
+        ms_total += ms
+        plain_total += plain
+    n = len(spy.kept)
+    if n == 0:
+        raise AssertionError("the host trace path made no B5 call")
+    log(f"[kernels] B5 on {n} recorded host-path calls (distinct shape, "
+        f"mode, clamp, direction; forms {json.dumps(forms)}): bit-equal, "
+        f"twice; mean {ms_total / n:.4f} ms vs plain {plain_total / n:.2f} "
+        f"ms; the calls by form: {json.dumps(spy.calls)}")
+    return err
 
 
 def check_b4(shapes, gen):
@@ -1293,6 +1485,85 @@ def profile_dense(top=25):
     return 0
 
 
+def soma_label_volume(n=DENSE_N):
+    """One soma-mode label alone in an n^3 volume: an ellipsoid of 3,680 nm
+    radius under the (16, 16, 40) anisotropy (230 x 230 x 92 voxels), off
+    centre in x, with a neurite of 9 x 5 voxels from it to the volume's
+    face; its crop is about 502 x 461 x 185 voxels (43 M)."""
+    vol = np.zeros((n, n, n), dtype=np.uint32)
+    rad = 3680.0 / np.asarray(ANIS, dtype=np.float64)
+    c = np.array([n // 2 - 16, n // 2, n // 2])
+    y, z = np.ogrid[:n, :n]
+    for x0 in range(0, n, 32):
+        x = np.arange(x0, x0 + 32)[:, None, None]
+        e = (((x - c[0]) / rad[0]) ** 2 + ((y - c[1]) / rad[1]) ** 2
+             + ((z - c[2]) / rad[2]) ** 2)
+        vol[x0:x0 + 32][e <= 1.0] = 1
+    vol[c[0]:, c[1] - 4:c[1] + 5, c[2] - 2:c[2] + 3] = 1
+    return vol
+
+
+def host_soma():
+    """`--host-soma`: one soma-mode label of 512^3 through skeletonize on
+    the card, once; the crop engine hands it to the host trace path, whose
+    relaxes are B5 sweeps. Prints its seconds, phases, counters, launches
+    and the B5 calls by form."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    vol = soma_label_volume()
+    lo = np.argwhere(vol).min(axis=0)
+    hi = np.argwhere(vol).max(axis=0)
+    log(f"[host-soma] volume {vol.shape}, label crop {tuple(hi - lo + 1)} "
+        f"({int(vol.sum())} voxels), made in {time.perf_counter() - t0:.1f} s")
+    spy = B5Spy(keep=0)
+    restore = spy.install()
+    profiling.reset_stats()
+    profiling.collect(True)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        skels = kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, fill_holes=False,
+            device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+        profiling.collect(False)
+    stats = profiling.get_stats()
+    launches = dict(kernels.LAUNCHES)
+    phases = {k: round(v, 3) for k, v in stats["phases"].items()}
+    log(f"[host-soma] {secs:.2f} s, {len(skels)} skeleton(s) of "
+        f"{[len(s) for s in skels.values()]} vertices")
+    log(f"[host-soma] phases (s): {json.dumps(phases)}")
+    log(f"[host-soma] counters: {json.dumps(stats['counters'])}")
+    log(f"[host-soma] launches: {json.dumps(launches)}; B5 calls by form: "
+        f"{json.dumps(spy.calls)}")
+    if stats["counters"].get("fallback_jobs", 0) < 1 or \
+            launches["sweep_axis0"] <= 0:
+        raise AssertionError("the soma-mode label did not take the host "
+                             "trace path")
+    if 1 not in skels or skels[1].empty() or \
+            not np.isfinite(skels[1].vertices).all():
+        raise AssertionError("the soma-mode label has no finite skeleton")
+    return 0
+
+
+def device_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -1303,22 +1574,21 @@ def main() -> int:
     from kimimaro_tpu_torch import kernels
 
     if sys.argv[1:] == ["--profile"]:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-        log(smi)
+        log(device_line())
         return profile_dense()
+    if sys.argv[1:] == ["--host-soma"]:
+        log(device_line())
+        rc = host_soma()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return rc
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     log(f"[device] {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    log(smi)
+    log(device_line())
 
     # 2. build
     t0 = time.perf_counter()
@@ -1331,7 +1601,8 @@ def main() -> int:
     gen.manual_seed(0)
     n = DENSE_N
     table = []
-    b1 = check_b1([(11, 9, 8), (13, 37, 45), (n, n, n)], gen)
+    b1 = check_b1([(11, 9, 8), (13, 37, 45), *B1_STRESS_SHAPES, (n, n, n)],
+                  gen)
     b2 = check_b2([(11, 9, 8), (13, 37, 45), *B2_STRESS_SHAPES, (n, n, n)],
                   gen)
     log(f"[kernels] B2 sweeps of {n}^3: "
@@ -1345,7 +1616,7 @@ def main() -> int:
     b4 = check_b4([(3, 11, 9, 8), (2, 256, 256, 64), (2, 64, 256, 256),
                    (64, 128, 128, 32), (64, 32, 128, 128),
                    (64, 64, 64, 32)], gen)
-    b5 = check_b5([(11, 9, 8), (96, 96, 96)], gen)
+    b5 = check_b5([(11, 9, 8), *B5_STRESS_SHAPES, (96, 96, 96)], gen)
     meta = (
         ("gsweep_sweep0", "kimimaro_tpu_torch/csrc/gsweep.cu",
          "kimimaro_tpu/ops/gsweep.py:219", b1,
@@ -1366,7 +1637,10 @@ def main() -> int:
         log(f"[kernels] {k}: {ms:.3f} ms vs plain {plain:.3f} ms ({what}), "
             f"max abs err {err}")
 
-    # 4 to 7. the main path; the counts cover exactly its runs
+    # 4 to 7. the main path; the counts cover exactly its runs. B5's calls
+    # from the host trace path of phases 4 and 5 are recorded.
+    b5_spy = B5Spy()
+    restore_b5 = b5_spy.install()
     launches = small_main_path()
     t0 = time.perf_counter()
     dense = dense_volume(n)
@@ -1385,6 +1659,9 @@ def main() -> int:
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
     soma_skels, soma_launches = hollow_main_path(hollow)
     cross_check(captured)
+    restore_b5()
+    b5_err = check_b5_recorded(b5_spy)
+    del b5_spy
     crop_cross_check(captured)
     del captured
 
@@ -1420,6 +1697,7 @@ def main() -> int:
         "sweep_axis0": bound(13 * 96 ** 3, 12 * 96 ** 3),
     }
     timed = {k: (b3 if k == "crop_argmax" else t) for k, _, _, t, _ in meta}
+    timed["sweep_axis0"] = (b5[0], b5[1], max(b5[2], b5_err))
     for k, src, rep, _, what in meta:
         ms, plain, err, *_ = timed[k]
         table.append({"name": k, "route": "cuda", "source": src,

@@ -9,16 +9,34 @@
 //   euclid mode new = min(cur, min9(prev + step_cost))
 //   new = ok ? new : +inf; clamp_positive resets positives to +inf.
 //
-// The first plane of the sweep passes through unchanged. A descending
-// sweep walks the plane index downward instead of flipping the data.
+// Every in-volume neighbour counts; out of the volume is +inf. The first
+// plane of the sweep passes through unchanged (no ok mask, no clamp). A
+// descending sweep walks the plane index downward instead of flipping the
+// data. Built with --fmad=false; __fadd_rn keeps the f32 order (step cost
+// before the min, nodecost after it).
 //
-// What bounds it on the card: label crops are small (tens to a few hundred
-// voxels per side), so a plane is a few thousand threads and the sweep is
-// bound by the per-plane launch, not by bytes. The design is the simple one
-// shared with B1 (one stencil launch per plane, previous plane read from
-// the output in device memory); a whole-crop kernel that walks the planes
-// in one block is later work. Built with --fmad=false; __fadd_rn keeps the
-// f32 order (step cost before the min, nodecost after it).
+// What bounds it on the card: label crops are small to medium planes (tens
+// to a few hundred voxels a side), so a sweep's floor is its chain of n
+// dependent planes, not its bytes (a 96^3 crop is 12 MB, 4 us at the HBM
+// rate). One launch per plane paid about 4 us a plane. B5 makes one launch
+// per sweep in one of three forms, chosen by `plan_axis0` from the shape:
+//
+//   * one thread-block cluster of up to 16 CTAs (plane.cuh `cluster_strips`)
+//     where each CTA relaxes its strip of ceil(H / 16) rows in one pass of
+//     its threads (ceil(R / 4) x W <= 512: square planes up to 170 x 170,
+//     rows up to 512 wide): a CTA's halo mailboxes lie in its own shared
+//     memory and its neighbours post their edge rows there through
+//     distributed shared memory, so a plane costs its stencil and a spin
+//     on shared memory, no launch and no trip through L2 (about 1.1 us a
+//     plane at 96 x 96 on the H100, against 1.4 us for the grid strips);
+//   * B1's grid-wide persistent strips (plane.cuh `grid_strips`, mailboxes
+//     in device memory) without the cc gating, for larger planes (up to
+//     1184 x 1184 in euclid mode and 1024 x 1024 in node mode on 132 SMs);
+//   * one launch per plane (`axis0_plane`) above that.
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "plane.cuh"
 
@@ -99,6 +117,103 @@ int run_axis0(const void* d, const void* ok, const void* nc, void* out, int n,
     return 0;
 }
 
+// B5 in the strips (cluster or grid-wide): the operator of
+// kt::sweep_strips. Operands in this order: d (, nc) words, ok bytes.
+template <bool NODE, bool CLAMP>
+struct Axis0Op {
+    using T = float;
+    static constexpr int kFields = 1;
+    static constexpr bool kIds = false;
+    static constexpr int kWords = NODE ? 2 : 1;
+    static constexpr int kBytes = 1;
+
+    const float* d;
+    const uint8_t* ok;
+    const float* nc;
+    float* out;
+    kt::Costs9 costs;
+
+    __device__ float fill() const { return INFINITY; }
+
+    __device__ const void* operand(int k) const {
+        if (k == 0) return d;
+        return k == 1 && NODE ? (const void*)nc : (const void*)ok;
+    }
+
+    __device__ int32_t halo_id(int64_t) const { return 0; }
+
+    // the arithmetic of `sweep_cell`, in its order
+    __device__ __forceinline__ void relax(
+        bool first, const kt::StageView<kWords + kBytes>& in, int i,
+        const float (&v)[1][kt::kGroup + 2][3],
+        const int32_t (&)[kt::kGroup + 2][3], int rr, float (&nv)[1],
+        int32_t&) const {
+        const float cur = ((const float*)in.p[0])[i];
+        if (first) {
+            nv[0] = cur;
+            return;
+        }
+        float cand = INFINITY;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+            for (int dz = 0; dz < 3; ++dz) {
+                const float sv = v[0][rr + dy][dz];
+                cand = NODE ? fminf(cand, sv)
+                            : fminf(cand, __fadd_rn(sv, costs.c[3 * dy + dz]));
+            }
+        }
+        if (NODE) cand = __fadd_rn(cand, ((const float*)in.p[1])[i]);
+        float r = in.p[kWords][i] ? fminf(cur, cand) : INFINITY;
+        if (CLAMP && r > 0.0f) r = INFINITY;
+        nv[0] = r;
+    }
+
+    __device__ void store(int64_t j, const float (&nv)[1]) const {
+        out[j] = nv[0];
+    }
+};
+
+// How B5 runs a plane of H x W: one cluster, grid-wide strips or per plane
+// (the form in the order of preference that the shape and the device
+// allow). The answer depends on the shape and the device only, and costs
+// device queries, so it is kept per (device, H, W, mode).
+template <bool NODE>
+kt::StripPlan plan_axis0(int H, int W) {
+    static std::mutex lock;
+    static std::map<std::tuple<int, int, int>, kt::StripPlan> plans;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const std::tuple<int, int, int> key(dev, H, W);
+    std::lock_guard<std::mutex> guard(lock);
+    const auto found = plans.find(key);
+    if (found != plans.end()) return found->second;
+    using Op = Axis0Op<NODE, false>;
+    kt::StripPlan plan = kt::plan_cluster<Op>(H, W);
+    if (plan.form != kt::kCluster) plan = kt::plan_grid_strips<Op>(H, W);
+    plans[key] = plan;
+    return plan;
+}
+
+template <bool NODE, bool CLAMP>
+int dispatch_axis0(const void* d, const void* ok, const void* nc, void* mail,
+                   void* out, int n, int H, int W, const kt::Costs9& costs,
+                   int descending, cudaStream_t st) {
+    if (n <= 0 || H <= 0 || W <= 0) return 0;
+    const kt::StripPlan plan = plan_axis0<NODE>(H, W);
+    if (plan.form == kt::kPerPlane) {
+        return run_axis0<NODE, CLAMP>(d, ok, nc, out, n, H, W, costs,
+                                      descending, st);
+    }
+    const Axis0Op<NODE, CLAMP> op = {(const float*)d, (const uint8_t*)ok,
+                                     (const float*)nc, (float*)out, costs};
+    if (plan.form == kt::kCluster) {
+        return kt::run_cluster(op, n, H, W, descending, plan, st);
+    }
+    return kt::run_grid_strips(op, (unsigned long long*)mail, n, H, W,
+                               descending, plan, st);
+}
+
 // B4: the lane-batched form. Replaces the Pallas kernel
 // kimimaro_tpu/ops/pallas_sweep.py `sweep_axis0_batched`
 // (`_batched_kernel_factory`), the crop engine's relax
@@ -107,9 +222,9 @@ int run_axis0(const void* d, const void* ok, const void* nc, void* out, int n,
 // covers every lane (blockIdx.z = lane). With a voxel graph, a candidate
 // from the neighbour u on the previous plane counts only where bit bits9[k]
 // of u's bitfield allows the move (the bit of the neighbour, not of the
-// voxel). What bounds it is the same as B5: a relax is (rounds + 1) x 6 x n
-// plane launches of a few thousand threads per lane, so the launches, not
-// the bytes, set its time.
+// voxel). What bounds it is the per-plane launch B5 had: a relax is
+// (rounds + 1) x 6 x n plane launches of a few thousand threads per lane,
+// so the launches, not the bytes, set its time.
 template <bool NODE, bool CLAMP, bool VG>
 __global__ void batched_plane(const float* __restrict__ d,
                               const uint8_t* __restrict__ ok,
@@ -201,24 +316,38 @@ int kt_sweep_axis0_batched(const void* d, const void* ok, const void* nc,
                                                 descending, st);
 }
 
-// d/out/nc: float32, ok: uint8 (bool), all (n, H, W) contiguous; nc may be
-// NULL when node_mode is 0. Returns a cudaError_t code (0 = success).
-int kt_sweep_axis0(const void* d, const void* ok, const void* nc, void* out,
-                   int n, int H, int W, const float* costs9, int node_mode,
-                   int clamp, int descending, void* stream) {
+// B5. d/out/nc: float32, ok: uint8 (bool), all (n, H, W) contiguous; nc
+// may be NULL when node_mode is 0. mail: int64 (strips * 4 * W,) for the
+// grid-wide strips (kt_sweep_axis0_plan form 1), zeroed by the caller
+// before every call, else ignored. Returns a cudaError_t code (0 =
+// success).
+int kt_sweep_axis0(const void* d, const void* ok, const void* nc, void* mail,
+                   void* out, int n, int H, int W, const float* costs9,
+                   int node_mode, int clamp, int descending, void* stream) {
     const kt::Costs9 costs = kt::make_costs9(costs9);
     cudaStream_t st = (cudaStream_t)stream;
     if (node_mode) {
         if (nc == nullptr) return (int)cudaErrorInvalidValue;
-        return clamp ? run_axis0<true, true>(d, ok, nc, out, n, H, W, costs,
-                                             descending, st)
-                     : run_axis0<true, false>(d, ok, nc, out, n, H, W, costs,
-                                              descending, st);
+        return clamp ? dispatch_axis0<true, true>(d, ok, nc, mail, out, n, H,
+                                                  W, costs, descending, st)
+                     : dispatch_axis0<true, false>(d, ok, nc, mail, out, n, H,
+                                                   W, costs, descending, st);
     }
-    return clamp ? run_axis0<false, true>(d, ok, nc, out, n, H, W, costs,
-                                          descending, st)
-                 : run_axis0<false, false>(d, ok, nc, out, n, H, W, costs,
-                                           descending, st);
+    return clamp ? dispatch_axis0<false, true>(d, ok, nc, mail, out, n, H, W,
+                                               costs, descending, st)
+                 : dispatch_axis0<false, false>(d, ok, nc, mail, out, n, H, W,
+                                                costs, descending, st);
+}
+
+// How B5 runs a plane of H x W on the current device: returns the form
+// (0 per plane, 1 grid-wide strips, 2 one cluster) with its rows per strip
+// and its strips (CTAs).
+int kt_sweep_axis0_plan(int H, int W, int node_mode, int* rows, int* ctas) {
+    const kt::StripPlan plan =
+        node_mode ? plan_axis0<true>(H, W) : plan_axis0<false>(H, W);
+    *rows = plan.strips.rows;
+    *ctas = plan.strips.count;
+    return plan.form;
 }
 
 }  // extern "C"

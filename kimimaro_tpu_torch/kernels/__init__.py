@@ -118,8 +118,11 @@ def lib() -> ctypes.CDLL:
         build()
         so = ctypes.CDLL(str(_library_path()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.kt_gsweep_sweep0.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, p]
+        so.kt_gsweep_sweep0.argtypes = [p, p, p, p, p, p, i, i, i, p, i, i,
+                                        i, p]
         so.kt_gsweep_sweep0.restype = i
+        so.kt_gsweep_sweep0_plan.argtypes = [i, i, i, i, p, p]
+        so.kt_gsweep_sweep0_plan.restype = i
         so.kt_gsweep_sweep0_dual.argtypes = [p, p, p, p, p, p, p, p,
                                              i, i, i, p, i, i, p]
         so.kt_gsweep_sweep0_dual.restype = i
@@ -128,8 +131,10 @@ def lib() -> ctypes.CDLL:
         so.kt_crop_argmax.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                       p, p, p, p, p]
         so.kt_crop_argmax.restype = i
-        so.kt_sweep_axis0.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p]
+        so.kt_sweep_axis0.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, p]
         so.kt_sweep_axis0.restype = i
+        so.kt_sweep_axis0_plan.argtypes = [i, i, i, p, p]
+        so.kt_sweep_axis0_plan.restype = i
         so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p,
                                               p, i, i, i, p]
         so.kt_sweep_axis0_batched.restype = i

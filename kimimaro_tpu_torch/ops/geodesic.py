@@ -38,7 +38,23 @@ def _off_cost(off, anisotropy) -> float:
         (np.array(off, dtype=np.float64) * w) ** 2))))
 
 
-def _sweep(dist, ok, node_cost, axis: int, direction: int, anisotropy,
+class _SweptViews:
+    """The static operands of a relax (the ok mask and the node costs)
+    moved to axis 0 of each of the three sweep axes, built once per
+    distance field and reused by every sweep of every stage; only the
+    field itself moves per sweep."""
+
+    __slots__ = ("ok", "nc")
+
+    def __init__(self, ok, node_cost):
+        self.ok = tuple(torch.movedim(ok, a, 0).contiguous()
+                        for a in range(3))
+        self.nc = (None if node_cost is None else
+                   tuple(torch.movedim(node_cost, a, 0).contiguous()
+                         for a in range(3)))
+
+
+def _sweep(dist, views: _SweptViews, axis: int, direction: int, anisotropy,
            clamp_positive: bool):
     """One directional plane sweep along `axis` in `direction` (+1/-1)."""
     if dist.shape[axis] <= 1:
@@ -46,10 +62,8 @@ def _sweep(dist, ok, node_cost, axis: int, direction: int, anisotropy,
     anis_perm = (float(anisotropy[axis]),) + tuple(
         float(anisotropy[i]) for i in range(3) if i != axis)
     d2 = torch.movedim(dist, axis, 0).contiguous()
-    ok2 = torch.movedim(ok, axis, 0).contiguous()
-    nc2 = (torch.movedim(node_cost, axis, 0).contiguous()
-           if node_cost is not None else None)
-    out = sweep_axis0(d2, ok2, nc2, anis_perm, node_cost is not None,
+    nc2 = None if views.nc is None else views.nc[axis]
+    out = sweep_axis0(d2, views.ok[axis], nc2, anis_perm, nc2 is not None,
                       bool(clamp_positive), descending=direction < 0)
     return torch.movedim(out, 0, axis).contiguous()
 
@@ -69,7 +83,7 @@ def _changed(nd, d, conv: str) -> bool:
     return bool(_lane_changed(nd[None], d[None], conv)[0])
 
 
-def _relax_stage(d, ok, node_cost, anisotropy, clamp_positive: bool,
+def _relax_stage(d, views: _SweptViews, anisotropy, clamp_positive: bool,
                  rounds: int, conv: str = "exact"):
     """`rounds` full 6-sweep rounds plus one checking round. Returns
     (dist, converged): converged when the last round changed nothing
@@ -79,7 +93,7 @@ def _relax_stage(d, ok, node_cost, anisotropy, clamp_positive: bool,
         nd = d
         for axis in range(3):
             for direction in (1, -1):
-                nd = _sweep(nd, ok, node_cost, axis, direction, anisotropy,
+                nd = _sweep(nd, views, axis, direction, anisotropy,
                             clamp_positive)
         changed = _changed(nd, d, conv)
         d = nd
@@ -143,9 +157,10 @@ def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 
     ok = ok_mask.to(torch.bool)
     d = torch.where(ok, init_dist.to(torch.float32), INF)
     nc = None if node_cost is None else node_cost.to(torch.float32)
+    views = _SweptViews(ok, nc)
     done = 0
     while done < int(max_rounds):
-        d, converged = _relax_stage(d, ok, nc, anisotropy,
+        d, converged = _relax_stage(d, views, anisotropy,
                                     bool(clamp_positive), _STAGE_ROUNDS, conv)
         done += _STAGE_ROUNDS + 1
         if converged:

@@ -17,14 +17,16 @@ clamp_positive resets positives to +inf (rolling-ball invalidation);
 `okmask` additionally restricts occupancy.
 
 `sweep0` (B1) and `sweep0_dual` (B2) launch the CUDA kernels of
-csrc/gsweep.cu for CUDA tensors (B1 one launch per plane, B2 one
-persistent launch per sweep); for CPU tensors they run the plain
-versions beside them. Non-axis-0 sweeps run on transposed layouts (the
-MaskViews rotation of the JAX package).
+csrc/gsweep.cu for CUDA tensors (one persistent launch per sweep, or one
+per plane for planes too large to hold, by `sweep0_plan` and
+`dual_plan`); for CPU tensors they run the plain versions beside them.
+Non-axis-0 sweeps run on transposed layouts (the MaskViews rotation of
+the JAX package).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -131,15 +133,40 @@ def sweep0(d, cc, nodecost, okmask, anis_perm, mode: str,
         shape=d.shape)
     n, H, W = d.shape
     out = torch.empty_like(d)
+    # the strips' edge-row mailboxes (two edges, two steps, W cells a
+    # strip), zero before every sweep
+    plan = _sweep0_plan(H, W, mode, okmask is not None, d.device.index)
+    mail = torch.zeros((plan["strips"] * 4 * W,), dtype=torch.int64,
+                       device=d.device) if plan["persistent"] else None
     rc = kernels.lib().kt_gsweep_sweep0(
         kernels.ptr(d), kernels.ptr(cc), kernels.ptr(nodecost),
-        kernels.ptr(okmask), kernels.ptr(out), n, H, W,
+        kernels.ptr(okmask), kernels.ptr(mail), kernels.ptr(out), n, H, W,
         kernels.costs_arg(_costs9(anis_perm)), _MODES[mode],
         int(bool(clamp_positive)), int(bool(descending)),
         kernels.stream_ptr(d.device))
     kernels.check(rc, "gsweep_sweep0")
     kernels.LAUNCHES["gsweep_sweep0"] += 1
     return out
+
+
+def sweep0_plan(H: int, W: int, mode: str, has_ok: bool) -> dict:
+    """How the B1 kernel runs an (H, W) plane in `mode` (with an okmask
+    where `has_ok`) on the current CUDA device: `persistent` (one launch
+    per sweep, `strips` CTAs of `rows` rows each) or the per-plane form
+    for planes too large to hold."""
+    return dict(_sweep0_plan(int(H), int(W), mode, bool(has_ok),
+                             torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep0_plan(H: int, W: int, mode: str, has_ok: bool,
+                 device_index) -> dict:
+    rows, strips = ctypes.c_int(), ctypes.c_int()
+    persistent = kernels.lib().kt_gsweep_sweep0_plan(
+        int(H), int(W), _MODES[mode], int(has_ok), ctypes.byref(rows),
+        ctypes.byref(strips))
+    return {"persistent": bool(persistent), "rows": rows.value,
+            "strips": strips.value}
 
 
 # --------------------------------------------------------------------------- #
@@ -246,8 +273,6 @@ def dual_plan(H: int, W: int, kind: str) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _dual_plan(H: int, W: int, kind: str, device_index) -> dict:
-    import ctypes
-
     rows, strips = ctypes.c_int(), ctypes.c_int()
     persistent = kernels.lib().kt_gsweep_dual_plan(
         int(H), int(W), _KINDS[kind], ctypes.byref(rows),

@@ -10,13 +10,15 @@ Torch counterpart of kimimaro_tpu.ops.pallas_sweep (`sweep_axis0`,
 
 The first plane of the sweep passes through unchanged. `descending` walks
 the planes from the last to the first instead of flipping the data. For
-CUDA tensors each wrapper launches its kernel of csrc/sweep.cu; for CPU
+CUDA tensors each wrapper launches its kernel of csrc/sweep.cu (B5 once a
+sweep, in the form `sweep_axis0_plan` names; B4 once a plane); for CPU
 tensors it runs the plain version beside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -75,14 +77,42 @@ def sweep_axis0(d, ok, node_cost, anisotropy: Tuple[float, float, float],
         shape=d.shape)
     n, H, W = d.shape
     out = torch.empty_like(d)
+    # the grid-wide strips' edge-row mailboxes (two edges, two steps, W
+    # cells a strip), zero before every sweep
+    plan = _axis0_plan(H, W, bool(node_mode), d.device.index)
+    mail = torch.zeros((plan["ctas"] * 4 * W,), dtype=torch.int64,
+                       device=d.device) if plan["form"] == "strips" else None
     rc = kernels.lib().kt_sweep_axis0(
-        kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc), kernels.ptr(out),
-        n, H, W, kernels.costs_arg(_costs9(anisotropy)), int(bool(node_mode)),
-        int(bool(clamp_positive)), int(bool(descending)),
-        kernels.stream_ptr(d.device))
+        kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc), kernels.ptr(mail),
+        kernels.ptr(out), n, H, W, kernels.costs_arg(_costs9(anisotropy)),
+        int(bool(node_mode)), int(bool(clamp_positive)),
+        int(bool(descending)), kernels.stream_ptr(d.device))
     kernels.check(rc, "sweep_axis0")
     kernels.LAUNCHES["sweep_axis0"] += 1
     return out
+
+
+_AXIS0_FORMS = ("plane", "strips", "cluster")
+
+
+def sweep_axis0_plan(H: int, W: int, node_mode: bool) -> dict:
+    """How the B5 kernel runs an (H, W) plane on the current CUDA device:
+    `form` "cluster" (one launch per sweep in a grid of one thread-block
+    cluster), "strips" (one cooperative launch per sweep over the SMs) or
+    "plane" (one launch per plane, for planes too large for both), with
+    `ctas` strips of `rows` rows each."""
+    return dict(_axis0_plan(int(H), int(W), bool(node_mode),
+                            torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _axis0_plan(H: int, W: int, node_mode: bool, device_index) -> dict:
+    rows, ctas = ctypes.c_int(), ctypes.c_int()
+    form = kernels.lib().kt_sweep_axis0_plan(
+        int(H), int(W), int(node_mode), ctypes.byref(rows),
+        ctypes.byref(ctas))
+    return {"form": _AXIS0_FORMS[form], "rows": rows.value,
+            "ctas": ctas.value}
 
 
 def _sweep_axis0_batched_plain(d, ok, node_cost, anisotropy, node_mode: bool,

@@ -42,28 +42,83 @@ def _assert_bit_equal(got, want):
         assert torch.equal(g, w), int((g != w).sum())
 
 
-@pytest.mark.parametrize("descending", (False, True))
-@pytest.mark.parametrize("mode", ("euclid", "node", "maxflood", "minid"))
-def test_sweep0_kernel_matches_plain(gen, mode, descending):
-    cc = torch.randint(0, 4, SHAPE, generator=gen, device="cuda",
+def _sweep0_inputs(gen, shape, mode):
+    cc = torch.randint(0, 4, shape, generator=gen, device="cuda",
                        dtype=torch.int32)
     if mode == "minid":
-        cc = torch.where(cc == 3, -7, cc)
-        d = torch.where(cc != 0, (_rand(gen) * 999).to(torch.int32) + 1,
-                        2**31 - 1).to(torch.int32)
+        # raw labels bitcast to int32: -1 equals the carried id of an
+        # unoccupied voxel in the plain version
+        cc = torch.where(cc == 3, -7, torch.where(cc == 2, -1, cc))
+        d = torch.where(cc != 0, (_rand(gen, shape) * 999).to(torch.int32)
+                        + 1, 2**31 - 1).to(torch.int32)
     elif mode == "maxflood":
-        d = torch.where(cc > 0, _rand(gen) * 10, float("-inf"))
+        d = torch.where(cc > 0, _rand(gen, shape) * 10, float("-inf"))
     else:
-        d = torch.where(_rand(gen) < 0.25, _rand(gen) * 10 - 5, float("inf"))
-    nc = _rand(gen) * 3 if mode == "node" else None
-    ok = (_rand(gen) < 0.8).to(torch.uint8)
-    for clamp in (False, True):
-        before = kernels.LAUNCHES["gsweep_sweep0"]
-        got = tgsweep.sweep0(d, cc, nc, ok, ANIS, mode, clamp, descending)
-        assert kernels.LAUNCHES["gsweep_sweep0"] == before + 1
-        want = tgsweep._sweep0_plain(d, cc, nc, ok, ANIS, mode, clamp,
-                                     descending)
-        _assert_bit_equal((got,), (want,))
+        d = torch.where(_rand(gen, shape) < 0.25, _rand(gen, shape) * 10 - 5,
+                        float("inf"))
+    nc = _rand(gen, shape) * 3 if mode == "node" else None
+    ok = (_rand(gen, shape) < 0.8).to(torch.uint8)
+    return d, cc, nc, ok
+
+
+# B1's strips: n = 1 and 2, H = 1, H = 5, a last strip shorter than the
+# others (H = 301 is strips of 3 rows on 132 SMs), W = 1, W = 33 (rows off
+# the 16-byte grid), rotated non-cubic layouts
+B1_SHAPES = ((11, 9, 8), SHAPE, (1, 7, 16), (2, 9, 16), (5, 1, 48),
+             (6, 5, 32), (6, 301, 48), (7, 12, 1), (5, 20, 33),
+             (24, 512, 128), (9, 128, 512))
+
+
+@pytest.mark.parametrize("shape", B1_SHAPES)
+@pytest.mark.parametrize("mode", ("euclid", "node", "maxflood", "minid"))
+def test_sweep0_kernel_matches_plain(gen, mode, shape):
+    d, cc, nc, ok = _sweep0_inputs(gen, shape, mode)
+    for okmask in (None, ok):
+        for clamp in (False, True):
+            for desc in (False, True):
+                before = kernels.LAUNCHES["gsweep_sweep0"]
+                got = tgsweep.sweep0(d, cc, nc, okmask, ANIS, mode, clamp,
+                                     desc)
+                assert kernels.LAUNCHES["gsweep_sweep0"] == before + 1
+                again = tgsweep.sweep0(d, cc, nc, okmask, ANIS, mode, clamp,
+                                       desc)
+                want = tgsweep._sweep0_plain(d, cc, nc, okmask, ANIS, mode,
+                                             clamp, desc)
+                _assert_bit_equal((got,), (want,))
+                _assert_bit_equal((again,), (got,))
+
+
+def _smem_limit(mode, has_ok, persistent):
+    """The square plane on each side of B1's shared-memory rule on a
+    132-SM card with 227 KB a block."""
+    side = {("node", False): (784, 800), ("node", True): (784, 800),
+            (None, True): (848, 864), (None, False): (896, 912)}
+    key = (mode if mode == "node" else None, has_ok)
+    return side[key][0 if persistent else 1]
+
+
+@pytest.mark.parametrize("mode", ("euclid", "node", "maxflood", "minid"))
+def test_sweep0_plan_follows_the_shape_rule(gen, mode):
+    """One persistent launch per sweep where a strip of ceil(H / SMs) rows
+    fits in shared memory, the per-plane form above that; both forms
+    bit-equal at the planes on each side."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    assert tgsweep.sweep0_plan(512, 512, mode, True) == {
+        "persistent": True, "rows": 4, "strips": 128}
+    for has_ok in (False, True):
+        for persistent in (True, False):
+            side = _smem_limit(mode, has_ok, persistent)
+            plan = tgsweep.sweep0_plan(side, side, mode, has_ok)
+            assert plan["persistent"] == persistent, (side, has_ok, plan)
+    for persistent in (True, False):
+        side = _smem_limit(mode, True, persistent)
+        d, cc, nc, ok = _sweep0_inputs(gen, (2, side, side), mode)
+        for desc in (False, True):
+            got = tgsweep.sweep0(d, cc, nc, ok, ANIS, mode, True, desc)
+            want = tgsweep._sweep0_plain(d, cc, nc, ok, ANIS, mode, True,
+                                         desc)
+            _assert_bit_equal((got,), (want,))
 
 
 def _dual_inputs(gen, shape, kind):
@@ -170,17 +225,68 @@ def test_crop_argmax_kernel_per_lane_crops(gen):
     _assert_bit_equal(got, (torch.cat(want_c), torch.cat(want_v)))
 
 
-@pytest.mark.parametrize("node_mode", (False, True))
-def test_sweep_axis0_kernel_matches_plain(gen, node_mode):
-    d = torch.where(_rand(gen) < 0.25, _rand(gen) * 10 - 5, float("inf"))
-    ok = _rand(gen) < 0.8
-    nc = _rand(gen) * 3
+# B5's forms by shape on a 132-SM card with 227 KB a block: one cluster of
+# up to 16 CTAs while each relaxes its strip in one pass of 512 threads
+# (square planes up to 170 x 170), grid-wide strips up to 1184 x 1184 in
+# euclid mode (1024 x 1024 in node mode), per plane above
+B5_FORMS = {False: ((170, "cluster"), (171, "strips"), (1184, "strips"),
+                    (1200, "plane")),
+            True: ((170, "cluster"), (171, "strips"), (1024, "strips"),
+                   (1040, "plane"))}
+B5_SHAPES = ((11, 9, 8), SHAPE, (1, 7, 16), (2, 9, 16), (5, 1, 48),
+             (7, 12, 1), (5, 20, 33), (17, 40, 24), (96, 96, 96),
+             (5, 301, 48))
+
+
+def _axis0_inputs(gen, shape, clamp):
+    d = torch.where(_rand(gen, shape) < 0.25,
+                    _rand(gen, shape) * 10 - (5.0 if clamp else 0.0),
+                    float("inf"))
+    # finite positive values on both end planes: plane 0 of a sweep passes
+    # through unclamped and unmasked
+    d[0] = _rand(gen, shape[1:]) + 0.5
+    d[-1] = _rand(gen, shape[1:]) + 0.5
+    return d, _rand(gen, shape) < 0.8, _rand(gen, shape) * 3
+
+
+def _check_axis0(gen, shape, node_mode):
     for clamp in (False, True):
+        d, ok, nc = _axis0_inputs(gen, shape, clamp)
         for desc in (False, True):
+            before = kernels.LAUNCHES["sweep_axis0"]
             got = tsweep.sweep_axis0(d, ok, nc, ANIS, node_mode, clamp, desc)
+            assert kernels.LAUNCHES["sweep_axis0"] == before + 1
+            again = tsweep.sweep_axis0(d, ok, nc, ANIS, node_mode, clamp,
+                                       desc)
             want = tsweep._sweep_axis0_plain(d, ok, nc, ANIS, node_mode,
                                              clamp, desc)
             _assert_bit_equal((got,), (want,))
+            _assert_bit_equal((again,), (got,))
+            first = -1 if desc else 0
+            assert torch.equal(got[first], d[first])
+
+
+@pytest.mark.parametrize("shape", B5_SHAPES)
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_kernel_matches_plain(gen, node_mode, shape):
+    _check_axis0(gen, shape, node_mode)
+
+
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_plan_follows_the_shape_rule(gen, node_mode):
+    """B5's three forms, each on the planes on each side of its rule,
+    bit-equal to the plain version."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    assert tsweep.sweep_axis0_plan(96, 96, node_mode) == {
+        "form": "cluster", "rows": 6, "ctas": 16}
+    assert tsweep.sweep_axis0_plan(1, 5, node_mode)["form"] == "cluster"
+    assert tsweep.sweep_axis0_plan(1, 512, node_mode)["form"] == "cluster"
+    assert tsweep.sweep_axis0_plan(1, 513, node_mode)["form"] == "strips"
+    for side, form in B5_FORMS[node_mode]:
+        plan = tsweep.sweep_axis0_plan(side, side, node_mode)
+        assert plan["form"] == form, (side, plan)
+        _check_axis0(gen, (2, side, side), node_mode)
 
 
 @pytest.mark.parametrize("node_mode", (False, True))
