@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
   2. build: the CUDA kernels from kimimaro_tpu_torch/csrc (nvcc, sm_90a);
-  3. kernels: each kernel (B1-B5) against its plain torch version on the
-     card, bit for bit, at a small shape and at the main path's shape,
+  3. kernels: each kernel (B1-B5, F1) against its plain torch version on
+     the card, bit for bit, at a small shape and at the main path's shape,
      with both times; B1, B2 and B5 also at shapes that stress their
      strips (n = 1, n = 2, H = 1, H = 5, H = 301, W = 1, W = 33) and on
      each side of their shape rules (B1 and B2: persistent or per plane;
@@ -22,16 +22,21 @@ Phases (any failure exits non-zero):
   5. the main path at real size: a dense anisotropic Voronoi volume of
      512^3 with 2,124 labels (bench.py's generator, seed 0), run twice,
      with phase times, skeleton and launch counts, and 8 labels traced by
-     the global engine cross-checked against the host trace path; then B3
-     bit-equal to its plain version on calls that run made (its row of the
-     kernel table);
+     the global engine cross-checked against the host trace path (both
+     engines with the global engine's PDRF formula: the reference's
+     engines round it differently); then B3 bit-equal
+     to its plain version on calls that run made (its row of the kernel
+     table);
   6. the soma volume at real size: bench.py's hollow variant of that
      volume (carved holes, nested pits, two soma-scale balls that the
      global engine hands to the crop engine), run twice, with phase
      times, counters, launches and the peak device memory;
   7. cross-check: 64 labels of the dense run, from one crop bucket,
-     traced by the crop engine at full lane width on the card equal
-     their global-engine skeletons;
+     traced by the crop engine at full lane width on the card (with the
+     global engine's PDRF formula) equal their global-engine skeletons;
+     then B4 bit-equal to its plain version on the calls the soma run,
+     the per-label path and this cross-check made, with a kernel-table
+     row for each shape of the main path's runs;
   8. cross sections: B6 and X1 against their plain versions at small
      shapes; cross_sectional_area on the dense run's largest skeletons
      (bench.py's selection, >= 12,000 vertices) and on the soma volume's
@@ -41,7 +46,8 @@ Phases (any failure exits non-zero):
      ball); the per-label path (cross_sectional_area_single, fill_holes,
      zero normals on the dense rung: B4) CUDA against CPU; then B6 and X1
      bit-equal to their plain versions on the inputs those runs handed
-     them, with times and bounds.
+     them, with times and bounds, and a kernel-table row for X1 at each
+     rung width.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -53,6 +59,12 @@ their sum, so neither the kernel comparisons nor the cross-checks count.
 
 runs the dense volume under torch.profiler instead and prints the card's
 busy share and the operations that took most device time.
+
+    python3 chip_smoke.py --ab DIR
+
+times kernels X1 and B4 of this checkout against those built from the
+sources of the checkout at DIR (the parent commit, e.g. unpacked with
+git archive), on the same inputs in one process, in turns.
 
     python3 chip_smoke.py --host-soma
 
@@ -676,9 +688,13 @@ def check_b4(shapes, gen):
                                                        True, False), 5)
         plain = cuda_ms(lambda: sweep._sweep_axis0_batched_plain(
             d, ok, nc, anis, True, False, False), 1)
-        log(f"[kernels] B4 bit-equal on {shape}: node/euclid x clamp x "
-            f"direction x voxel graph; node sweep {ms:.3f} ms vs plain "
-            f"{plain:.3f} ms")
+        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
+                                              True)
+        bms, by = b4_bound(shape, True)
+        log(f"[kernels] B4 bit-equal on {shape} (form {plan['form']}, "
+            f"{plan['ctas']} CTAs a lane): node/euclid x clamp x direction x "
+            f"voxel graph; node sweep {ms:.4f} ms vs plain {plain:.3f} ms, "
+            f"bound {bms:.4f} ms ({by})")
     ms_vg = cuda_ms(lambda: sweep.sweep_axis0_batched(
         d, ok, nc, anis, True, False, vg=vg, bits9=bits9), 5)
     plain_vg = cuda_ms(lambda: sweep._sweep_axis0_batched_plain(
@@ -686,6 +702,147 @@ def check_b4(shapes, gen):
     log(f"[kernels] B4 with the voxel graph: {ms_vg:.3f} ms vs plain "
         f"{plain_vg:.3f} ms ({shape[0]} lanes of {shape[1:]})")
     return ms, plain, err
+
+
+class B4Spy:
+    """While installed, counts the B4 calls per lane shape and keeps the
+    arguments of the first call of every (shape, mode, clamp, direction),
+    up to `keep` of them."""
+
+    def __init__(self, tag, keep=256):
+        self.tag = tag
+        self.keep = keep
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import geodesic
+
+        inner = geodesic.sweep_axis0_batched
+
+        def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False,
+                vg=None, bits9=None):
+            if d.device.type == "cuda":
+                shape = tuple(d.shape)
+                self.calls[shape] = self.calls.get(shape, 0) + 1
+                key = (shape, bool(node_mode), bool(clamp_positive),
+                       bool(descending))
+                if key not in self.kept and len(self.kept) < self.keep:
+                    self.kept[key] = (d.clone(), ok.clone(),
+                                      None if nc is None else nc.clone(),
+                                      tuple(anis))
+            return inner(d, ok, nc, anis, node_mode, clamp_positive,
+                         descending, vg=vg, bits9=bits9)
+
+        geodesic.sweep_axis0_batched = spy
+
+        def restore():
+            geodesic.sweep_axis0_batched = inner
+
+        return restore
+
+
+def b4_bound(shape, node):
+    """Least time of one B4 sweep of `shape`: d, ok (and nodecost) read
+    once, d written once, over the HBM rate, against nine candidates a
+    voxel over the float32 peak. Returns (ms, by)."""
+    vox = int(np.prod(shape))
+    t_b = (13 if node else 9) * vox / HBM_BYTES_PER_S
+    t_o = (12 if node else 18) * vox / ALU_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_b4_recorded(spy):
+    """B4 against its plain version on the calls a run made, each made
+    twice. Returns {shape: (ms, plain_ms, bound_ms, bound_by, err)}, timed
+    on the shape's first recorded call (a node sweep where there is one)."""
+    from kimimaro_tpu_torch.ops import sweep
+
+    out = {}
+    for key in sorted(spy.kept, key=lambda k: (k[0], not k[1], k[2], k[3])):
+        shape, node, clamp, desc = key
+        d, ok, nc, anis = spy.kept[key]
+        got = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc)
+        again = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc)
+        want, plain = timed_once(lambda: sweep._sweep_axis0_batched_plain(
+            d, ok, nc, anis, node, clamp, desc))
+        err = require_equal(f"B4 {spy.tag} call {key}", got, want)
+        require_equal(f"B4 {spy.tag} call {key} run twice", again, got)
+        if shape in out:
+            out[shape] = out[shape][:4] + (max(out[shape][4], err),)
+            continue
+        ms = cuda_ms(lambda: sweep.sweep_axis0_batched(d, ok, nc, anis, node,
+                                                       clamp, desc), 5)
+        bms, by = b4_bound(shape, node)
+        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
+                                              node)
+        out[shape] = (ms, plain, bms, by, err)
+        log(f"[kernels] B4 {spy.tag} {shape} ({spy.calls.get(shape, 0)} "
+            f"calls, form {plan['form']}, {plan['ctas']} CTAs a lane of "
+            f"{plan['rows']} rows): {'node' if node else 'euclid'} sweep "
+            f"{ms:.4f} ms vs plain {plain:.3f} ms, bound {bms:.4f} ms ({by})")
+    log(f"[kernels] B4 bit-equal on the {len(spy.kept)} recorded {spy.tag} "
+        f"calls (distinct shape, mode, clamp, direction), twice")
+    return out
+
+
+def fma_triples(n, gen):
+    """Random float32 triples, half of them with 13-bit mantissas and a c
+    far below the product's ulp (a*b + c at or next to a float32
+    midpoint, where rounding twice goes wrong)."""
+    import torch
+
+    def r(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    a, b, c = (r(n) * 2 - 1) * 100, r(n) * 2 - 1, r(n) * 2 - 1
+    m = torch.floor(r(2, n) * 4096 + 4096) * torch.exp2(
+        torch.floor(r(2, n) * 28) - 44)
+    p = m[0].double() * m[1].double()
+    tiny = (torch.sign(r(n) - 0.5) * p * torch.exp2(
+        -torch.floor(r(n) * 30 + 30).double())).float()
+    return (torch.cat([a, m[0]]), torch.cat([b, m[1]]), torch.cat([c, tiny]))
+
+
+def check_f1(gen):
+    """F1 against its plain version (float64, round-to-odd): 2^22 triples,
+    half at midpoints; broadcast operands and constants as the main path
+    passes them; then the dense PDRF's 1 - dbf * m at 512^3, timed.
+    Returns (ms, plain_ms, max abs err, bound_ms, bound_by)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import fma
+
+    err = 0.0
+    a, b, c = fma_triples(1 << 21, gen)
+    err = max(err, require_equal("F1 triples", fma.fma_f32(a, b, c),
+                                 fma._fma_f32_plain(a, b, c)))
+    x = torch.rand((64, 5, 7, 5), generator=gen, device="cuda") * 900
+    y = torch.rand((64, 1, 1, 1), generator=gen, device="cuda")
+    z = torch.rand((64, 5, 7, 1), generator=gen, device="cuda") * 3
+    for args in ((x, y, z), (-x, y, 1.0), (x, 1.5, 30.0),
+                 (x[:, 0], 10.0, z[:, 0])):
+        plain = [t if isinstance(t, torch.Tensor) else torch.tensor(
+            t, dtype=torch.float32, device="cuda") for t in args]
+        err = max(err, require_equal(
+            "F1 broadcast", fma.fma_f32(*args), fma._fma_f32_plain(*plain)))
+    n = DENSE_N
+    dbf = torch.rand((n, n, n), generator=gen, device="cuda") * 400
+    m = torch.rand((n, n, n), generator=gen, device="cuda") * 0.01
+    one = torch.ones((), device="cuda")
+    got = fma.fma_f32(-dbf, m, 1.0)
+    want, _ = timed_once(lambda: fma._fma_f32_plain(-dbf, m, one))
+    err = max(err, require_equal("F1 512^3", got, want))
+    ms = cuda_ms(lambda: fma.fma_f32(-dbf, m, 1.0), 5)
+    plain = cuda_ms(lambda: fma._fma_f32_plain(-dbf, m, one), 2)
+    nbytes = 3 * 4 * n ** 3
+    bms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"[kernels] F1 bit-equal to its plain version on 2^22 triples (half "
+        f"at float32 midpoints) and broadcast operands; 1 - dbf * m at "
+        f"{n}^3: {ms:.4f} ms vs plain {plain:.3f} ms, bound {bms:.4f} ms "
+        f"(bytes)")
+    del dbf, m
+    return ms, plain, err, bms, "bytes"
 
 
 # --------------------------------------------------------------------------- #
@@ -786,9 +943,12 @@ def small_main_path():
         tube[xx, yy: yy + 3, 2:6] = True
     params = {"scale": 1.5, "const": 3.0, "pdrf_scale": 100000,
               "pdrf_exponent": 4}
+    kernels.reset_launches()
     skels = kimimaro_tpu_torch.skeletonize(
         tube.astype(np.uint8), teasar_params=params, anisotropy=(1, 1, 1),
         dust_threshold=0, fix_borders=False, device="cuda")
+    for k, v in kernels.LAUNCHES.items():
+        launches[k] += v
     oracle_v, _ = oracle_teasar(tube, anisotropy=(1, 1, 1),
                                 black_border=False, **params)
     parity = vertex_parity(skels[1].vertices.round(), oracle_v,
@@ -981,9 +1141,34 @@ def hollow_main_path(vol):
     return skels, launches
 
 
+def global_pdrf_formula():
+    """Install the global engine's PDRF formula (`gengine.pdrf_kernel`) in
+    place of `_pdrf_kernel` in the crop engine and the host trace path;
+    returns the function that restores it. The reference's engines round
+    the PDRF differently: its global engine takes M = 1 /
+    maxflood(dbf^1.01) and the trickle DAF x (1 / max DAF), fused with the
+    DAF product; its crop engine and host path take M = dbf_max^-1.01 and
+    DAF / max DAF, fused with the p product. With each engine's own
+    formula the skeletons of some labels differ between engines, in the
+    port as in the reference (scripts/jax_engine_agreement.py); the
+    cross-checks hold the rest of the engines' machinery equal under one
+    formula."""
+    from kimimaro_tpu_torch import engine, gengine
+    from kimimaro_tpu_torch import trace as trace_mod
+
+    inner = trace_mod._pdrf_kernel
+    trace_mod._pdrf_kernel = engine._pdrf_kernel = gengine.pdrf_kernel
+
+    def restore():
+        trace_mod._pdrf_kernel = engine._pdrf_kernel = inner
+
+    return restore
+
+
 def cross_check(captured):
     """The global engine against the host trace path on 8 of its labels
-    of the dense run (the equality chain the JAX package's tests pin)."""
+    of the dense run (the equality chain the JAX package's tests pin),
+    under the global engine's PDRF formula."""
     import torch
 
     from kimimaro_tpu_torch import engine
@@ -994,22 +1179,29 @@ def cross_check(captured):
     by_segid = {j["segid"]: j for j in jobs}
     rng = np.random.RandomState(0)
     picks = rng.choice(sorted(results), size=8, replace=False)
-    for segid in picks:
-        job = by_segid[int(segid)]
-        mn, shape = job["offset"], job["shape"]
-        slc = tuple(slice(int(a), int(a + s)) for a, s in zip(mn, shape))
-        crop = cc_dev[slc] == int(segid)
-        host = trace_mod.trace(
-            crop, torch.where(crop, dbf_dev[slc], 0.0), anisotropy=ANIS,
-            fix_branching=True, manual_targets_before=list(job["before"]),
-            manual_targets_after=list(job["after"]), root=job["root"],
-            device="cuda", **TEASAR)
-        eng = engine.paths_to_skeleton(results[segid], ANIS)
-        if not Skeleton.equivalent(host, eng):
-            raise AssertionError(f"label {segid}: global engine and host "
-                                 f"trace disagree")
+    restore = global_pdrf_formula()
+    try:
+        for segid in picks:
+            job = by_segid[int(segid)]
+            mn, shape = job["offset"], job["shape"]
+            slc = tuple(slice(int(a), int(a + s))
+                        for a, s in zip(mn, shape))
+            crop = cc_dev[slc] == int(segid)
+            host = trace_mod.trace(
+                crop, torch.where(crop, dbf_dev[slc], 0.0), anisotropy=ANIS,
+                fix_branching=True,
+                manual_targets_before=list(job["before"]),
+                manual_targets_after=list(job["after"]), root=job["root"],
+                device="cuda", **TEASAR)
+            eng = engine.paths_to_skeleton(results[segid], ANIS)
+            if not Skeleton.equivalent(host, eng):
+                raise AssertionError(f"label {segid}: global engine and "
+                                     f"host trace disagree")
+    finally:
+        restore()
     log(f"[dense] 8 global-engine labels {sorted(int(s) for s in picks)} "
-        f"equal their host-trace skeletons")
+        f"equal their host-trace skeletons (the global engine's PDRF "
+        f"formula)")
 
 
 def crop_cross_check(captured):
@@ -1047,9 +1239,16 @@ def crop_cross_check(captured):
     rng = np.random.RandomState(0)
     picks = [clear[i] for i in sorted(rng.choice(len(clear), size=64,
                                                  replace=False))]
+    spy = B4Spy("crop cross-check")
+    restore = spy.install()
+    restore_pdrf = global_pdrf_formula()
     t0 = time.perf_counter()
-    got, fallback = engine.trace_batched(cc_dev, dbf_dev, picks, TEASAR,
-                                         ANIS, True)
+    try:
+        got, fallback = engine.trace_batched(cc_dev, dbf_dev, picks, TEASAR,
+                                             ANIS, True)
+    finally:
+        restore_pdrf()
+        restore()
     secs = time.perf_counter() - t0
     if fallback:
         raise AssertionError(f"crop engine fell back on "
@@ -1064,7 +1263,8 @@ def crop_cross_check(captured):
     log(f"[crop] 64 dense labels of bucket {common} ({len(shapes[common])} "
         f"in it, {len(shapes[common]) - len(clear)} left out at the crop "
         f"corner) traced by the crop engine in {secs:.2f} s equal their "
-        f"global-engine skeletons")
+        f"global-engine skeletons (the global engine's PDRF formula)")
+    return spy
 
 
 # --------------------------------------------------------------------------- #
@@ -1122,6 +1322,17 @@ class XsSpy:
         from kimimaro_tpu_torch.ops import xsfetch, xsslab
 
         xsfetch.fetch_secb, xsslab.section_flood = fetch, flood
+
+
+def x1_rung(key):
+    """The rung width of an X1 call's key: the smallest of the rung menu's
+    widths (32 for the dilation; 64, 128, 512 for the sweep) that holds
+    its window (windows are cut to the volume)."""
+    _, (Wx, Wy), method, _ = key
+    if method == "dilate":
+        return "W=32 dilate"
+    w = max(Wx, Wy)
+    return "W=" + str(next((r for r in (64, 128) if w <= r), 512))
 
 
 def b6_bound_ms(volp, zb, wx0, wy0):
@@ -1185,32 +1396,50 @@ def check_xs_small(gen):
     log("[xs] B6 bit-equal on 6 lanes of (13, 17) windows in (37, 29, 23): "
         "windows on the faces, z outside the volume, absent labels")
     never = 0
-    for method, W, rounds in (("dilate", 13, 1), ("dilate", 32, 36),
-                              ("dilate", 100, 8), ("sweep", 13, 0),
-                              ("sweep", 64, 6), ("sweep", 128, 2),
-                              ("sweep", 200, 1)):
-        secb = (torch.randint(0, 32, (5, W, W - 3), generator=gen,
+    forms = {}
+    # the dilation in shared and device memory; the sweep on each side of
+    # section_flood_plan's rule: one CTA of a warp per 32 columns a lane up
+    # to 256 columns in shared memory (13 ... 200), one cluster a lane
+    # (256 x 256, 250 x 250 and the W = 512 window), one CTA a lane with
+    # the window in device memory (a row of 4100 columns, beyond the
+    # cluster's 16 warps x 8)
+    for method, Wx, Wy, rounds in (
+            ("dilate", 13, 10, 1), ("dilate", 32, 29, 36),
+            ("dilate", 100, 97, 8), ("sweep", 13, 10, 0),
+            ("sweep", 64, 61, 6), ("sweep", 128, 125, 2),
+            ("sweep", 200, 197, 1), ("sweep", 250, 250, 1),
+            ("sweep", 256, 256, 1), ("sweep", 512, 509, 1),
+            ("sweep", 20, 4100, 0)):
+        form = xsslab.section_flood_plan(Wx, Wy, method)[0]
+        forms[form] = forms.get(form, 0) + 1
+        B = 5 if Wx * Wy <= 128 * 128 else 3
+        secb = (torch.randint(0, 32, (B, Wx, Wy), generator=gen,
                               device="cuda", dtype=torch.int32)
-                & torch.randint(0, 32, (5, W, W - 3), generator=gen,
+                & torch.randint(0, 32, (B, Wx, Wy), generator=gen,
                                 device="cuda", dtype=torch.int32))
         secb = torch.where(torch.rand(secb.shape, generator=gen,
                                       device="cuda") < 0.75, secb, 0)
-        ii = torch.arange(W, device="cuda").view(1, W, 1)
-        jj = torch.arange(W - 3, device="cuda").view(1, 1, W - 3)
-        slope = torch.rand((2, 5, 1, 1), generator=gen, device="cuda") * 2 - 1
+        ii = torch.arange(Wx, device="cuda").view(1, Wx, 1)
+        jj = torch.arange(Wy, device="cuda").view(1, 1, Wy)
+        slope = torch.rand((2, B, 1, 1), generator=gen, device="cuda") * 2 - 1
         zb = (torch.floor(slope[0] * ii + slope[1] * jj).to(torch.int32) - 2)
+        # empty columns may hold any zb: the packed forms never read it
+        zb = torch.where(secb != 0, zb, zb + (1 << 20))
         seed = torch.zeros_like(secb)
-        seed[:, W // 2, (W - 3) // 2] = 31
+        seed[:, Wx // 2, Wy // 2] = 31
         seed &= secb
         got = xsslab.section_flood(seed, secb, zb, rounds, method)
+        again = xsslab.section_flood(seed, secb, zb, rounds, method)
         want = xsslab._section_flood_plain(seed, secb, zb, rounds, method)
-        err = max(err, require_equal(f"X1 {method} W={W} rounds={rounds}",
-                                     got, want))
+        err = max(err, require_equal(
+            f"X1 {method} {(Wx, Wy)} rounds={rounds} ({form})", got, want))
+        require_equal(f"X1 {method} {(Wx, Wy)} run twice", again, got)
         never += int(got[1].sum())
     if never == 0:
         raise AssertionError("X1 small checks: no lane ran out of rounds")
-    log(f"[xs] X1 bit-equal at small shapes, dilate and sweep, shared and "
-        f"device-memory planes; {never} lanes ran out of rounds")
+    log(f"[xs] X1 bit-equal, twice, at small shapes and on each side of "
+        f"section_flood_plan's rule (forms {json.dumps(forms)}), zb out of "
+        f"int16 in empty columns; {never} lanes ran out of rounds")
     return err
 
 
@@ -1227,9 +1456,9 @@ def xs_select(skels):
 
 
 def xs_run(tag, vol, sel, spy=None):
-    """cross_sectional_area(vol, sel) on the card twice (the first run with
-    `spy` installed), the launch counts reset just before each run and read
-    just after it. Returns (skeletons of the second run, counters, seconds
+    """cross_sectional_area(vol, sel) on the card twice (with `spy`
+    installed), the launch counts reset just before each run and read just
+    after it. Returns (skeletons of the second run, counters, seconds
     of the second run, launches summed over both runs)."""
     import torch
 
@@ -1239,8 +1468,9 @@ def xs_run(tag, vol, sel, spy=None):
 
     total = {k: 0 for k in kernels.LAUNCHES}
     for run in ("first", "second"):
-        restore = spy.install() if (spy is not None and run == "first") \
-            else None
+        # the spy counts the calls of both runs and keeps the first inputs
+        # of every shape
+        restore = spy.install() if spy is not None else None
         skels = {s.id: s.clone() for s in sel}
         profiling.reset_stats()
         profiling.collect(True)
@@ -1322,9 +1552,16 @@ def check_xs_recorded(spy):
         log(f"[xs] B6 {spy.tag} {zb.shape[0]} lanes of {key[1]} in "
             f"{tuple(volp.shape)}: bit-equal, {ms:.4f} ms vs plain "
             f"{plain:.3f} ms, bound {bound:.4f} ms")
-    for key, (seed, secb, zb, rounds, method) in sorted(spy.flood.items()):
+    for key, (seed, secb, zb, rounds, method) in sorted(
+            spy.flood.items()):
         got = xsslab.section_flood(seed, secb, zb, rounds, method)
+        ms_all = cuda_ms(lambda: xsslab.section_flood(
+            seed, secb, zb, rounds, method), 3)
+        lanes = seed.shape[0]
+        form = xsslab.section_flood_plan(key[1][0], key[1][1], method)[0]
         if seed.shape[1] >= 512:
+            # the plain sweep is a Python loop of rows: kernel and plain
+            # version on the four lanes that ran the fewest rounds
             pick = torch.argsort(got[2], stable=True)[:4]
             seed, secb, zb = seed[pick], secb[pick], zb[pick]
             got = xsslab.section_flood(seed, secb, zb, rounds, method)
@@ -1335,8 +1572,9 @@ def check_xs_recorded(spy):
                                                   method), 3)
         bound, by = x1_bound(seed, got[2], method)
         out[key] = (ms, plain, bound, by, seed.shape[0])
-        log(f"[xs] X1 {spy.tag} {seed.shape[0]} lanes of {key[1]} {method} "
-            f"rounds={rounds}: bit-equal, rounds run "
+        log(f"[xs] X1 {spy.tag} {lanes} lanes of {key[1]} {method} "
+            f"rounds={rounds} ({x1_rung(key)}, form {form}): {ms_all:.4f} "
+            f"ms; on {seed.shape[0]} lanes bit-equal, rounds run "
             f"{int(got[2].min())}-{int(got[2].max())}, {ms:.4f} ms vs plain "
             f"{plain:.3f} ms, bound {bound:.4f} ms ({by})")
     return out, err
@@ -1362,16 +1600,23 @@ def per_label_path():
     normals[:3] = 0.0
     out = {}
     total = {k: 0 for k in kernels.LAUNCHES}
+    xs_spy, b4_spy = XsSpy("label"), B4Spy("label")
     for device in ("cuda", "cpu"):
+        restore = ([xs_spy.install(), b4_spy.install()] if device == "cuda"
+                   else [])
         kernels.reset_launches()
-        single = kimimaro_tpu_torch.cross_sectional_area_single(
-            binimg, skels[lab].clone(), anisotropy=ANIS, smoothing_window=3,
-            device=device)
-        filled = kimimaro_tpu_torch.cross_sectional_area(
-            vol, {k: s.clone() for k, s in skels.items()}, anisotropy=ANIS,
-            fill_holes=True, device=device)
-        dense = xsarea.cross_section_areas(binimg, verts, normals, ANIS,
-                                           device=device)
+        try:
+            single = kimimaro_tpu_torch.cross_sectional_area_single(
+                binimg, skels[lab].clone(), anisotropy=ANIS,
+                smoothing_window=3, device=device)
+            filled = kimimaro_tpu_torch.cross_sectional_area(
+                vol, {k: s.clone() for k, s in skels.items()},
+                anisotropy=ANIS, fill_holes=True, device=device)
+            dense = xsarea.cross_section_areas(binimg, verts, normals, ANIS,
+                                               device=device)
+        finally:
+            for r in restore:
+                r()
         if device == "cuda":
             launches = dict(kernels.LAUNCHES)
             for k in ("fetch_secb", "section_flood", "sweep_axis0_batched"):
@@ -1394,7 +1639,7 @@ def per_label_path():
         f"{len(skels[lab])} vertices), fill_holes over {len(skels)} labels "
         f"and {len(verts)} dense-rung planes (3 zero normals): CUDA equals "
         f"CPU; launches {json.dumps(total)}")
-    return total
+    return total, xs_spy, b4_spy
 
 
 def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
@@ -1427,25 +1672,45 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
                              f"({scount})")
     xs_equal_cpu("xs-soma", hollow, [min(balls, key=len)], sgot)
 
-    llaunches = per_label_path()
+    llaunches, lspy, b4_label = per_label_path()
     for part in (slaunches, llaunches):
         for k, v in part.items():
             launches[k] += v
 
-    for spy in (dspy, sspy):
+    spies = (dspy, sspy, lspy)
+    for spy in spies:
         log(f"[xs] {spy.tag} shapes handed to B6/X1 (calls, lanes): "
             + "; ".join(f"{k}: {v}" for k, v in sorted(spy.calls.items())))
-    timings, err_d = check_xs_recorded(dspy)
-    _, err_s = check_xs_recorded(sspy)
+    timings = {}
+    errs = [err_small]
+    for spy in spies:
+        t, e = check_xs_recorded(spy)
+        errs.append(e)
+        for key, v in t.items():
+            if key not in timings or v[4] > timings[key][4]:
+                timings[key] = v
     torch.cuda.synchronize()
-    err = max(err_small, err_d, err_s)
-    # the table's row: each kernel at the dense run's most used shape
+    err = max(errs)
+    # the table's rows: each kernel at the dense run's most used shape, and
+    # X1 at each rung width, at its shape of the most lanes
     rep = {}
     for name in ("fetch_secb", "section_flood"):
         key = max((k for k in dspy.calls if k[0] == name),
                   key=lambda k: dspy.calls[k][1])
         rep[name] = (key, timings[key])
-    return launches, rep, err
+    x1_rows = {}
+    for spy in spies:
+        for key, (calls, _) in spy.calls.items():
+            if key[0] != "section_flood":
+                continue
+            rung = x1_rung(key)
+            row = x1_rows.setdefault(rung, [0, None])
+            row[0] += calls
+            if row[1] is None or timings[key][4] > timings[row[1]][4]:
+                row[1] = key
+    rep["x1_rungs"] = {r: (c, k, timings[k]) for r, (c, k) in
+                       x1_rows.items()}
+    return launches, rep, err, b4_label
 
 
 def profile_dense(top=25):
@@ -1483,6 +1748,267 @@ def profile_dense(top=25):
     for key, count, us in rows[:top]:
         log(f"[profile] {us / 1e6:8.4f} s {count:7d} x  {key[:100]}")
     return 0
+
+
+def ab_library(parent):
+    """The kernel library built from the sources of another checkout at
+    `parent` (the same nvcc flags, one nvcc per source), loaded with the
+    entry points X1 and B4 had there."""
+    import ctypes
+
+    from kimimaro_tpu_torch import kernels
+
+    csrc = os.path.join(parent, "kimimaro_tpu_torch", "csrc")
+    out = os.path.join(ROOT, "build", "ab")
+    os.makedirs(out, exist_ok=True)
+    nvcc = kernels._nvcc()
+    srcs = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    objs = [os.path.join(out, f + ".o") for f in srcs]
+    kernels._run_all([nvcc, *kernels.NVCC_FLAGS, "-c", "-I", csrc, "-o", o,
+                      os.path.join(csrc, f)] for f, o in zip(srcs, objs))
+    lib = os.path.join(out, "libparent.so")
+    kernels._run_all([[nvcc, *kernels.LINK_FLAGS, "-o", lib, *objs]])
+    so = ctypes.CDLL(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    so.kt_xs_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    so.kt_xs_flood.restype = i
+    # B4 before its strips: no mailbox argument
+    so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p, p,
+                                          i, i, i, p]
+    so.kt_sweep_axis0_batched.restype = i
+    return so
+
+
+def ab_parent(parent):
+    """`--ab DIR`: X1 and B4 of this checkout against the kernels built
+    from the checkout at DIR (the parent commit), on the same inputs in
+    one process, timed in turns (parent, this, this, parent): X1 on the
+    floods the dense and soma volumes' cross sections hand it, at each
+    rung width, and the dense cross sections' wall with either X1; B4 on
+    node sweeps at the main path's shapes, on the calls the crop engine
+    makes for --host-soma's label, and that crop engine phase's wall with
+    either B4. Results are compared too."""
+    import ctypes
+
+    import torch
+
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.ops import sweep, xsslab
+    from kimimaro_tpu_torch.ops.gsweep import _costs9
+
+    t0 = time.perf_counter()
+    plib = ab_library(parent)
+    kernels.build()
+    kernels.lib()
+    log(f"[ab] built both libraries in {time.perf_counter() - t0:.1f} s")
+
+    def x1_parent(seed, secb, zb, rounds, method):
+        B, Wx, Wy = seed.shape
+        kept = torch.empty_like(seed)
+        scratch = torch.empty_like(seed) if method == "dilate" else None
+        changed = torch.empty(B, dtype=torch.int32, device="cuda")
+        run = torch.empty(B, dtype=torch.int32, device="cuda")
+        kernels.check(plib.kt_xs_flood(
+            kernels.ptr(seed), kernels.ptr(secb), kernels.ptr(zb),
+            kernels.ptr(kept), kernels.ptr(scratch), kernels.ptr(changed),
+            kernels.ptr(run), B, Wx, Wy, int(rounds),
+            int(method == "sweep"), kernels.stream_ptr(seed.device)),
+            "parent section_flood")
+        return kept, changed != 0, run
+
+    def b4_parent(d, ok, nc, anis, node_mode=True, clamp_positive=False,
+                  descending=False, vg=None, bits9=None):
+        B, n, H, W = d.shape
+        out = torch.empty_like(d)
+        bits = None if vg is None else (ctypes.c_int * 9)(*bits9)
+        kernels.check(plib.kt_sweep_axis0_batched(
+            kernels.ptr(d), kernels.ptr(ok),
+            kernels.ptr(nc if node_mode else None), kernels.ptr(vg),
+            kernels.ptr(out), B, n, H, W, kernels.costs_arg(_costs9(anis)),
+            bits, int(node_mode), int(clamp_positive), int(descending),
+            kernels.stream_ptr(d.device)), "parent sweep_axis0_batched")
+        return out
+
+    def turns(fa, fb, reps):
+        ta = [cuda_ms(fa, reps)]
+        tb = [cuda_ms(fb, reps), cuda_ms(fb, reps)]
+        ta.append(cuda_ms(fa, reps))
+        return ta, tb
+
+    # the floods the cross sections hand X1
+    n = DENSE_N
+    dense = dense_volume(n)
+    dskels, _, _, _ = run_main_path("ab-dense", dense, ())
+    hollow = hollow_volume(dense)
+    sskels, _ = hollow_main_path(hollow)
+    sel, _ = xs_select(dskels)
+    dspy, sspy = XsSpy("dense"), XsSpy("soma")
+    xs_run("ab-xs-dense", dense, sel, dspy)
+    xs_run("ab-xs-soma", hollow, [sskels[k] for k in sorted(sskels)[-2:]],
+           sspy)
+    rows = {}
+    for spy in (dspy, sspy):
+        for key, (calls, lanes) in spy.calls.items():
+            if key[0] != "section_flood":
+                continue
+            rung = x1_rung(key)
+            if rung not in rows or lanes > rows[rung][1]:
+                rows[rung] = (spy, lanes, key)
+    for rung, (spy, lanes, key) in sorted(rows.items()):
+        seed, secb, zb, rounds, method = spy.flood[key]
+        a = x1_parent(seed, secb, zb, rounds, method)
+        b = xsslab.section_flood(seed, secb, zb, rounds, method)
+        require_equal(f"ab X1 {key}", b, a)
+        ta, tb = turns(lambda: x1_parent(seed, secb, zb, rounds, method),
+                       lambda: xsslab.section_flood(seed, secb, zb, rounds,
+                                                    method), 3)
+        form = xsslab.section_flood_plan(key[1][0], key[1][1], method)[0]
+        log(f"[ab] X1 {rung} ({spy.tag}, {seed.shape[0]} lanes of "
+            f"{key[1]}, rounds {rounds}, this form {form}; {spy.calls[key]} "
+            f"calls of this shape over two runs): parent "
+            f"{ta[0]:.4f} / {ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} "
+            f"ms")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    anis = (40.0, 16.0, 16.0)
+    for shape in ((2, 256, 256, 64), (2, 64, 256, 256), (64, 128, 128, 32),
+                  (64, 32, 128, 128), (64, 64, 64, 32)):
+        r = lambda: torch.rand(shape, generator=gen, device="cuda")
+        d = torch.where(r() < 0.25, r() * 10, float("inf")).contiguous()
+        ok = (r() < 0.8).contiguous()
+        nc = (r() * 3).contiguous()
+        a = b4_parent(d, ok, nc, anis)
+        b = sweep.sweep_axis0_batched(d, ok, nc, anis, True, False)
+        require_equal(f"ab B4 {shape}", b, a)
+        ta, tb = turns(lambda: b4_parent(d, ok, nc, anis),
+                       lambda: sweep.sweep_axis0_batched(d, ok, nc, anis,
+                                                         True, False), 5)
+        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
+                                              True)
+        bms, by = b4_bound(shape, True)
+        log(f"[ab] B4 node sweep {shape} (this form {plan['form']}, "
+            f"{plan['ctas']} CTAs a lane): parent {ta[0]:.4f} / "
+            f"{ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    ab_walls(sel, dense, x1_parent, b4_parent, turns)
+    return 0
+
+
+def ab_walls(sel, dense, x1_parent, b4_parent, turns):
+    """`--ab`'s walls: the dense cross sections with the parent's X1 in
+    place of this one, and the crop engine phase on --host-soma's label
+    (its host trace path left out) with the parent's B4, in turns; then B4
+    on each call that crop engine made, parent against this."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import intake
+    from kimimaro_tpu_torch.ops import geodesic, sweep, xsslab
+    from kimimaro_tpu_torch.utils import profiling
+
+    flood = xsslab.section_flood
+    failed = []
+
+    def parent_flood(seed, secb, zb, rounds, method):
+        try:
+            return x1_parent(seed, secb, zb, rounds, method)
+        except RuntimeError as e:
+            # once more on the same inputs: a second failure is the call's
+            # own, a success an error left over from an earlier call
+            try:
+                x1_parent(seed, secb, zb, rounds, method)
+                again = "succeeds"
+            except RuntimeError:
+                again = "fails too"
+            failed.append(f"{e} on {tuple(seed.shape)} {method} rounds "
+                          f"{rounds}; the same call again {again}")
+            return flood(seed, secb, zb, rounds, method)
+
+    def xs_wall(fn):
+        xsslab.section_flood = fn
+        try:
+            skels = {s.id: s.clone() for s in sel}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kimimaro_tpu_torch.cross_sectional_area(dense, skels,
+                                                    anisotropy=ANIS,
+                                                    device="cuda")
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            xsslab.section_flood = flood
+
+    xs_wall(parent_flood)
+    xs_wall(flood)
+    ta, tb = turns(lambda: xs_wall(parent_flood), lambda: xs_wall(flood), 1)
+    log(f"[ab] xs-dense wall with the parent's X1: {ta[0]:.1f} / "
+        f"{ta[1]:.1f} ms, with this X1: {tb[0]:.1f} / {tb[1]:.1f} ms")
+    log(f"[ab] the parent's X1 failed on {len(failed)} calls"
+        + "".join(f"\n[ab]   {f}" for f in failed[:8]))
+
+    vol = soma_label_volume()
+    b4 = geodesic.sweep_axis0_batched
+    fallback = intake._run_host_fallback
+    spy = B4Spy("host-soma crop engine")
+
+    def crop_phase(fn, record=False):
+        geodesic.sweep_axis0_batched = fn
+        intake._run_host_fallback = lambda *a, **k: None
+        restore = spy.install() if record else None
+        try:
+            profiling.reset_stats()
+            profiling.collect(True)
+            kimimaro_tpu_torch.skeletonize(
+                vol, teasar_params=TEASAR, anisotropy=ANIS,
+                dust_threshold=1000, fix_borders=True, fix_branching=True,
+                fill_holes=False, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            if restore is not None:
+                restore()
+            profiling.collect(False)
+            geodesic.sweep_axis0_batched = b4
+            intake._run_host_fallback = fallback
+        stats = profiling.get_stats()
+        return stats["phases"]["crop_engine"], stats["counters"]
+
+    secs, counters = crop_phase(b4, record=True)
+    log(f"[ab] host-soma crop engine (this B4, first run): {secs:.3f} s, "
+        f"counters {json.dumps(counters)}")
+    walls = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        walls[who].append(crop_phase(b4_parent if who == "parent" else b4)[0])
+    log(f"[ab] host-soma crop engine phase with the parent's B4: "
+        f"{walls['parent'][0]:.3f} / {walls['parent'][1]:.3f} s, with this "
+        f"B4: {walls['this'][0]:.3f} / {walls['this'][1]:.3f} s")
+    times = {}
+    for key in sorted(spy.kept):
+        shape, node, clamp, desc = key
+        d, ok, nc, anis = spy.kept[key]
+        args = (d, ok, nc, anis, node, clamp, desc)
+        require_equal(f"ab B4 host-soma crop engine {key}",
+                      sweep.sweep_axis0_batched(*args), b4_parent(*args))
+        ta, tb = turns(lambda: b4_parent(*args),
+                       lambda: sweep.sweep_axis0_batched(*args), 5)
+        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
+                                              node)
+        bms, by = b4_bound(shape, node)
+        times.setdefault(shape, []).append((sum(ta) / 2, sum(tb) / 2))
+        log(f"[ab] B4 host-soma crop engine {key} ({spy.calls[shape]} calls "
+            f"of the shape, this form {plan['form']}, {plan['ctas']} CTAs a "
+            f"lane of {plan['rows']} rows): parent {ta[0]:.4f} / "
+            f"{ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    est = [0.0, 0.0]
+    for shape, calls in sorted(spy.calls.items()):
+        t = times.get(shape, [])
+        for i in (0, 1):
+            est[i] += calls * sum(x[i] for x in t) / max(len(t), 1)
+        log(f"[ab] host-soma crop engine: {calls} B4 calls of {shape} "
+            f"({len(t)} kinds timed)")
+    log(f"[ab] host-soma crop engine: B4's calls at their shapes' mean "
+        f"times sum to {est[0] / 1e3:.3f} s with the parent's B4, "
+        f"{est[1] / 1e3:.3f} s with this")
 
 
 def soma_label_volume(n=DENSE_N):
@@ -1576,6 +2102,13 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         log(device_line())
         return profile_dense()
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        log(device_line())
+        rc = ab_parent(sys.argv[2])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return rc
     if sys.argv[1:] == ["--host-soma"]:
         log(device_line())
         rc = host_soma()
@@ -1613,10 +2146,18 @@ def main() -> int:
     # volume's (256, 256, 64) bucket of 2 lanes, swept along x and y, then
     # along z through the permuted copy; the crop cross-check's 64 lanes of
     # (128, 128, 32) and their z layout) and at 64 lanes of (64, 64, 32)
-    b4 = check_b4([(3, 11, 9, 8), (2, 256, 256, 64), (2, 64, 256, 256),
+    # and on each side of sweep_axis0_batched_plan's rule: a cluster a
+    # lane while a strip of 16 CTAs takes one pass ((2, 8, 256, 128)),
+    # per-lane grid strips above ((2, 8, 272, 128), and the soma bucket's
+    # z layout), one launch per plane beyond the co-resident CTAs (200
+    # lanes of 300 x 300 planes); n = 1, H = 1, W = 1, odd widths
+    b4 = check_b4([(3, 11, 9, 8), (1, 1, 9, 9), (5, 9, 1, 7), (5, 9, 7, 1),
+                   (4, 11, 33, 17), (2, 8, 256, 128), (2, 8, 272, 128),
+                   (200, 3, 300, 300), (2, 256, 256, 64), (2, 64, 256, 256),
                    (64, 128, 128, 32), (64, 32, 128, 128),
                    (64, 64, 64, 32)], gen)
     b5 = check_b5([(11, 9, 8), *B5_STRESS_SHAPES, (96, 96, 96)], gen)
+    f1 = check_f1(gen)
     meta = (
         ("gsweep_sweep0", "kimimaro_tpu_torch/csrc/gsweep.cu",
          "kimimaro_tpu/ops/gsweep.py:219", b1,
@@ -1628,7 +2169,7 @@ def main() -> int:
          f"2048 lanes of 96^3 crops in {n}^3"),
         ("sweep_axis0_batched", "kimimaro_tpu_torch/csrc/sweep.cu",
          "kimimaro_tpu/ops/pallas_sweep.py:308", b4,
-         "node sweep of 64 lanes of (64, 64, 32) crops"),
+         "node sweep of 64 lanes of (64, 64, 32) crops (phase 3)"),
         ("sweep_axis0", "kimimaro_tpu_torch/csrc/sweep.cu",
          "kimimaro_tpu/ops/pallas_sweep.py:117", b5,
          "node sweep of a 96^3 crop"),
@@ -1637,10 +2178,14 @@ def main() -> int:
         log(f"[kernels] {k}: {ms:.3f} ms vs plain {plain:.3f} ms ({what}), "
             f"max abs err {err}")
 
-    # 4 to 7. the main path; the counts cover exactly its runs. B5's calls
-    # from the host trace path of phases 4 and 5 are recorded.
+    # 4 to 7. the main path; the counts cover exactly its runs. The calls
+    # of B5 (the host trace path's eager loop) and of B4 (the crop engine
+    # and the host trace path's fused loop) in phases 4 and 5 are
+    # recorded.
     b5_spy = B5Spy()
+    b4_spy = B4Spy("main path")
     restore_b5 = b5_spy.install()
+    restore_b4 = b4_spy.install()
     launches = small_main_path()
     t0 = time.perf_counter()
     dense = dense_volume(n)
@@ -1658,17 +2203,29 @@ def main() -> int:
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
     soma_skels, soma_launches = hollow_main_path(hollow)
+    # B4's calls on the main path (phase 4's runs)
+    b4_main_calls = dict(b4_spy.calls)
     cross_check(captured)
+    restore_b4()
     restore_b5()
     b5_err = check_b5_recorded(b5_spy)
     del b5_spy
-    crop_cross_check(captured)
+    b4_crop = crop_cross_check(captured)
     del captured
 
     # 8. cross sections: the dense and soma volumes' skeletons, the
     # per-label path, and B6/X1 at the shapes those runs handed them
-    xs_launches, xs_rep, xs_err = cross_sections(dense, dense_skels, hollow,
-                                                 soma_skels, gen)
+    xs_launches, xs_rep, xs_err, b4_label = cross_sections(
+        dense, dense_skels, hollow, soma_skels, gen)
+    # B4 on the calls of phases 4 and 5 (the crop engine, the host trace
+    # path's fused loop), the per-label path and the crop cross-check;
+    # the main-path calls of each shape
+    b4_rows = {}
+    for spy, calls in ((b4_spy, b4_main_calls), (b4_label, b4_label.calls),
+                       (b4_crop, {})):
+        for shape, v in check_b4_recorded(spy).items():
+            b4_rows.setdefault(shape, [0, v])
+            b4_rows[shape][0] += calls.get(shape, 0)
     for part in (dense_launches, soma_launches, xs_launches):
         for k, v in part.items():
             launches[k] += v
@@ -1676,6 +2233,12 @@ def main() -> int:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was never launched on the main path")
+
+    # B4's row: the shape of the main path's most swept voxels (the
+    # synthetic shape of phase 3 stays in the log)
+    b4_main = max((k for k in b4_rows if b4_rows[k][0] > 0),
+                  key=lambda k: b4_rows[k][0] * int(np.prod(k)))
+    b4_err = max(v[1][4] for v in b4_rows.values())
 
     # least times of the timed calls: each input byte read once and each
     # output byte written once over the HBM rate, against the operations
@@ -1692,12 +2255,14 @@ def main() -> int:
         "gsweep_sweep0": bound(13 * vox, 20 * vox),
         "gsweep_sweep0_dual": bound(25 * vox, 40 * vox),
         "crop_argmax": (b3[3], "bytes"),
-        "sweep_axis0_batched": bound(13 * 64 * 64 * 64 * 32,
-                                     12 * 64 * 64 * 64 * 32),
+        "sweep_axis0_batched": b4_rows[b4_main][1][2:4],
         "sweep_axis0": bound(13 * 96 ** 3, 12 * 96 ** 3),
     }
     timed = {k: (b3 if k == "crop_argmax" else t) for k, _, _, t, _ in meta}
     timed["sweep_axis0"] = (b5[0], b5[1], max(b5[2], b5_err))
+    timed["sweep_axis0_batched"] = (b4_rows[b4_main][1][0],
+                                    b4_rows[b4_main][1][1],
+                                    max(b4[2], b4_err))
     for k, src, rep, _, what in meta:
         ms, plain, err, *_ = timed[k]
         table.append({"name": k, "route": "cuda", "source": src,
@@ -1706,6 +2271,41 @@ def main() -> int:
                       "plain_ms": round(plain, 4),
                       "bound_ms": round(bounds[k][0], 4),
                       "bound_by": bounds[k][1], "library_ms": None})
+    ms, plain, err, bms, by = f1
+    table.append({"name": "fma_f32", "route": "cuda",
+                  "source": "kimimaro_tpu_torch/csrc/fma.cu",
+                  "replaces": "kimimaro_tpu/trace.py:67",
+                  "launches": launches["fma_f32"], "max_abs_err": err,
+                  "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                  "bound_ms": round(bms, 4), "bound_by": by,
+                  "library_ms": None})
+    # B4 at each shape the main path gave it, the calls at that shape
+    for shape, (calls, (ms, plain, bms, by, err)) in sorted(b4_rows.items()):
+        log(f"[kernels] sweep_axis0_batched {shape}: {ms:.4f} ms vs plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), {calls} main-path "
+            f"calls")
+        if calls > 0:
+            table.append({
+                "name": f"sweep_axis0_batched {shape}", "route": "cuda",
+                "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+                "replaces": "kimimaro_tpu/ops/pallas_sweep.py:308",
+                "launches": calls, "max_abs_err": err, "ms": round(ms, 4),
+                "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+                "bound_by": by, "library_ms": None})
+    # X1 at each rung width: its shape of the most lanes, the calls of
+    # every shape of that width
+    for rung, (calls, key, (ms, plain, bms, by, lanes)) in sorted(
+            xs_rep["x1_rungs"].items()):
+        log(f"[kernels] section_flood {rung}: {ms:.4f} ms vs plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) at {key} x {lanes} "
+            f"lanes; {calls} main-path calls")
+        table.append({"name": f"section_flood {rung}", "route": "cuda",
+                      "source": "kimimaro_tpu_torch/csrc/xsflood.cu",
+                      "replaces": "kimimaro_tpu/ops/xsslab.py:74",
+                      "launches": calls, "max_abs_err": xs_err,
+                      "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                      "bound_ms": round(bms, 4), "bound_by": by,
+                      "library_ms": None})
     for k, src, rep in (
             ("fetch_secb", "kimimaro_tpu_torch/csrc/xsfetch.cu",
              "kimimaro_tpu/ops/xsfetch.py:159"),

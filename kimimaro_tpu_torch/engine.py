@@ -33,9 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from .ops.chase import RELAX_ROUNDS, chase_batched
+from .ops.fma import fma_f32
 from .ops.geodesic import relax_rounds_batched
 from .skeleton import Skeleton
-from .trace import _pdrf_kernel
+from .trace import _pdrf_kernel, root_distance
 from .utils import profiling
 
 INF = float("inf")
@@ -344,8 +345,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     else:
         # the host knows every DBF max is below both thresholds
         soma_mode = torch.zeros(B, dtype=torch.bool, device=dev)
-    soma_radius = torch.where(soma_mode, dbf_max * prm["sis"] + prm["sic"],
-                              0.0)
+    soma_radius = torch.where(
+        soma_mode, fma_f32(dbf_max, prm["sis"], prm["sic"]), 0.0)
 
     # --- root selection (reference trace.py:121-134)
     soma_root = _find_soma_root(dbf, dbf_max)
@@ -377,7 +378,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     # updated in place by the path loop, `fg` must stay
     valid = fg.clone()
     if soma_possible:
-        r = prm["sis"] * _gather(dbf, root[:, None, :], 0.0) + prm["sic"]
+        r = fma_f32(_gather(dbf, root[:, None, :], 0.0), prm["sis"],
+                    prm["sic"])
         init = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
         init = _scatter(init, root[:, None, :], -r)
         ok = _scatter(valid, root[:, None, :], True)
@@ -449,10 +451,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         ov[a] = ov[a] | ~reached
 
         if soma_possible:
-            dv = (path.float() - root[a, None, :].float()) * anis_t
-            sq = (dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1]) \
-                + dv[..., 2] * dv[..., 2]
-            dist = torch.sqrt(sq.double()).float()
+            dist = root_distance(path, root[a, None, :], anis_t)
             keep = ((dist > soma_radius[a, None])
                     | (pos == plen[:, None] - 1)) & (pos < plen[:, None])
             path = torch.where((soma_mode[a, None] & ~keep)[..., None], -1,
@@ -460,7 +459,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
 
         # rolling-ball invalidation (reference trace.py:253-259)
         dbf_a = dbf[a]
-        radii_b = prm["scale"] * _gather(dbf_a, path, 0.0) + prm["const"]
+        radii_b = fma_f32(_gather(dbf_a, path, 0.0), prm["scale"],
+                          prm["const"])
         init = torch.full(dbf_a.shape, INF, dtype=torch.float32, device=dev)
         init = _scatter(init, path, -radii_b, "amin")
         ok_inv = _scatter(valid_a, path, True)

@@ -32,6 +32,7 @@ from .engine import _paths_structurally_valid
 from .ops import gsweep
 from .ops.chase import RELAX_ROUNDS
 from .ops.crop_argmax import crop_argmax
+from .ops.fma import fma_f32
 from .ops.stencils import pad_const
 from .trace import integer_pow, pow_1_01
 from .utils import profiling
@@ -205,6 +206,32 @@ def _broadcast_phase(daf, dbf, cc_v, anisotropy, rounds):
     return daf, m_fl, mask_m, d_fl, mask_d
 
 
+def pdrf_terms(dbf_inf, daf, m, imd, pdrf_scale, pdrf_exponent: int):
+    """The global engine's PDRF = pdrf_scale * (1 - DBF*m)^exponent +
+    DAF*imd from its broadcast terms, m = 1/max(dbf^1.01) and imd =
+    1/max(DAF) over the voxel's label. XLA fuses 1 - dbf*m, and the sum
+    of two products with the DAF term as the fused product."""
+    p = fma_f32(-dbf_inf, m, 1.0)
+    e = int(pdrf_exponent)
+    p = integer_pow(p, e) if e > 0 else torch.ones_like(p)
+    return fma_f32(daf, imd, p * float(np.float32(pdrf_scale)))
+
+
+def pdrf_kernel(dbf_inf, daf, dbf_max, pdrf_scale, pdrf_exponent: int,
+                max_daf):
+    """The global engine's PDRF of one label (or one per lane) from the
+    label's maxima, in the signature of trace._pdrf_kernel: the crop
+    engine and the host trace path round the PDRF otherwise, as the JAX
+    package's do, and computing theirs with this one lets their skeletons
+    be held against the global engine's."""
+    dev = dbf_inf.device
+    m = torch.reciprocal(torch.clamp(pow_1_01(torch.as_tensor(
+        dbf_max, dtype=torch.float32, device=dev)), min=1e-30))
+    imd = torch.where(max_daf > 0,
+                      torch.reciprocal(torch.clamp(max_daf, min=1e-30)), 0.0)
+    return pdrf_terms(dbf_inf, daf, m, imd, pdrf_scale, pdrf_exponent)
+
+
 def _pdrf_rail_phase(daf, dbf, m_fl, d_fl, cc_v, roots_flat, pdrf_scale,
                      anisotropy, rounds, pdrf_exponent):
     """PDRF from the DBF + DAF and the initial rail field. m_fl / d_fl are
@@ -215,11 +242,9 @@ def _pdrf_rail_phase(daf, dbf, m_fl, d_fl, cc_v, roots_flat, pdrf_scale,
     imd_vol = torch.where(d_fl > 0,
                           torch.reciprocal(torch.clamp(d_fl, min=1e-30)), 0.0)
     dbf_inf = torch.where(dbf == 0, INF, dbf)
-    p = 1.0 - dbf_inf * m_vol
-    e = int(pdrf_exponent)
-    p = integer_pow(p, e) if e > 0 else torch.ones_like(p)
-    pdrf = p * float(np.float32(pdrf_scale)) + daf * imd_vol
-    pdrf = torch.where(fg, pdrf, INF).to(torch.float32)
+    pdrf = pdrf_terms(dbf_inf, daf, m_vol, imd_vol, pdrf_scale,
+                      pdrf_exponent)
+    pdrf = torch.where(fg, pdrf, INF)
     # PDRF is non-negative, so a scatter-min of 0 is the root zeroing
     pdrf = _scatter_min(pdrf, roots_flat,
                         torch.zeros_like(roots_flat, dtype=torch.float32))
@@ -279,7 +304,7 @@ def _iteration(st, it, it_w, daf, dbf, cc_v, offs, lids, roots,
     sel = path_flat[pmask].long()
 
     # --- rolling-ball invalidation
-    radii = dbf.reshape(-1)[sel] * scale + const
+    radii = fma_f32(dbf.reshape(-1)[sel], scale, const)
     ball0 = _scatter_min(
         torch.full(vol_shape, INF, dtype=torch.float32, device=daf.device),
         sel, -radii)

@@ -7,8 +7,8 @@ library at import time, so the package imports on machines without a GPU;
 the CPU code paths never call `lib()`.
 
 Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep, ops.xsfetch,
-ops.xsslab) adds one to its entry in `LAUNCHES` where it launches its
-kernel, and nowhere else.
+ops.xsslab, ops.fma) adds one to its entry in `LAUNCHES` where it launches
+its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from typing import Dict, Optional
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu")
+_SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu",
+            "fma.cu")
 _HEADERS = ("plane.cuh",)
 
 NVCC_FLAGS = (
@@ -35,7 +36,8 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-# launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1)
+# launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
+# F1)
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_dual": 0,
@@ -44,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "sweep_axis0": 0,
     "fetch_secb": 0,
     "section_flood": 0,
+    "fma_f32": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -135,13 +138,21 @@ def lib() -> ctypes.CDLL:
         so.kt_sweep_axis0.restype = i
         so.kt_sweep_axis0_plan.argtypes = [i, i, i, p, p]
         so.kt_sweep_axis0_plan.restype = i
-        so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p,
-                                              p, i, i, i, p]
+        so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              p, p, i, i, i, p]
         so.kt_sweep_axis0_batched.restype = i
+        so.kt_sweep_axis0_batched_plan.argtypes = [i, i, i, i, i, p, p]
+        so.kt_sweep_axis0_batched_plan.restype = i
         so.kt_xs_fetch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         so.kt_xs_fetch.restype = i
         so.kt_xs_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         so.kt_xs_flood.restype = i
+        so.kt_xs_flood_plan.argtypes = [i, i, i, p, p]
+        so.kt_xs_flood_plan.restype = i
+        f, ll = ctypes.c_float, ctypes.c_longlong
+        so.kt_fma_f32.argtypes = [p, f, p, p, f, p, p, f, p, p, ll, ll, ll,
+                                  ll, p]
+        so.kt_fma_f32.restype = i
         _LIB = so
     return _LIB
 

@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .fma import fma_f32
 from .stencils import neighborhood_offsets, shifted
 from .sweep import sweep_axis0, sweep_axis0_batched
 
@@ -210,25 +211,41 @@ def parent_field(dist, ok_mask, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
                        26).to(torch.int8)
 
 
-def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
-                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0)) -> torch.Tensor:
-    """Rolling-ball invalidation restricted to the connected component:
-    for each path vertex v, every foreground voxel within geodesic
-    distance scale*DBF[v] + const (physical units, 26-connected steps) is
-    invalidated. A multi-source capped relaxation: sources start at
-    -(scale*DBF[v]+const) and positives clamp to +inf. Returns a bool
-    mask of invalidated voxels."""
+def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
+                       const: float, fused: bool = False):
+    """The sources of a rolling-ball invalidation: (ok, init), `ok` the
+    mask with the path voxels set (sources expand even where an earlier
+    ball invalidated them), `init` +inf but -(scale*DBF[v] + const) at each
+    path voxel v (the largest ball where several share a voxel). fused:
+    the radius is one fused multiply-add, as in the JAX package's jitted
+    loops (its eager callers round the product and the sum apart)."""
     ok = ok_mask.to(torch.bool).clone()
     pv = np.asarray(path_voxels, dtype=np.int64).reshape(-1, 3)
     idx = tuple(torch.as_tensor(pv[:, a], device=ok.device) for a in range(3))
-    radii = dbf[idx] * float(np.float32(scale)) + float(np.float32(const))
+    scale, const = float(np.float32(scale)), float(np.float32(const))
+    if fused:
+        radii = fma_f32(dbf[idx], scale, const)
+    else:
+        radii = dbf[idx] * scale + const
     init = torch.full(ok.shape, INF, dtype=torch.float32, device=ok.device)
     lin = np.ravel_multi_index(tuple(pv.T), tuple(ok.shape))
-    # several path vertices on one voxel keep the largest ball
     init.view(-1).scatter_reduce_(
         0, torch.as_tensor(lin, device=ok.device), -radii, "amin")
-    # sources expand even where an earlier ball invalidated them
     ok[idx] = True
+    return ok, init
+
+
+def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
+                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0)
+                      ) -> torch.Tensor:
+    """Rolling-ball invalidation restricted to the connected component:
+    for each path vertex v, every foreground voxel within geodesic
+    distance scale*DBF[v] + const (physical units, 26-connected steps) is
+    invalidated. A multi-source capped relaxation from
+    `invalidation_seeds` (radii not fused: the JAX package's eager
+    loop), positives clamped to +inf, to convergence. Returns a bool mask
+    of invalidated voxels."""
+    ok, init = invalidation_seeds(ok_mask, dbf, path_voxels, scale, const)
     dist = distance_field(ok, init, anisotropy, clamp_positive=True,
                           conv="negative")
     return dist <= 0.0

@@ -10,9 +10,9 @@ Torch counterpart of kimimaro_tpu.ops.pallas_sweep (`sweep_axis0`,
 
 The first plane of the sweep passes through unchanged. `descending` walks
 the planes from the last to the first instead of flipping the data. For
-CUDA tensors each wrapper launches its kernel of csrc/sweep.cu (B5 once a
-sweep, in the form `sweep_axis0_plan` names; B4 once a plane); for CPU
-tensors it runs the plain version beside it.
+CUDA tensors each wrapper launches its kernel of csrc/sweep.cu once a
+sweep, in the form `sweep_axis0_plan` (B5) or `sweep_axis0_batched_plan`
+(B4) names; for CPU tensors it runs the plain version beside it.
 """
 
 from __future__ import annotations
@@ -187,11 +187,41 @@ def sweep_axis0_batched(d, ok, nc, anisotropy: Tuple[float, float, float],
     B, n, H, W = d.shape
     out = torch.empty_like(d)
     bits = None if vg is None else (ctypes.c_int * 9)(*bits9)
+    # the per-lane grid strips' edge-row mailboxes, zero before every sweep
+    plan = _batched_plan(B, H, W, bool(node_mode), vg is not None,
+                         d.device.index)
+    mail = torch.zeros((B * plan["ctas"] * 4 * W,), dtype=torch.int64,
+                       device=d.device) if plan["form"] == "strips" else None
     rc = kernels.lib().kt_sweep_axis0_batched(
         kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc), kernels.ptr(vg),
-        kernels.ptr(out), B, n, H, W, kernels.costs_arg(_costs9(anisotropy)),
+        kernels.ptr(mail), kernels.ptr(out), B, n, H, W,
+        kernels.costs_arg(_costs9(anisotropy)),
         bits, int(bool(node_mode)), int(bool(clamp_positive)),
         int(bool(descending)), kernels.stream_ptr(d.device))
     kernels.check(rc, "sweep_axis0_batched")
     kernels.LAUNCHES["sweep_axis0_batched"] += 1
     return out
+
+
+def sweep_axis0_batched_plan(B: int, H: int, W: int, node_mode: bool,
+                             has_vg: bool = False) -> dict:
+    """How the B4 kernel runs B lanes of (H, W) planes on the current CUDA
+    device: `form` "cluster" (one launch per sweep, one thread-block
+    cluster a lane), "strips" (one cooperative launch per sweep, each
+    lane's grid-wide strips) or "plane" (one launch per plane for all
+    lanes), with `ctas` strips a lane of `rows` rows each."""
+    return dict(_batched_plan(int(B), int(H), int(W), bool(node_mode),
+                              bool(has_vg), torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_plan(B: int, H: int, W: int, node_mode: bool, has_vg: bool,
+                  device_index) -> dict:
+    rows, ctas = ctypes.c_int(), ctypes.c_int()
+    form = kernels.lib().kt_sweep_axis0_batched_plan(
+        int(B), int(H), int(W), int(node_mode), int(has_vg),
+        ctypes.byref(rows), ctypes.byref(ctas))
+    if form < 0:
+        raise ValueError(f"sweep_axis0_batched_plan: bad shape {(B, H, W)}")
+    return {"form": _AXIS0_FORMS[form], "rows": rows.value,
+            "ctas": ctas.value}

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils import profiling
+from .fma import fma_f32
 from .geodesic import INF, distance_field, relax_rounds_batched
 
 _EPS = 1e-20
@@ -32,7 +33,7 @@ _DENSE_BYTES_PER_VOXEL = 96
 LANE_BUDGET_BYTES = 1 << 31
 
 
-def _trapezoid_integral(x, a, b):
+def _trapezoid_integral(x, a, b, fused: bool):
     """I(x) = integral_0^x r(u) du for the symmetric trapezoid
     r(u) = clamp01(((a+b)/2 - |u|)/b), handled as an odd function."""
     M = (a + b) / 2.0
@@ -40,16 +41,19 @@ def _trapezoid_integral(x, a, b):
     flat = torch.minimum(ax, torch.clamp(M - b, min=0.0))
     xhat = torch.minimum(torch.maximum(ax, M - b), M)
     d = M - xhat
-    ramp = (b * b - d * d) / (2.0 * torch.clamp(b, min=_EPS))
+    num = fma_f32(-d, d, b * b) if fused else b * b - d * d
+    ramp = num / (2.0 * torch.clamp(b, min=_EPS))
     return torch.sign(x) * (flat + ramp)
 
 
-def box_plane_area(t, normal, anisotropy):
+def box_plane_area(t, normal, anisotropy, fused: bool = True):
     """Area of the intersection of a plane with an axis-aligned box.
 
     t: (...) float32 signed distances from box centres to the plane along
     `normal` (physical units); normal: (..., 3) unit normals broadcastable
-    against t; anisotropy: the three box edge lengths."""
+    against t; anisotropy: the three box edge lengths. fused: the ramp's
+    b*b - d*d is one fused multiply-add, as under the JAX package's jit
+    (False for its eagerly run `cross_section_image`)."""
     s = torch.as_tensor(np.asarray(anisotropy, dtype=np.float32),
                         device=t.device)
     w = torch.abs(normal) * s
@@ -62,8 +66,8 @@ def box_plane_area(t, normal, anisotropy):
     r_mid = torch.clamp((M - torch.abs(t)) / torch.clamp(b, min=_EPS),
                         0.0, 1.0)
     ic = torch.clamp(c, min=_EPS)
-    mean_big = (_trapezoid_integral(t + c / 2.0, a, b)
-                - _trapezoid_integral(t - c / 2.0, a, b)) / ic
+    mean_big = (_trapezoid_integral(t + c / 2.0, a, b, fused)
+                - _trapezoid_integral(t - c / 2.0, a, b, fused)) / ic
     mean = torch.where(c <= 1e-3 * a, r_mid,
                        torch.clamp(mean_big, 0.0, 1.0))
     boxvol = s[0] * s[1] * s[2]
@@ -92,7 +96,8 @@ def _sections_batch(fg, verts, normals, anisotropy, rounds: int):
     gz = torch.arange(Z, dtype=torch.float32, device=dev).view(1, 1, 1, Z)
     col = [p0[:, k].view(B, 1, 1, 1) for k in range(3)]
     nrm = [normals[:, k].view(B, 1, 1, 1) for k in range(3)]
-    t = ((gx * s[0] - col[0]) * nrm[0] + (gy * s[1] - col[1]) * nrm[1]
+    # XLA fuses the y product into the x one; the z product is added apart
+    t = (fma_f32(gy * s[1] - col[1], nrm[1], (gx * s[0] - col[0]) * nrm[0])
          + (gz * s[2] - col[2]) * nrm[2])
     areas = box_plane_area(t, normals.view(B, 1, 1, 1, 3), anisotropy)
     del t
@@ -236,7 +241,7 @@ def cross_section_image(binimg, vert, normal,
     gz = torch.arange(Z, dtype=torch.float32, device=dev).view(1, 1, Z)
     t = ((gx * s[0] - p0[0]) * m[0, 0] + (gy * s[1] - p0[1]) * m[0, 1]
          + (gz * s[2] - p0[2]) * m[0, 2])
-    areas = box_plane_area(t, m[0], anisotropy)
+    areas = box_plane_area(t, m[0], anisotropy, fused=False)
     sec = fg & (areas > 0.0)
     init = torch.full(sec.shape, INF, device=dev)
     init[tuple(int(c) for c in v[0])] = 0.0

@@ -32,6 +32,7 @@ import torch
 
 from ..utils import profiling
 from . import xsfetch, xsslab
+from .fma import fma_f32
 from .xsarea import box_plane_area, lane_chunks
 from .xsslab import K
 
@@ -67,7 +68,9 @@ def _finish_section(raw, gx, gy, zb, a, denom, verts, wx0, wy0, normals,
     kidx = torch.arange(K, dtype=torch.int32, device=dev)
     kbit = torch.ones(K, dtype=torch.int32, device=dev) << kidx
     zidx = zb[..., None] + kidx
-    t = a[..., None] + zidx.to(torch.float32) * denom.view(B, 1, 1, 1)
+    # XLA fuses this multiply-add (the window plane `a` it leaves apart)
+    t = fma_f32(zidx.to(torch.float32), denom.view(B, 1, 1, 1),
+                a[..., None])
     areas = box_plane_area(t, normals.view(B, 1, 1, 1, 3), anisotropy)
     del t
     sec = ((raw[..., None] & kbit) != 0) & (areas > 0.0)
@@ -85,6 +88,10 @@ def _finish_section(raw, gx, gy, zb, a, denom, verts, wx0, wy0, normals,
     seed[lanes, si, sj] = seedbit.to(torch.int32)
     seed &= secb
 
+    if tz > xsslab.ZB_MAX:
+        # zb + k lies in [0, tz) wherever secb has bit k, so zb fits X1's
+        # int16 there for volumes below 2^15 along the sections' z
+        xsslab.check_zb(secb, zb)
     kept, changed, _ = xsslab.section_flood(seed, secb, zb, rounds, method)
 
     x0, y0 = wx0.view(B, 1, 1), wy0.view(B, 1, 1)
@@ -135,8 +142,10 @@ def slab_sections_volume(volp, qlabels, verts, normals, anisotropy,
 
     p0 = v.to(torch.float32) * s
     nx, ny, nz = (normals[:, k].view(B, 1, 1) for k in range(3))
-    a = ((gx.to(torch.float32) * s[0] - p0[:, 0].view(B, 1, 1)) * nx
-         + (gy.to(torch.float32) * s[1] - p0[:, 1].view(B, 1, 1)) * ny
+    # XLA fuses the y product into the sum; the per-lane product p0_z*n_z
+    # is rounded apart
+    a = (fma_f32(gy.to(torch.float32) * s[1] - p0[:, 1].view(B, 1, 1), ny,
+                 (gx.to(torch.float32) * s[0] - p0[:, 0].view(B, 1, 1)) * nx)
          - (p0[:, 2] * normals[:, 2]).view(B, 1, 1))
     denom = normals[:, 2] * s[2]
     safe = torch.where(torch.abs(denom) < 1e-20, 1e-20, denom)

@@ -24,12 +24,18 @@ tensors it runs the plain version beside it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
 
 K = 5
 _METHODS = ("dilate", "sweep")
+# the packed forms of X1 keep zb as int16
+ZB_MIN, ZB_MAX = -(1 << 15), (1 << 15) - 1
+# X1's forms (csrc/xsflood.cu `FloodForm`)
+FLOOD_FORMS = ("lane_cta", "warps", "cluster")
 
 
 def _kdilate(bits):
@@ -148,9 +154,42 @@ def _section_flood_plain(seed, secb, zb, rounds: int, method: str):
     return r, changed, run
 
 
+def check_zb(secb, zb) -> None:
+    """Raise unless zb fits int16 wherever the section word is not 0 (the
+    packed forms of X1 store it so; where the section word is 0 the word
+    stays 0 and zb is never read). A caller whose zb may leave int16
+    there checks with this before `section_flood`."""
+    if zb.numel() == 0:
+        return
+    lo, hi = torch.aminmax(torch.where(secb != 0, zb, 0))
+    if int(lo) < ZB_MIN or int(hi) > ZB_MAX:
+        raise ValueError(
+            f"section_flood: zb in [{int(lo)}, {int(hi)}] where the section "
+            f"is not empty; X1 keeps zb as int16")
+
+
+def section_flood_plan(Wx: int, Wy: int, method: str = "sweep"):
+    """How X1 runs a (Wx, Wy) window on the current CUDA device: (form,
+    CTAs a lane, whether the window lies in shared memory), the form one
+    of FLOOD_FORMS ("warps": one CTA a lane of a warp per 32 columns, the
+    packed window in shared memory; "cluster": one thread-block cluster a
+    lane, each CTA a band of window rows; "lane_cta": one CTA a lane, in
+    shared memory while it fits, else in device memory)."""
+    if method not in _METHODS:
+        raise ValueError(f"section_flood_plan: unknown method {method!r}")
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    form = kernels.lib().kt_xs_flood_plan(
+        int(Wx), int(Wy), int(method == "sweep"), ctypes.byref(ctas),
+        ctypes.byref(smem))
+    if form < 0:
+        raise ValueError(f"section_flood_plan: bad window ({Wx}, {Wy})")
+    return FLOOD_FORMS[form], ctas.value, bool(smem.value)
+
+
 def section_flood(seed, secb, zb, rounds: int, method: str):
     """Flood each lane's section from its seed word: seed, secb and zb are
-    (B, Wx, Wy) int32 (seed within secb). Returns (kept (B, Wx, Wy) int32,
+    (B, Wx, Wy) int32 (K-bit words, seed within secb; zb within int16
+    where secb is not 0: see `check_zb`). Returns (kept (B, Wx, Wy) int32,
     changed (B,) bool: the last round run changed a word, rounds run per
     lane (B,) int32)."""
     if method not in _METHODS:

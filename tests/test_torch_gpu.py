@@ -405,8 +405,8 @@ def _xs_windows(seed, B, Wx, Wy, density=0.7):
     ("dilate", 130, 4), ("sweep", 13, 0), ("sweep", 64, 6),
     ("sweep", 128, 6), ("sweep", 200, 3)])
 def test_section_flood_kernel_matches_plain(gen, method, W, rounds):
-    """X1 in shared memory (small windows) and in device memory (the
-    dilation above 64, the sweep above 128), lanes that converge and lanes
+    """X1's dilation in shared memory (small windows) and in device memory
+    (above 64), its sweep in shared memory, lanes that converge and lanes
     that run out of rounds."""
     from kimimaro_tpu_torch.ops import xsslab
 
@@ -416,6 +416,114 @@ def test_section_flood_kernel_matches_plain(gen, method, W, rounds):
     assert kernels.LAUNCHES["section_flood"] == before + 1
     want = xsslab._section_flood_plain(seed, secb, zb, rounds, method)
     _assert_bit_equal(got, want)
+
+
+def test_fma_f32_kernel_matches_plain(gen):
+    """F1 against its plain version (float64, round-to-odd) on triples at
+    float32 midpoints and on broadcast operands and constants."""
+    from kimimaro_tpu_torch.ops import fma
+
+    n = 1 << 18
+    m = torch.floor(_rand(gen, (2, n)) * 4096 + 4096) * torch.exp2(
+        torch.floor(_rand(gen, (2, n)) * 28) - 44)
+    p = m[0].double() * m[1].double()
+    c = (torch.sign(_rand(gen, (n,)) - 0.5) * p * torch.exp2(
+        -torch.floor(_rand(gen, (n,)) * 30 + 30).double())).float()
+    cases = [(m[0], m[1], c),
+             (_rand(gen, (3, 5, 7, 2)), _rand(gen, (3, 1, 1, 1)), 1.0),
+             (_rand(gen, (3, 5, 7, 2)), 10.0, _rand(gen, (1, 5, 1, 2))),
+             (_rand(gen, (6,)), 1.5, 30.0)]
+    for a, b, c in cases:
+        before = kernels.LAUNCHES["fma_f32"]
+        got = fma.fma_f32(a, b, c)
+        assert kernels.LAUNCHES["fma_f32"] == before + 1
+        plain = [t if isinstance(t, torch.Tensor) else torch.tensor(
+            t, dtype=torch.float32, device="cuda") for t in (a, b, c)]
+        _assert_bit_equal((got,), (fma._fma_f32_plain(*plain),))
+
+
+# windows on each side of section_flood_plan's rule: one CTA of a warp
+# per 32 columns a lane up to 256 columns while the packed window fits a
+# block's shared memory, one cluster a lane above (each CTA a band of
+# rows), one CTA a lane over device memory where a row outgrows the
+# cluster's 16 warps x 8 columns
+X1_FORMS = ((13, 10, "warps"), (128, 125, "warps"), (200, 197, "warps"),
+            (33, 64, "warps"), (240, 17, "warps"),
+            (250, 250, "cluster"), (256, 256, "cluster"),
+            (512, 509, "cluster"), (20, 4100, "lane_cta"))
+
+
+@pytest.mark.parametrize("Wx,Wy,form", X1_FORMS)
+def test_section_flood_plan_follows_the_shape_rule(gen, Wx, Wy, form):
+    """Each form bit-equal to the plain sweep, with zb far beyond int16 in
+    the empty columns (the packed forms never read it there)."""
+    from kimimaro_tpu_torch.ops import xsslab
+
+    plan = xsslab.section_flood_plan(Wx, Wy)
+    assert plan[0] == form, plan
+    assert plan[2] == (form != "lane_cta")
+    seed, secb, zb = _xs_windows(Wx + Wy, 3, Wx, Wy)
+    zb = torch.where(secb != 0, zb, zb - (1 << 24))
+    rounds = 0 if form == "lane_cta" else 2
+    before = kernels.LAUNCHES["section_flood"]
+    got = xsslab.section_flood(seed, secb, zb, rounds, "sweep")
+    assert kernels.LAUNCHES["section_flood"] == before + 1
+    want = xsslab._section_flood_plain(seed, secb, zb, rounds, "sweep")
+    _assert_bit_equal(got, want)
+
+
+def test_check_zb_rejects_zb_beyond_int16_in_a_section(gen):
+    from kimimaro_tpu_torch.ops import xsslab
+
+    seed, secb, zb = _xs_windows(3, 2, 16, 16)
+    secb[0, 3, 3] = 1
+    zb[0, 3, 3] = 1 << 16
+    with pytest.raises(ValueError):
+        xsslab.check_zb(secb, zb)
+
+
+# B4's forms on each side of sweep_axis0_batched_plan's rule (132 SMs):
+# one cluster a lane while a strip of at most 16 CTAs takes one pass of
+# 512 threads, the most CTAs that keep B x CTAs within the SMs (but the
+# fewest that take one pass at least); per-lane grid strips above; one
+# launch per plane where B exceeds the co-resident CTAs
+B4_FORMS = (((1, 3, 1, 1), "cluster", 1), ((5, 9, 7, 1), "cluster", 7),
+            ((2, 8, 256, 128), "cluster", 16),
+            ((2, 8, 272, 128), "strips", 55),
+            ((64, 5, 128, 32), "cluster", 2),
+            ((64, 3, 128, 128), "cluster", 8),
+            ((2, 5, 256, 64), "cluster", 16),
+            ((2, 3, 256, 256), "strips", 64),
+            ((200, 2, 300, 300), "plane", 0))
+
+
+@pytest.mark.parametrize("shape,form,ctas", B4_FORMS)
+def test_sweep_axis0_batched_plan_follows_the_shape_rule(gen, shape, form,
+                                                         ctas):
+    """Each form bit-equal to the plain version, node and euclid, with and
+    without the voxel graph, one launch a sweep."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the shapes are those of a 132-SM card")
+    B, n, H, W = shape
+    plan = tsweep.sweep_axis0_batched_plan(B, H, W, True)
+    assert plan["form"] == form, plan
+    assert plan["ctas"] == ctas, plan
+    d = torch.where(_rand(gen, shape) < 0.25, _rand(gen, shape) * 10 - 5,
+                    float("inf"))
+    ok = _rand(gen, shape) < 0.8
+    nc = _rand(gen, shape) * 3
+    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                       device="cuda", dtype=torch.int32)
+    bits9 = (25, 21, 19, 23, 1, 19, 24, 20, 18)
+    for node_mode in (False, True):
+        for g, b in ((None, None), (vg, bits9)):
+            before = kernels.LAUNCHES["sweep_axis0_batched"]
+            got = tsweep.sweep_axis0_batched(d, ok, nc, ANIS, node_mode,
+                                             False, True, vg=g, bits9=b)
+            assert kernels.LAUNCHES["sweep_axis0_batched"] == before + 1
+            want = tsweep._sweep_axis0_batched_plain(
+                d, ok, nc, ANIS, node_mode, False, True, g, b)
+            _assert_bit_equal((got,), (want,))
 
 
 def test_fetch_secb_kernel_matches_plain(gen):

@@ -46,12 +46,17 @@ def test_box_plane_area_bit_equal(anisotropy):
     normals[:100] = [1.0, 0.0, 0.0]  # axis-aligned: the midpoint branch
     normals[100:200] = [0.0, 0.6, 0.8]
     t = (rng.randn(n) * max(anisotropy)).astype(np.float32)
-    want = np.asarray(jxsarea.box_plane_area(
-        jnp.asarray(t), jnp.asarray(normals), anisotropy))
-    got = txsarea.box_plane_area(torch.from_numpy(t),
-                                 torch.from_numpy(normals), anisotropy)
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert (want > 0).mean() > 0.1
+    # under jit (as in every jitted caller) XLA fuses the ramp's
+    # multiply-add; run eagerly (cross_section_image) it does not
+    jitted = jax.jit(jxsarea.box_plane_area, static_argnums=2)
+    for fused, fn in ((True, jitted), (False, jxsarea.box_plane_area)):
+        want = np.asarray(fn(jnp.asarray(t), jnp.asarray(normals),
+                             anisotropy))
+        got = txsarea.box_plane_area(torch.from_numpy(t),
+                                     torch.from_numpy(normals), anisotropy,
+                                     fused=fused)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (want > 0).mean() > 0.1
 
 
 def _random_windows(seed, B=6, Wx=13, Wy=11, density=0.7):
