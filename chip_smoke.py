@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels from kimimaro_tpu_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel (B1-B5, F1) against its plain torch version on
      the card, bit for bit, at a small shape and at the main path's shape,
-     with both times; B1, B2 and B5 also at shapes that stress their
+     with both times (F1 with and without `negate`, on its flat and
+     strided routes, with torch.addcmul's mismatches and time beside it); B1, B2 and B5 also at shapes that stress their
      strips (n = 1, n = 2, H = 1, H = 5, H = 301, W = 1, W = 33) and on
      each side of their shape rules (B1 and B2: persistent or per plane;
      B5: one cluster, grid-wide strips or per plane), each call made
@@ -46,8 +47,11 @@ Phases (any failure exits non-zero):
      ball); the per-label path (cross_sectional_area_single, fill_holes,
      zero normals on the dense rung: B4) CUDA against CPU; then B6 and X1
      bit-equal to their plain versions on the inputs those runs handed
-     them, with times and bounds, and a kernel-table row for X1 at each
-     rung width.
+     them, with times and bounds, B6's scalar path on the dense run's
+     calls with the volume cut to tz - 1 and tz - 2, and a kernel-table
+     row for B6 and X1 at each rung width; then F1 bit-equal to its plain
+     version on the calls phases 4 to 6 and 8 handed it (`F1Spy`), timed
+     beside torch.addcmul, with a kernel-table row for each route.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -62,9 +66,10 @@ busy share and the operations that took most device time.
 
     python3 chip_smoke.py --ab DIR
 
-times kernels X1 and B4 of this checkout against those built from the
+times kernels B6 and F1 of this checkout against those built from the
 sources of the checkout at DIR (the parent commit, e.g. unpacked with
-git archive), on the same inputs in one process, in turns.
+git archive), on the same inputs in one process, in turns, and the dense
+volume's and the dense cross sections' warm walls with either.
 
     python3 chip_smoke.py --host-soma
 
@@ -804,45 +809,230 @@ def fma_triples(n, gen):
     return (torch.cat([a, m[0]]), torch.cat([b, m[1]]), torch.cat([c, tiny]))
 
 
+def f1_args(a, b, c):
+    """F1's operands as tensors on the card (constants as 0-d tensors),
+    for the plain version and torch.addcmul."""
+    import torch
+
+    return [t if isinstance(t, torch.Tensor) else torch.tensor(
+        t, dtype=torch.float32, device="cuda") for t in (a, b, c)]
+
+
+def addcmul(a, b, c, negate=False):
+    """torch.addcmul's c + a*b (c - a*b with negate): F1's library
+    yardstick, never called by the port."""
+    import torch
+
+    a, b, c = f1_args(a, b, c)
+    return torch.addcmul(c, a, b, value=-1.0 if negate else 1.0)
+
+
+def f1_bound(a, b, c, out):
+    """Least time of one F1 call: each tensor operand's elements read
+    once (a broadcast operand once, not once per use) and the output
+    written once, over the HBM rate (bytes bound it: one operation an
+    element)."""
+    import torch
+
+    nbytes = 4 * (out.numel() + sum(t.numel() for t in (a, b, c)
+                                    if isinstance(t, torch.Tensor)))
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def check_f1(gen):
     """F1 against its plain version (float64, round-to-odd): 2^22 triples,
-    half at midpoints; broadcast operands and constants as the main path
-    passes them; then the dense PDRF's 1 - dbf * m at 512^3, timed.
-    Returns (ms, plain_ms, max abs err, bound_ms, bound_by)."""
+    half at midpoints, with and without `negate`, and torch.addcmul's
+    mismatches against F1 on them; operands as the main path passes them
+    on both routes (flat: contiguous, a view 4 bytes off, n % 4 != 0,
+    one-element tensors, constants; strided: the cross sections'
+    broadcasts); then the dense PDRF's 1 - dbf * m at 512^3, timed alone
+    (negate, no negated copy), beside the parent's form (a negation pass,
+    then F1 on -dbf), addcmul and the plain version. Returns a dict."""
     import torch
 
     from kimimaro_tpu_torch.ops import fma
 
     err = 0.0
     a, b, c = fma_triples(1 << 21, gen)
-    err = max(err, require_equal("F1 triples", fma.fma_f32(a, b, c),
-                                 fma._fma_f32_plain(a, b, c)))
+    mism = {}
+    for negate in (False, True):
+        got = fma.fma_f32(a, b, c, negate=negate)
+        err = max(err, require_equal(
+            f"F1 triples negate={negate}", got,
+            fma._fma_f32_plain(a, b, c, negate=negate)))
+        mism[negate] = int((addcmul(a, b, c, negate).view(torch.int32)
+                            != got.view(torch.int32)).sum())
+    log(f"[kernels] F1 bit-equal to its plain version on 2^22 triples (half "
+        f"at float32 midpoints), with and without negate; torch.addcmul "
+        f"differs from F1 on {mism[False]} of them (c + a*b) and "
+        f"{mism[True]} (c - a*b, value=-1)")
+    n4 = (1 << 20) + 3
+    buf = torch.rand((n4 + 8,), generator=gen, device="cuda") * 200 - 100
     x = torch.rand((64, 5, 7, 5), generator=gen, device="cuda") * 900
     y = torch.rand((64, 1, 1, 1), generator=gen, device="cuda")
     z = torch.rand((64, 5, 7, 1), generator=gen, device="cuda") * 3
-    for args in ((x, y, z), (-x, y, 1.0), (x, 1.5, 30.0),
-                 (x[:, 0], 10.0, z[:, 0])):
-        plain = [t if isinstance(t, torch.Tensor) else torch.tensor(
-            t, dtype=torch.float32, device="cuda") for t in args]
-        err = max(err, require_equal(
-            "F1 broadcast", fma.fma_f32(*args), fma._fma_f32_plain(*plain)))
+    routes = {}
+    for args in ((x, y, z), (x, y, 1.0), (x, 1.5, 30.0),
+                 (x[:, 0], 10.0, z[:, 0]), (buf[:n4], buf[4:n4 + 4], 1.0),
+                 (buf[1:n4 + 1], buf[:n4], buf[3:n4 + 3]),
+                 (buf[:n4], torch.tensor(0.5, device="cuda"), 30.0),
+                 (x.transpose(0, 3), 2.0, 1.0)):
+        shape = torch.broadcast_shapes(*(t.shape for t in args
+                                         if isinstance(t, torch.Tensor)))
+        route = fma.fma_plan(shape, [
+            t.broadcast_to(shape) if isinstance(t, torch.Tensor) else None
+            for t in args])["route"]
+        routes[route] = routes.get(route, 0) + 1
+        for negate in (False, True):
+            err = max(err, require_equal(
+                f"F1 {route} {tuple(shape)} negate={negate}",
+                fma.fma_f32(*args, negate=negate),
+                fma._fma_f32_plain(*f1_args(*args), negate=negate)))
+    log(f"[kernels] F1 bit-equal on broadcast operands, views and constants "
+        f"(routes {json.dumps(routes)}), with and without negate")
     n = DENSE_N
     dbf = torch.rand((n, n, n), generator=gen, device="cuda") * 400
     m = torch.rand((n, n, n), generator=gen, device="cuda") * 0.01
+    neg = -dbf
     one = torch.ones((), device="cuda")
-    got = fma.fma_f32(-dbf, m, 1.0)
-    want, _ = timed_once(lambda: fma._fma_f32_plain(-dbf, m, one))
+    got = fma.fma_f32(dbf, m, 1.0, negate=True)
+    want, _ = timed_once(lambda: fma._fma_f32_plain(dbf, m, one,
+                                                    negate=True))
     err = max(err, require_equal("F1 512^3", got, want))
-    ms = cuda_ms(lambda: fma.fma_f32(-dbf, m, 1.0), 5)
-    plain = cuda_ms(lambda: fma._fma_f32_plain(-dbf, m, one), 2)
-    nbytes = 3 * 4 * n ** 3
-    bms = 1e3 * nbytes / HBM_BYTES_PER_S
-    log(f"[kernels] F1 bit-equal to its plain version on 2^22 triples (half "
-        f"at float32 midpoints) and broadcast operands; 1 - dbf * m at "
-        f"{n}^3: {ms:.4f} ms vs plain {plain:.3f} ms, bound {bms:.4f} ms "
-        f"(bytes)")
-    del dbf, m
-    return ms, plain, err, bms, "bytes"
+    del want
+    lib_equal = torch.equal(addcmul(dbf, m, 1.0, True).view(torch.int32),
+                            got.view(torch.int32))
+    ms = cuda_ms(lambda: fma.fma_f32(dbf, m, 1.0, negate=True), 5)
+    ms_neg = cuda_ms(lambda: fma.fma_f32(neg, m, 1.0), 5)
+    ms_two = cuda_ms(lambda: fma.fma_f32(-dbf, m, 1.0), 5)
+    lib = cuda_ms(lambda: addcmul(dbf, m, 1.0, True), 5)
+    plain = cuda_ms(lambda: fma._fma_f32_plain(dbf, m, one, negate=True), 2)
+    bms = f1_bound(dbf, m, 1.0, got)
+    log(f"[kernels] F1 1 - dbf * m at {n}^3: {ms:.4f} ms with negate, "
+        f"{ms_neg:.4f} ms on a prepared -dbf, {ms_two:.4f} ms with the "
+        f"negation pass (the parent's call); torch.addcmul {lib:.4f} ms "
+        f"({'bit-equal' if lib_equal else 'NOT bit-equal'}); plain "
+        f"{plain:.3f} ms; bound {bms:.4f} ms (bytes)")
+    del dbf, m, neg, got
+    return {"ms": ms, "plain": plain, "err": err, "bound": bms,
+            "library": lib if lib_equal and not any(mism.values()) else None}
+
+
+class F1Spy:
+    """Wraps fma_f32 where the port's modules call it while installed:
+    keeps the first inputs of every distinct call (shape, route,
+    negate), up to `keep` of them, and the count of calls of each.
+    Operands of a million elements or more are kept in host memory, so
+    that the runs' peak device memory stays the port's own; `inputs`
+    hands them back on the card."""
+
+    SITES = ("gengine", "trace", "engine", "ops.geodesic", "ops.xsbatch",
+             "ops.xsarea")
+
+    def __init__(self, tag, keep=48):
+        self.tag = tag
+        self.keep = keep
+        self.kept = {}
+        self.calls = {}
+
+    @classmethod
+    def modules(cls):
+        import importlib
+
+        return [importlib.import_module(f"kimimaro_tpu_torch.{m}")
+                for m in cls.SITES]
+
+    @classmethod
+    def swap(cls, fn):
+        """Put `fn` in place of fma_f32 at every site; returns a restore
+        function."""
+        mods = cls.modules()
+        old = [m.fma_f32 for m in mods]
+        for m in mods:
+            m.fma_f32 = fn
+
+        def restore():
+            for m, f in zip(mods, old):
+                m.fma_f32 = f
+        return restore
+
+    def install(self):
+        import torch
+
+        from kimimaro_tpu_torch.ops import fma
+
+        def spy(a, b, c, negate=False):
+            ts = [t for t in (a, b, c) if isinstance(t, torch.Tensor)]
+            if ts and ts[0].device.type == "cuda":
+                shape = torch.broadcast_shapes(*(t.shape for t in ts))
+                route = fma.fma_plan(shape, [
+                    t.broadcast_to(shape) if isinstance(t, torch.Tensor)
+                    else None for t in (a, b, c)])["route"] if \
+                    torch.Size(shape).numel() else "empty"
+                key = (tuple(shape), route, bool(negate))
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if key not in self.kept and len(self.kept) < self.keep:
+                    self.kept[key] = tuple(
+                        t if not isinstance(t, torch.Tensor)
+                        else t.to("cpu", copy=True) if t.numel() >= 1 << 20
+                        else t.clone() for t in (a, b, c))
+            return fma.fma_f32(a, b, c, negate=negate)
+
+        return self.swap(spy)
+
+    def inputs(self):
+        """The kept calls, (key, (a, b, c)) with the operands on the
+        card."""
+        import torch
+
+        for key, ops in sorted(self.kept.items()):
+            yield key, tuple(t.cuda() if isinstance(t, torch.Tensor) else t
+                             for t in ops)
+
+
+def check_f1_recorded(spies):
+    """F1 against its plain version on the inputs the main path handed it
+    (each distinct call kept by the spies), timed beside torch.addcmul
+    and the bound. Returns {key: (ms, plain_ms, bound_ms, library_ms or
+    None, calls)} and the max abs error."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import fma
+
+    out, err = {}, 0.0
+    calls = {}
+    for spy in spies:
+        for k, v in spy.calls.items():
+            calls[k] = calls.get(k, 0) + v
+    seen = set()
+    for spy in spies:
+        for key, (a, b, c) in spy.inputs():
+            if key in seen or key[1] == "empty":
+                continue
+            seen.add(key)
+            negate = key[2]
+            got = fma.fma_f32(a, b, c, negate=negate)
+            want, plain = timed_once(lambda: fma._fma_f32_plain(
+                *f1_args(a, b, c), negate=negate))
+            err = max(err, require_equal(f"F1 {spy.tag} {key}", got, want))
+            del want
+            lib_out = addcmul(a, b, c, negate)
+            equal = (lib_out.shape == got.shape and torch.equal(
+                lib_out.view(torch.int32), got.view(torch.int32)))
+            ms = cuda_ms(lambda: fma.fma_f32(a, b, c, negate=negate), 5)
+            lib = cuda_ms(lambda: addcmul(a, b, c, negate), 5)
+            bound = f1_bound(a, b, c, got)
+            out[key] = (ms, plain, bound, lib if equal else None,
+                        calls.get(key, 0))
+            log(f"[f1] {spy.tag} {key} ({calls.get(key, 0)} main-path "
+                f"calls): bit-equal, {ms:.4f} ms vs plain {plain:.3f} ms, "
+                f"addcmul {lib:.4f} ms ({'' if equal else 'NOT '}bit-equal),"
+                f" bound {bound:.4f} ms")
+    rest = sorted(k for k in calls if k not in out)
+    log(f"[f1] {len(calls)} distinct main-path calls, {sum(calls.values())} "
+        f"launches; {len(rest)} kinds not kept: "
+        + "; ".join(f"{k}: {calls[k]}" for k in rest[:40]))
+    return out, err
 
 
 # --------------------------------------------------------------------------- #
@@ -1357,6 +1547,54 @@ def b6_bound_ms(volp, zb, wx0, wy0):
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
+def b6_rung(key):
+    """The rung width of a B6 call's key: the smallest of the rung menu's
+    widths (32, 64, 128, 512) that holds its window."""
+    w = max(key[1])
+    return "W=" + str(next((r for r in (32, 64, 128) if w <= r), 512))
+
+
+def check_b6_depths(spy):
+    """B6's scalar path at the main path's shapes: the dense run's
+    recorded calls of each rung width on the volume cut to tz - 1 and
+    tz - 2 along z (tz % 4 != 0: five 4-byte loads a cell), bit-equal to
+    the plain version and timed beside the vector path on the volume as
+    it was. Returns the max abs error."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import xsfetch
+
+    err = 0.0
+    by_rung = {}
+    for key in spy.fetch:
+        r = b6_rung(key)
+        if r not in by_rung or spy.calls[key][1] > spy.calls[by_rung[r]][1]:
+            by_rung[r] = key
+    cut = {}
+    for rung, key in sorted(by_rung.items()):
+        volp, zb, wx0, wy0, labels = spy.fetch[key]
+        tz = volp.shape[2]
+        ms_vec = cuda_ms(lambda: xsfetch.fetch_secb(volp, zb, wx0, wy0,
+                                                    labels), 5)
+        for d in (1, 2):
+            if (id(volp), d) not in cut:
+                cut[id(volp), d] = volp[:, :, :tz - d].contiguous()
+            v = cut[id(volp), d]
+            if xsfetch.fetch_plan(v, zb)["vector"]:
+                raise AssertionError("B6: a volume of tz % 4 != 0 took "
+                                     "the vector path")
+            got = xsfetch.fetch_secb(v, zb, wx0, wy0, labels)
+            want = xsfetch._fetch_secb_plain(v, zb, wx0, wy0, labels)
+            err = max(err, require_equal(f"B6 scalar path {key} tz "
+                                         f"{tz - d}", got, want))
+            ms = cuda_ms(lambda: xsfetch.fetch_secb(v, zb, wx0, wy0,
+                                                    labels), 5)
+            log(f"[xs] B6 {rung} {zb.shape[0]} lanes of {key[1]}: scalar "
+                f"path on tz = {tz - d} bit-equal, {ms:.4f} ms; vector path "
+                f"on tz = {tz} {ms_vec:.4f} ms")
+    return err
+
+
 def x1_bound(seed, run, method):
     """Least time of one X1 call on these inputs: four words per cell
     moved once over the HBM rate, against the integer operations of the
@@ -1642,12 +1880,14 @@ def per_label_path():
     return total, xs_spy, b4_spy
 
 
-def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
-    """Phase 8. Returns (launches summed over its main-path runs, the
-    kernel-table entries of B6 and X1, and the log lines' numbers)."""
+def cross_sections(dense, dense_skels, hollow, soma_skels, gen, f1_spy):
+    """Phase 8, with `f1_spy` recording F1 over its main-path runs.
+    Returns (launches summed over its main-path runs, the kernel-table
+    entries of B6 and X1, the max abs error, B4's per-label recorder)."""
     import torch
 
     err_small = check_xs_small(gen)
+    restore_f1 = f1_spy.install()
 
     sel, nv = xs_select(dense_skels)
     dspy = XsSpy("dense")
@@ -1673,6 +1913,7 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
     xs_equal_cpu("xs-soma", hollow, [min(balls, key=len)], sgot)
 
     llaunches, lspy, b4_label = per_label_path()
+    restore_f1()
     for part in (slaunches, llaunches):
         for k, v in part.items():
             launches[k] += v
@@ -1689,27 +1930,28 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen):
         for key, v in t.items():
             if key not in timings or v[4] > timings[key][4]:
                 timings[key] = v
+    errs.append(check_b6_depths(dspy))
     torch.cuda.synchronize()
     err = max(errs)
     # the table's rows: each kernel at the dense run's most used shape, and
-    # X1 at each rung width, at its shape of the most lanes
+    # B6 and X1 at each rung width, at its shape of the most lanes
     rep = {}
     for name in ("fetch_secb", "section_flood"):
         key = max((k for k in dspy.calls if k[0] == name),
                   key=lambda k: dspy.calls[k][1])
         rep[name] = (key, timings[key])
-    x1_rows = {}
-    for spy in spies:
-        for key, (calls, _) in spy.calls.items():
-            if key[0] != "section_flood":
-                continue
-            rung = x1_rung(key)
-            row = x1_rows.setdefault(rung, [0, None])
-            row[0] += calls
-            if row[1] is None or timings[key][4] > timings[row[1]][4]:
-                row[1] = key
-    rep["x1_rungs"] = {r: (c, k, timings[k]) for r, (c, k) in
-                       x1_rows.items()}
+    for name, rung_of, tag in (("section_flood", x1_rung, "x1_rungs"),
+                               ("fetch_secb", b6_rung, "b6_rungs")):
+        rows = {}
+        for spy in spies:
+            for key, (calls, _) in spy.calls.items():
+                if key[0] != name:
+                    continue
+                row = rows.setdefault(rung_of(key), [0, None])
+                row[0] += calls
+                if row[1] is None or timings[key][4] > timings[row[1]][4]:
+                    row[1] = key
+        rep[tag] = {r: (c, k, timings[k]) for r, (c, k) in rows.items()}
     return launches, rep, err, b4_label
 
 
@@ -1753,7 +1995,8 @@ def profile_dense(top=25):
 def ab_library(parent):
     """The kernel library built from the sources of another checkout at
     `parent` (the same nvcc flags, one nvcc per source), loaded with the
-    entry points X1 and B4 had there."""
+    entry points B6 and F1 had there: kt_xs_fetch without the path flag
+    and divisor, kt_fma_f32 with 64-bit strides and no negate."""
     import ctypes
 
     from kimimaro_tpu_torch import kernels
@@ -1770,245 +2013,195 @@ def ab_library(parent):
     kernels._run_all([[nvcc, *kernels.LINK_FLAGS, "-o", lib, *objs]])
     so = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    so.kt_xs_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    so.kt_xs_flood.restype = i
-    # B4 before its strips: no mailbox argument
-    so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, i, i, i, i, p, p,
-                                          i, i, i, p]
-    so.kt_sweep_axis0_batched.restype = i
+    f, ll = ctypes.c_float, ctypes.c_longlong
+    so.kt_xs_fetch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    so.kt_xs_fetch.restype = i
+    so.kt_fma_f32.argtypes = [p, f, p, p, f, p, p, f, p, p, ll, ll, ll, ll,
+                              p]
+    so.kt_fma_f32.restype = i
     return so
 
 
-def ab_parent(parent):
-    """`--ab DIR`: X1 and B4 of this checkout against the kernels built
-    from the checkout at DIR (the parent commit), on the same inputs in
-    one process, timed in turns (parent, this, this, parent): X1 on the
-    floods the dense and soma volumes' cross sections hand it, at each
-    rung width, and the dense cross sections' wall with either X1; B4 on
-    node sweeps at the main path's shapes, on the calls the crop engine
-    makes for --host-soma's label, and that crop engine phase's wall with
-    either B4. Results are compared too."""
-    import ctypes
+def parent_kernels(parent, plib):
+    """The B6 and F1 wrappers of the checkout at `parent` (its own
+    ops/xsfetch.py and ops/fma.py, host work included), run on its kernel
+    library. Its F1 took no `negate`, so its callers negated a first (a
+    negation pass over a)."""
+    import collections
+    import types
 
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.ops.xsslab import K
+
+    shim = types.SimpleNamespace(
+        lib=lambda: plib, ptr=kernels.ptr, check=kernels.check,
+        stream_ptr=kernels.stream_ptr, require_cuda=kernels.require_cuda,
+        LAUNCHES=collections.Counter())
+    mods = {}
+    for name in ("xsfetch", "fma"):
+        path = os.path.join(parent, "kimimaro_tpu_torch", "ops", name + ".py")
+        with open(path) as f:
+            src = f.read()
+        for imp in ("from .. import kernels\n", "from .xsslab import K\n"):
+            src = src.replace(imp, "")
+        mod = types.ModuleType(f"parent_{name}")
+        mod.kernels, mod.K = shim, K
+        exec(compile(src, path, "exec"), mod.__dict__)
+        mods[name] = mod
+
+    def f1(a, b, c, negate=False):
+        return mods["fma"].fma_f32(-a if negate else a, b, c)
+
+    return mods["xsfetch"].fetch_secb, f1
+
+
+def turns(fa, fb, reps):
+    """CUDA-event times of fa and fb in turns: a, b, b, a."""
+    ta = [cuda_ms(fa, reps)]
+    tb = [cuda_ms(fb, reps), cuda_ms(fb, reps)]
+    ta.append(cuda_ms(fa, reps))
+    return ta, tb
+
+
+def ab_parent(parent):
+    """`--ab DIR`: B6 and F1 of this checkout against the kernels built
+    from the checkout at DIR (the parent commit), on the same inputs in
+    one process, in turns (parent, this, this, parent): B6 on every call
+    shape the dense and soma cross sections hand it, F1 on the calls the
+    dense run and the dense cross sections hand it (the parent's with its
+    callers' negation pass), each pair compared too; then the walls with
+    either pair swapped in: the dense volume's skeletonize and the dense
+    cross sections, with their rung times."""
     import torch
 
     from kimimaro_tpu_torch import kernels
-    from kimimaro_tpu_torch.ops import sweep, xsslab
-    from kimimaro_tpu_torch.ops.gsweep import _costs9
+    from kimimaro_tpu_torch.ops import fma, xsfetch
 
     t0 = time.perf_counter()
     plib = ab_library(parent)
     kernels.build()
     kernels.lib()
+    b6_parent, f1_parent = parent_kernels(parent, plib)
     log(f"[ab] built both libraries in {time.perf_counter() - t0:.1f} s")
 
-    def x1_parent(seed, secb, zb, rounds, method):
-        B, Wx, Wy = seed.shape
-        kept = torch.empty_like(seed)
-        scratch = torch.empty_like(seed) if method == "dilate" else None
-        changed = torch.empty(B, dtype=torch.int32, device="cuda")
-        run = torch.empty(B, dtype=torch.int32, device="cuda")
-        kernels.check(plib.kt_xs_flood(
-            kernels.ptr(seed), kernels.ptr(secb), kernels.ptr(zb),
-            kernels.ptr(kept), kernels.ptr(scratch), kernels.ptr(changed),
-            kernels.ptr(run), B, Wx, Wy, int(rounds),
-            int(method == "sweep"), kernels.stream_ptr(seed.device)),
-            "parent section_flood")
-        return kept, changed != 0, run
-
-    def b4_parent(d, ok, nc, anis, node_mode=True, clamp_positive=False,
-                  descending=False, vg=None, bits9=None):
-        B, n, H, W = d.shape
-        out = torch.empty_like(d)
-        bits = None if vg is None else (ctypes.c_int * 9)(*bits9)
-        kernels.check(plib.kt_sweep_axis0_batched(
-            kernels.ptr(d), kernels.ptr(ok),
-            kernels.ptr(nc if node_mode else None), kernels.ptr(vg),
-            kernels.ptr(out), B, n, H, W, kernels.costs_arg(_costs9(anis)),
-            bits, int(node_mode), int(clamp_positive), int(descending),
-            kernels.stream_ptr(d.device)), "parent sweep_axis0_batched")
-        return out
-
-    def turns(fa, fb, reps):
-        ta = [cuda_ms(fa, reps)]
-        tb = [cuda_ms(fb, reps), cuda_ms(fb, reps)]
-        ta.append(cuda_ms(fa, reps))
-        return ta, tb
-
-    # the floods the cross sections hand X1
     n = DENSE_N
     dense = dense_volume(n)
-    dskels, _, _, _ = run_main_path("ab-dense", dense, ())
+    f1_dense = F1Spy("dense", keep=64)
+    restore = f1_dense.install()
+    try:
+        dskels, _, _, _ = run_main_path("ab-dense", dense, ())
+    finally:
+        restore()
     hollow = hollow_volume(dense)
     sskels, _ = hollow_main_path(hollow)
     sel, _ = xs_select(dskels)
     dspy, sspy = XsSpy("dense"), XsSpy("soma")
-    xs_run("ab-xs-dense", dense, sel, dspy)
+    f1_xs = F1Spy("xs-dense", keep=64)
+    restore = f1_xs.install()
+    try:
+        xs_run("ab-xs-dense", dense, sel, dspy)
+    finally:
+        restore()
     xs_run("ab-xs-soma", hollow, [sskels[k] for k in sorted(sskels)[-2:]],
            sspy)
-    rows = {}
     for spy in (dspy, sspy):
-        for key, (calls, lanes) in spy.calls.items():
-            if key[0] != "section_flood":
+        for key, args in sorted(spy.fetch.items()):
+            volp, zb = args[0], args[1]
+            require_equal(f"ab B6 {spy.tag} {key}",
+                          xsfetch.fetch_secb(*args), b6_parent(*args))
+            ta, tb = turns(lambda: b6_parent(*args),
+                           lambda: xsfetch.fetch_secb(*args), 5)
+            plan = xsfetch.fetch_plan(volp, zb)
+            log(f"[ab] B6 {spy.tag} {b6_rung(key)} {zb.shape[0]} lanes of "
+                f"{key[1]} ({spy.calls[key]} calls, lanes over two runs; "
+                f"this {'vector' if plan['vector'] else 'scalar'} path): "
+                f"parent {ta[0]:.4f} / {ta[1]:.4f} ms, this {tb[0]:.4f} / "
+                f"{tb[1]:.4f} ms, bound "
+                f"{b6_bound_ms(volp, zb, args[2], args[3]):.4f} ms")
+    for spy in (f1_dense, f1_xs):
+        for key, (a, b, c) in sorted(
+                spy.inputs(), key=lambda kv: -int(np.prod(kv[0][0]))):
+            if key[1] == "empty":
                 continue
-            rung = x1_rung(key)
-            if rung not in rows or lanes > rows[rung][1]:
-                rows[rung] = (spy, lanes, key)
-    for rung, (spy, lanes, key) in sorted(rows.items()):
-        seed, secb, zb, rounds, method = spy.flood[key]
-        a = x1_parent(seed, secb, zb, rounds, method)
-        b = xsslab.section_flood(seed, secb, zb, rounds, method)
-        require_equal(f"ab X1 {key}", b, a)
-        ta, tb = turns(lambda: x1_parent(seed, secb, zb, rounds, method),
-                       lambda: xsslab.section_flood(seed, secb, zb, rounds,
-                                                    method), 3)
-        form = xsslab.section_flood_plan(key[1][0], key[1][1], method)[0]
-        log(f"[ab] X1 {rung} ({spy.tag}, {seed.shape[0]} lanes of "
-            f"{key[1]}, rounds {rounds}, this form {form}; {spy.calls[key]} "
-            f"calls of this shape over two runs): parent "
-            f"{ta[0]:.4f} / {ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} "
-            f"ms")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    anis = (40.0, 16.0, 16.0)
-    for shape in ((2, 256, 256, 64), (2, 64, 256, 256), (64, 128, 128, 32),
-                  (64, 32, 128, 128), (64, 64, 64, 32)):
-        r = lambda: torch.rand(shape, generator=gen, device="cuda")
-        d = torch.where(r() < 0.25, r() * 10, float("inf")).contiguous()
-        ok = (r() < 0.8).contiguous()
-        nc = (r() * 3).contiguous()
-        a = b4_parent(d, ok, nc, anis)
-        b = sweep.sweep_axis0_batched(d, ok, nc, anis, True, False)
-        require_equal(f"ab B4 {shape}", b, a)
-        ta, tb = turns(lambda: b4_parent(d, ok, nc, anis),
-                       lambda: sweep.sweep_axis0_batched(d, ok, nc, anis,
-                                                         True, False), 5)
-        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
-                                              True)
-        bms, by = b4_bound(shape, True)
-        log(f"[ab] B4 node sweep {shape} (this form {plan['form']}, "
-            f"{plan['ctas']} CTAs a lane): parent {ta[0]:.4f} / "
-            f"{ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-    ab_walls(sel, dense, x1_parent, b4_parent, turns)
+            negate = key[2]
+            require_equal(f"ab F1 {spy.tag} {key}",
+                          fma.fma_f32(a, b, c, negate=negate),
+                          f1_parent(a, b, c, negate))
+            reps = 5 if np.prod(key[0]) > 1 << 16 else 20
+            ta, tb = turns(lambda: f1_parent(a, b, c, negate),
+                           lambda: fma.fma_f32(a, b, c, negate=negate),
+                           reps)
+            out = torch.empty(key[0], device="cuda")
+            log(f"[ab] F1 {spy.tag} {key} ({spy.calls[key]} calls over two "
+                f"runs): parent {ta[0]:.4f} / {ta[1]:.4f} ms, this "
+                f"{tb[0]:.4f} / {tb[1]:.4f} ms, bound "
+                f"{f1_bound(a, b, c, out):.4f} ms")
+    del f1_dense, f1_xs, dspy, sspy
+    ab_walls(dense, sel, b6_parent, f1_parent)
     return 0
 
 
-def ab_walls(sel, dense, x1_parent, b4_parent, turns):
-    """`--ab`'s walls: the dense cross sections with the parent's X1 in
-    place of this one, and the crop engine phase on --host-soma's label
-    (its host trace path left out) with the parent's B4, in turns; then B4
-    on each call that crop engine made, parent against this."""
+def ab_walls(dense, sel, b6_parent, f1_parent):
+    """`--ab`'s walls, warm, in turns (parent, this, this, parent, three
+    times): the dense volume's skeletonize with the parent's F1 in place
+    of this one, and the dense cross sections with the parent's B6 and
+    F1, with their rung times (`xsb_rung{r}_ms`)."""
     import torch
 
     import kimimaro_tpu_torch
-    from kimimaro_tpu_torch import intake
-    from kimimaro_tpu_torch.ops import geodesic, sweep, xsslab
+    from kimimaro_tpu_torch.ops import xsfetch
     from kimimaro_tpu_torch.utils import profiling
 
-    flood = xsslab.section_flood
-    failed = []
+    fetch = xsfetch.fetch_secb
 
-    def parent_flood(seed, secb, zb, rounds, method):
+    def run(fn, parent):
+        restore = F1Spy.swap(f1_parent) if parent else (lambda: None)
+        if parent:
+            xsfetch.fetch_secb = b6_parent
+        profiling.reset_stats()
+        profiling.collect(True)
         try:
-            return x1_parent(seed, secb, zb, rounds, method)
-        except RuntimeError as e:
-            # once more on the same inputs: a second failure is the call's
-            # own, a success an error left over from an earlier call
-            try:
-                x1_parent(seed, secb, zb, rounds, method)
-                again = "succeeds"
-            except RuntimeError:
-                again = "fails too"
-            failed.append(f"{e} on {tuple(seed.shape)} {method} rounds "
-                          f"{rounds}; the same call again {again}")
-            return flood(seed, secb, zb, rounds, method)
-
-    def xs_wall(fn):
-        xsslab.section_flood = fn
-        try:
-            skels = {s.id: s.clone() for s in sel}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            kimimaro_tpu_torch.cross_sectional_area(dense, skels,
-                                                    anisotropy=ANIS,
-                                                    device="cuda")
+            fn()
             torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            secs = time.perf_counter() - t0
         finally:
-            xsslab.section_flood = flood
-
-    xs_wall(parent_flood)
-    xs_wall(flood)
-    ta, tb = turns(lambda: xs_wall(parent_flood), lambda: xs_wall(flood), 1)
-    log(f"[ab] xs-dense wall with the parent's X1: {ta[0]:.1f} / "
-        f"{ta[1]:.1f} ms, with this X1: {tb[0]:.1f} / {tb[1]:.1f} ms")
-    log(f"[ab] the parent's X1 failed on {len(failed)} calls"
-        + "".join(f"\n[ab]   {f}" for f in failed[:8]))
-
-    vol = soma_label_volume()
-    b4 = geodesic.sweep_axis0_batched
-    fallback = intake._run_host_fallback
-    spy = B4Spy("host-soma crop engine")
-
-    def crop_phase(fn, record=False):
-        geodesic.sweep_axis0_batched = fn
-        intake._run_host_fallback = lambda *a, **k: None
-        restore = spy.install() if record else None
-        try:
-            profiling.reset_stats()
-            profiling.collect(True)
-            kimimaro_tpu_torch.skeletonize(
-                vol, teasar_params=TEASAR, anisotropy=ANIS,
-                dust_threshold=1000, fix_borders=True, fix_branching=True,
-                fill_holes=False, device="cuda")
-            torch.cuda.synchronize()
-        finally:
-            if restore is not None:
-                restore()
+            restore()
+            xsfetch.fetch_secb = fetch
             profiling.collect(False)
-            geodesic.sweep_axis0_batched = b4
-            intake._run_host_fallback = fallback
-        stats = profiling.get_stats()
-        return stats["phases"]["crop_engine"], stats["counters"]
+        return secs, profiling.get_stats()
 
-    secs, counters = crop_phase(b4, record=True)
-    log(f"[ab] host-soma crop engine (this B4, first run): {secs:.3f} s, "
-        f"counters {json.dumps(counters)}")
-    walls = {"parent": [], "this": []}
-    for who in ("parent", "this", "this", "parent"):
-        walls[who].append(crop_phase(b4_parent if who == "parent" else b4)[0])
-    log(f"[ab] host-soma crop engine phase with the parent's B4: "
-        f"{walls['parent'][0]:.3f} / {walls['parent'][1]:.3f} s, with this "
-        f"B4: {walls['this'][0]:.3f} / {walls['this'][1]:.3f} s")
-    times = {}
-    for key in sorted(spy.kept):
-        shape, node, clamp, desc = key
-        d, ok, nc, anis = spy.kept[key]
-        args = (d, ok, nc, anis, node, clamp, desc)
-        require_equal(f"ab B4 host-soma crop engine {key}",
-                      sweep.sweep_axis0_batched(*args), b4_parent(*args))
-        ta, tb = turns(lambda: b4_parent(*args),
-                       lambda: sweep.sweep_axis0_batched(*args), 5)
-        plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
-                                              node)
-        bms, by = b4_bound(shape, node)
-        times.setdefault(shape, []).append((sum(ta) / 2, sum(tb) / 2))
-        log(f"[ab] B4 host-soma crop engine {key} ({spy.calls[shape]} calls "
-            f"of the shape, this form {plan['form']}, {plan['ctas']} CTAs a "
-            f"lane of {plan['rows']} rows): parent {ta[0]:.4f} / "
-            f"{ta[1]:.4f} ms, this {tb[0]:.4f} / {tb[1]:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-    est = [0.0, 0.0]
-    for shape, calls in sorted(spy.calls.items()):
-        t = times.get(shape, [])
-        for i in (0, 1):
-            est[i] += calls * sum(x[i] for x in t) / max(len(t), 1)
-        log(f"[ab] host-soma crop engine: {calls} B4 calls of {shape} "
-            f"({len(t)} kinds timed)")
-    log(f"[ab] host-soma crop engine: B4's calls at their shapes' mean "
-        f"times sum to {est[0] / 1e3:.3f} s with the parent's B4, "
-        f"{est[1] / 1e3:.3f} s with this")
+    def dense_run():
+        kimimaro_tpu_torch.skeletonize(
+            dense, teasar_params=TEASAR, anisotropy=ANIS,
+            dust_threshold=1000, fix_borders=True, fix_branching=True,
+            device="cuda")
+
+    def xs_dense():
+        kimimaro_tpu_torch.cross_sectional_area(
+            dense, {s.id: s.clone() for s in sel}, anisotropy=ANIS,
+            device="cuda")
+
+    for name, fn in (("dense", dense_run), ("xs-dense", xs_dense)):
+        run(fn, True)  # the parent's first run in this process
+        walls = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent") * 3:
+            secs, stats = run(fn, who == "parent")
+            walls[who].append(secs)
+            if name == "dense":
+                what = "F1: phases " + json.dumps(
+                    {k: round(v, 3) for k, v in stats["phases"].items()})
+            else:
+                what = "B6 and F1: rung ms " + json.dumps(
+                    {k: v for k, v in stats["counters"].items()
+                     if k.startswith("xsb_rung") and k.endswith("_ms")})
+            log(f"[ab] {name} wall {secs:.3f} s with {who}'s {what}")
+        log(f"[ab] {name} warm wall, median of {len(walls['this'])} each: "
+            f"parent {np.median(walls['parent']):.3f} s (runs "
+            f"{json.dumps([round(x, 3) for x in walls['parent']])}), this "
+            f"{np.median(walls['this']):.3f} s (runs "
+            f"{json.dumps([round(x, 3) for x in walls['this']])})")
 
 
 def soma_label_volume(n=DENSE_N):
@@ -2184,8 +2377,10 @@ def main() -> int:
     # recorded.
     b5_spy = B5Spy()
     b4_spy = B4Spy("main path")
+    f1_main = F1Spy("main path")
     restore_b5 = b5_spy.install()
     restore_b4 = b4_spy.install()
+    restore_f1 = f1_main.install()
     launches = small_main_path()
     t0 = time.perf_counter()
     dense = dense_volume(n)
@@ -2203,6 +2398,7 @@ def main() -> int:
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
     soma_skels, soma_launches = hollow_main_path(hollow)
+    restore_f1()
     # B4's calls on the main path (phase 4's runs)
     b4_main_calls = dict(b4_spy.calls)
     cross_check(captured)
@@ -2215,8 +2411,12 @@ def main() -> int:
 
     # 8. cross sections: the dense and soma volumes' skeletons, the
     # per-label path, and B6/X1 at the shapes those runs handed them
+    f1_xs = F1Spy("cross sections")
     xs_launches, xs_rep, xs_err, b4_label = cross_sections(
-        dense, dense_skels, hollow, soma_skels, gen)
+        dense, dense_skels, hollow, soma_skels, gen, f1_xs)
+    # F1 on the calls of phases 4 to 6 and 8
+    f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs))
+    del f1_main, f1_xs
     # B4 on the calls of phases 4 and 5 (the crop engine, the host trace
     # path's fused loop), the per-label path and the crop cross-check;
     # the main-path calls of each shape
@@ -2271,14 +2471,32 @@ def main() -> int:
                       "plain_ms": round(plain, 4),
                       "bound_ms": round(bounds[k][0], 4),
                       "bound_by": bounds[k][1], "library_ms": None})
-    ms, plain, err, bms, by = f1
+    f1_err = max(f1["err"], f1_err)
     table.append({"name": "fma_f32", "route": "cuda",
                   "source": "kimimaro_tpu_torch/csrc/fma.cu",
                   "replaces": "kimimaro_tpu/trace.py:67",
-                  "launches": launches["fma_f32"], "max_abs_err": err,
-                  "ms": round(ms, 4), "plain_ms": round(plain, 4),
-                  "bound_ms": round(bms, 4), "bound_by": by,
-                  "library_ms": None})
+                  "launches": launches["fma_f32"], "max_abs_err": f1_err,
+                  "ms": round(f1["ms"], 4), "plain_ms": round(f1["plain"], 4),
+                  "bound_ms": round(f1["bound"], 4), "bound_by": "bytes",
+                  "library_ms": None if f1["library"] is None
+                  else round(f1["library"], 4)})
+    # F1 by route at the main path's call of the most elements, with the
+    # main-path calls of each route
+    for route in ("flat", "strided"):
+        keys = [k for k in f1_rows if k[1] == route]
+        if not keys:
+            continue
+        key = max(keys, key=lambda k: int(np.prod(k[0])))
+        ms, plain, bms, lib, _ = f1_rows[key]
+        calls = sum(v[4] for k, v in f1_rows.items() if k[1] == route)
+        table.append({
+            "name": f"fma_f32 {route} {key[0]}", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/fma.cu",
+            "replaces": "kimimaro_tpu/trace.py:67", "launches": calls,
+            "max_abs_err": f1_err, "ms": round(ms, 4),
+            "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+            "bound_by": "bytes",
+            "library_ms": None if lib is None else round(lib, 4)})
     # B4 at each shape the main path gave it, the calls at that shape
     for shape, (calls, (ms, plain, bms, by, err)) in sorted(b4_rows.items()):
         log(f"[kernels] sweep_axis0_batched {shape}: {ms:.4f} ms vs plain "
@@ -2302,6 +2520,20 @@ def main() -> int:
         table.append({"name": f"section_flood {rung}", "route": "cuda",
                       "source": "kimimaro_tpu_torch/csrc/xsflood.cu",
                       "replaces": "kimimaro_tpu/ops/xsslab.py:74",
+                      "launches": calls, "max_abs_err": xs_err,
+                      "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                      "bound_ms": round(bms, 4), "bound_by": by,
+                      "library_ms": None})
+    # B6 at each rung width: its shape of the most lanes, the calls of
+    # every shape of that width
+    for rung, (calls, key, (ms, plain, bms, by, lanes)) in sorted(
+            xs_rep["b6_rungs"].items()):
+        log(f"[kernels] fetch_secb {rung}: {ms:.4f} ms vs plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) at {key} x {lanes} "
+            f"lanes; {calls} main-path calls")
+        table.append({"name": f"fetch_secb {rung}", "route": "cuda",
+                      "source": "kimimaro_tpu_torch/csrc/xsfetch.cu",
+                      "replaces": "kimimaro_tpu/ops/xsfetch.py:159",
                       "launches": calls, "max_abs_err": xs_err,
                       "ms": round(ms, 4), "plain_ms": round(plain, 4),
                       "bound_ms": round(bms, 4), "bound_by": by,

@@ -211,7 +211,7 @@ def pdrf_terms(dbf_inf, daf, m, imd, pdrf_scale, pdrf_exponent: int):
     DAF*imd from its broadcast terms, m = 1/max(dbf^1.01) and imd =
     1/max(DAF) over the voxel's label. XLA fuses 1 - dbf*m, and the sum
     of two products with the DAF term as the fused product."""
-    p = fma_f32(-dbf_inf, m, 1.0)
+    p = fma_f32(dbf_inf, m, 1.0, negate=True)
     e = int(pdrf_exponent)
     p = integer_pow(p, e) if e > 0 else torch.ones_like(p)
     return fma_f32(daf, imd, p * float(np.float32(pdrf_scale)))

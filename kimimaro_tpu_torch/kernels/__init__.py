@@ -143,16 +143,20 @@ def lib() -> ctypes.CDLL:
         so.kt_sweep_axis0_batched.restype = i
         so.kt_sweep_axis0_batched_plan.argtypes = [i, i, i, i, i, p, p]
         so.kt_sweep_axis0_batched_plan.restype = i
-        so.kt_xs_fetch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        so.kt_xs_fetch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   ctypes.c_uint, ctypes.c_uint, p]
         so.kt_xs_fetch.restype = i
         so.kt_xs_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         so.kt_xs_flood.restype = i
         so.kt_xs_flood_plan.argtypes = [i, i, i, p, p]
         so.kt_xs_flood_plan.restype = i
         f, ll = ctypes.c_float, ctypes.c_longlong
-        so.kt_fma_f32.argtypes = [p, f, p, p, f, p, p, f, p, p, ll, ll, ll,
-                                  ll, p]
-        so.kt_fma_f32.restype = i
+        so.kt_fma_f32_flat.argtypes = [p, f, i, p, f, i, p, f, i, i, p, ll,
+                                       p]
+        so.kt_fma_f32_flat.restype = i
+        so.kt_fma_f32_strided.argtypes = [p, f, p, p, f, p, p, f, p, i, p,
+                                          ll, p, p]
+        so.kt_fma_f32_strided.restype = i
         _LIB = so
     return _LIB
 

@@ -41,7 +41,7 @@ def _trapezoid_integral(x, a, b, fused: bool):
     flat = torch.minimum(ax, torch.clamp(M - b, min=0.0))
     xhat = torch.minimum(torch.maximum(ax, M - b), M)
     d = M - xhat
-    num = fma_f32(-d, d, b * b) if fused else b * b - d * d
+    num = fma_f32(d, d, b * b, negate=True) if fused else b * b - d * d
     ramp = num / (2.0 * torch.clamp(b, min=_EPS))
     return torch.sign(x) * (flat + ramp)
 

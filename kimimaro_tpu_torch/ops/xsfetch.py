@@ -10,7 +10,9 @@ The volume is a permuted contiguous copy with the plane's dominant axis
 LAST, so each cell's K values are K consecutive int32 (one or two 32-byte
 sectors); the plain version gathers the same copy. Windows may start
 anywhere and have any extent. For CUDA tensors the wrapper launches
-kernel B6 (csrc/xsfetch.cu); for CPU tensors it runs the plain version.
+kernel B6 (csrc/xsfetch.cu), which reads a cell's values as two 16-byte
+loads where `fetch_plan` allows it; for CPU tensors it runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .fma import magic_divisor
 from .xsslab import K
 
 
@@ -38,6 +41,17 @@ def _fetch_secb_plain(volp, zb, wx0, wy0, labels):
     return (fg.to(torch.int32) * kbit).sum(dim=-1, dtype=torch.int32)
 
 
+def fetch_plan(volp, zb):
+    """How kernel B6 reads a volume: {"vector": two 16-byte loads of the
+    aligned 8-word span holding a cell's K values where tz % 4 == 0 and
+    the volume's base is 16-byte aligned, else K 4-byte loads; "magic",
+    "shift": the division-free split of a cell index by Wy}."""
+    tz = volp.shape[-1]
+    _, magic, shift = magic_divisor(int(zb.shape[-1]))
+    return {"vector": tz % 4 == 0 and volp.data_ptr() % 16 == 0,
+            "magic": magic, "shift": shift}
+
+
 def fetch_secb(volp, zb, wx0, wy0, labels):
     """Per-lane K-bit foreground words of (Wx, Wy) windows.
 
@@ -55,11 +69,13 @@ def fetch_secb(volp, zb, wx0, wy0, labels):
                          "and (B,) starts and labels")
     tx, ty, tz = volp.shape
     B, Wx, Wy = zb.shape
+    plan = fetch_plan(volp, zb)
     out = torch.empty_like(zb)
     rc = kernels.lib().kt_xs_fetch(
         kernels.ptr(volp), kernels.ptr(zb), kernels.ptr(wx0),
         kernels.ptr(wy0), kernels.ptr(labels), kernels.ptr(out),
-        tx, ty, tz, B, Wx, Wy, kernels.stream_ptr(volp.device))
+        tx, ty, tz, B, Wx, Wy, int(plan["vector"]), plan["magic"],
+        plan["shift"], kernels.stream_ptr(volp.device))
     kernels.check(rc, "fetch_secb")
     kernels.LAUNCHES["fetch_secb"] += 1
     return out

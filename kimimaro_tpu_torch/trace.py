@@ -97,7 +97,7 @@ def _pdrf_kernel(dbf_inf, daf, dbf_max, pdrf_scale, pdrf_exponent: int,
     m = inv_pow_1_01(torch.as_tensor(dbf_max, dtype=torch.float32,
                                      device=dev))
     # XLA fuses both multiply-adds of this formula
-    p = fma_f32(-dbf_inf, m, 1.0)
+    p = fma_f32(dbf_inf, m, 1.0, negate=True)
     e = int(pdrf_exponent)
     p = integer_pow(p, e) if e > 0 else torch.ones_like(p)
     trickle = torch.where(max_daf > 0,
@@ -130,12 +130,27 @@ def _chase_parents(parent_codes: np.ndarray, start, offsets) -> np.ndarray:
     return np.array(path[::-1], dtype=np.int64)
 
 
+def _chase_len(shape) -> int:
+    """Rows of the JAX package's chase and path buffers for a crop."""
+    return max(int(2 * (shape[0] + shape[1] + shape[2])), 64)
+
+
+def _buffer_writes(path: np.ndarray, padded: bool, shape) -> np.ndarray:
+    """The voxels the JAX fused loop writes through its path buffer: the
+    path and, where the buffer holds a -1 row (padding past the path, or
+    a vertex the soma culling dropped), the crop's far corner, to which
+    JAX's `.at[]` wraps -1 (its ball seed, ball mask and rail zeros)."""
+    if not padded:
+        return path
+    corner = np.array([[s - 1 for s in shape]], dtype=path.dtype)
+    return np.concatenate([path, corner])
+
+
 def _chase_device_path(d_rail: torch.Tensor, target):
     """Pointer chase on the rail field. Returns the rail-first path, or
     None when the chase buffer overflowed (the caller then rebuilds the
     path from parent codes)."""
-    shape = d_rail.shape
-    L = max(int(2 * (shape[0] + shape[1] + shape[2])), 64)
+    L = _chase_len(d_rail.shape)
     d_pad = np.pad(d_rail.detach().to("cpu").numpy(), 1,
                    constant_values=np.float32(np.inf))
     path, plen, reached = _chase(d_pad, target, L)
@@ -300,7 +315,10 @@ def _compute_paths_fused(
     bounded rounds on B4 (RELAX_ROUNDS for the first rail field, half
     that for a ball, a third for the warm rail; at least 3 and 2), every
     path is a chase down the rail field, the invalidation radii are fused
-    multiply-adds and the soma culling distance is float32. Returns the
+    multiply-adds and the soma culling distance is float32. Like that
+    loop, each path also seeds a ball at the crop's far corner and, with
+    fix_branching, zeroes the PDRF and the rail field there whenever its
+    path buffer holds a -1 row (`_buffer_writes`). Returns the
     rail-first paths, or None where that loop overflows (a relaxation
     that has not converged, a chase buffer overflow, FUSED_K_CAP paths
     with work left); the label then takes the eager loop from scratch,
@@ -331,6 +349,7 @@ def _compute_paths_fused(
     root_t = torch.tensor(root)
     anis = torch.tensor(anisotropy, dtype=torch.float32)
     soma_r = float(np.float32(soma_radius))
+    chase_len = _chase_len(fg.shape)
 
     paths: List[np.ndarray] = []
     while (valid_labels > 0 or before or after) and len(paths) < max_paths:
@@ -346,16 +365,19 @@ def _compute_paths_fused(
         path = _chase_device_path(d_rail, target)
         if path is None:
             return None
+        padded = len(path) < chase_len
         if soma_mode:
             # drop the vertices within the soma radius of the root but the
             # rail anchor
             keep = (root_distance(torch.from_numpy(path), root_t, anis)
                     > soma_r).numpy()
             keep[0] = True
+            padded = padded or not keep.all()
             path = path[keep]
+        writes = _buffer_writes(path, padded, fg.shape)
 
         if valid_labels > 0:
-            ok, init = invalidation_seeds(valid, dbf, path, scale, const,
+            ok, init = invalidation_seeds(valid, dbf, writes, scale, const,
                                           fused=True)
             ball, done = relax(init, ok, None, r_ball, clamp=True,
                                conv="negative")
@@ -366,8 +388,8 @@ def _compute_paths_fused(
             valid = valid & ~ball
 
         if fix_branching:
-            pdrf = _zero_at(pdrf, path)
-            d_rail, done = relax(_zero_at(d_rail, path), fg, pdrf, r_warm)
+            pdrf = _zero_at(pdrf, writes)
+            d_rail, done = relax(_zero_at(d_rail, writes), fg, pdrf, r_warm)
             if not done:
                 return None
 

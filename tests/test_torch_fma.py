@@ -28,6 +28,7 @@ from kimimaro_tpu_torch import gengine as tgengine
 from kimimaro_tpu_torch import trace as ttrace
 from kimimaro_tpu_torch.ops import gsweep as tgsweep
 from kimimaro_tpu_torch.ops import xsslab as txsslab
+from kimimaro_tpu_torch.ops import fma
 from kimimaro_tpu_torch.ops.fma import fma_f32
 
 torch.set_num_threads(1)
@@ -91,6 +92,136 @@ def test_fma_f32_matches_xla():
     np.testing.assert_array_equal(
         fma_f32(big, big, 1.0).numpy(),
         fma_f32(big.reshape(-1), big.reshape(-1), 1.0).numpy().reshape(80, -1))
+
+
+def test_fma_f32_negate_matches_xla():
+    """negate=True: bit-equal to XLA's c - a*b (one fused multiply-add of
+    -a) on the same 2^21 triples; a plain f32 c - a*b differs on some."""
+    a, b, c = _triples(1 << 20, seed=1)
+    want = np.asarray(jax.jit(lambda a, b, c: c - a * b)(a, b, c))
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c), negate=True).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (c - a * b != want).sum() > 1000
+    x = torch.from_numpy(a[:4096].reshape(64, 64))
+    np.testing.assert_array_equal(
+        fma_f32(x, x, 2.5, negate=True).numpy(),
+        np.asarray(jax.jit(lambda x: np.float32(2.5) - x * x)(x.numpy())))
+
+
+@pytest.mark.parametrize("d", (1, 2, 3, 5, 7, 25, 512, 4095, 65537,
+                               (1 << 30) + 1, (1 << 31) - 1))
+def test_magic_divisor_divides(d):
+    """F1's division-free index split: ((n * magic >> 32) + n) >> shift
+    equals n // d for n below 2^31, at the ends of the range too."""
+    dd, magic, shift = fma.magic_divisor(d)
+    rng = np.random.default_rng(d)
+    n = np.concatenate([rng.integers(0, 1 << 31, 1 << 16),
+                        np.arange(min(3 * d + 9, 1 << 16)),
+                        (1 << 31) - 1 - np.arange(1000),
+                        d * np.arange(1, 9) - 1, d * np.arange(1, 9)])
+    n = n[(n >= 0) & (n < 1 << 31)].astype(np.uint64)
+    q = (((n * np.uint64(magic)) >> np.uint64(32)) + n) >> np.uint64(shift)
+    assert dd == d and magic < 1 << 32
+    np.testing.assert_array_equal(q, n // np.uint64(d))
+
+
+def _storage(v):
+    """The float32 storage under a view, from the view's first element."""
+    flat = torch.empty(0, dtype=torch.float32)
+    n = v.untyped_storage().nbytes() // 4 - v.storage_offset()
+    return flat.set_(v.untyped_storage(), v.storage_offset(), (n,), (1,))
+
+
+def _emulate(plan, views, consts, negate):
+    """F1's routes on the CPU: each output element's operands fetched the
+    way the kernel addresses them, then the plain multiply-add."""
+    ops = []
+    if plan["route"] == "flat":
+        i = np.arange(plan["n"])
+        for v, k, mode in zip(views, consts, plan["modes"]):
+            if mode == fma.CONST:
+                ops.append(torch.full((plan["n"],), k))
+            else:
+                idx = np.zeros_like(i) if mode == fma.SCALAR else i
+                ops.append(_storage(v)[idx])
+    else:
+        i = np.arange(plan["total"], dtype=np.uint64)
+
+        def div(dv, n):
+            d, m, sh = (np.uint64(x) for x in dv)
+            return ((n * m >> np.uint64(32)) + n) >> sh
+
+        d1, d2, d3 = plan["divs"]
+        q = div(d3, i)
+        i3 = i - q * np.uint64(d3[0])
+        r = div(d2, q)
+        i2 = q - r * np.uint64(d2[0])
+        i0 = div(d1, r)
+        i1 = r - i0 * np.uint64(d1[0])
+        for v, k, st in zip(views, consts, plan["strides"]):
+            if v is None:
+                ops.append(torch.full((len(i),), k))
+                continue
+            off = sum(c.astype(np.int64) * s
+                      for c, s in zip((i0, i1, i2, i3), st))
+            ops.append(_storage(v)[off])
+    return fma._fma_f32_plain(*ops, negate=negate)
+
+
+def _route_cases():
+    rng = np.random.RandomState(7)
+    buf = torch.from_numpy(rng.randn(4 * 5 * 7 * 9 + 8).astype(np.float32))
+    full = buf[:1260].view(4, 5, 7, 9)
+    off = buf[1:1261].view(4, 5, 7, 9)  # a view 4 bytes past an aligned base
+    B, Wx, Wy, K = 3, 6, 5, 5
+    zidx = torch.from_numpy(rng.randint(-9, 9, (B, Wx, Wy, K)).astype(
+        np.float32))
+    denom = torch.from_numpy(rng.randn(B).astype(np.float32))
+    a = torch.from_numpy(rng.randn(B, Wx, Wy).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(B, 1, Wy).astype(np.float32))
+    ny = torch.from_numpy(rng.randn(B, 1, 1).astype(np.float32))
+    return {
+        # name: (operands, expected route, expected flat modes)
+        "contiguous": ((full, full * 2, full + 1), "flat", (2, 2, 2)),
+        "misaligned": ((off, full, 1.0), "flat", (3, 2, 0)),
+        "scalar_tensor": ((full, torch.tensor(0.37), 30.0), "flat",
+                          (2, 1, 0)),
+        "tail": ((buf[:1263], 1.5, buf[4:1267]), "flat", (2, 0, 2)),
+        "column": ((full[..., :1], full[..., :1] * 3, 0.5), "strided",
+                   None),
+        "xsbatch_plane_t": ((zidx, denom.view(B, 1, 1, 1),
+                             a[..., None]), "strided", None),
+        "xsbatch_window_a": ((gy, ny, a), "strided", None),
+        "transposed": ((full.transpose(1, 3), 2.0, 1.0), "strided", None),
+        "per_lane": ((full, full[:, :1, :1, :1], full[:1]), "strided",
+                     None),
+    }
+
+
+@pytest.mark.parametrize("negate", (False, True))
+@pytest.mark.parametrize("case", sorted(_route_cases()))
+def test_fma_plan_routes(case, negate):
+    """The route F1's wrapper picks for each stride set (flat where every
+    tensor walks the output with stride 1 or is one element, each read as
+    16-byte vectors where its base is aligned; strided otherwise, the
+    cross sections' broadcasts among them), and each route's addressing,
+    emulated on the CPU, gives the plain result."""
+    operands, route, modes = _route_cases()[case]
+    ts = [x for x in operands if isinstance(x, torch.Tensor)]
+    shape = torch.broadcast_shapes(*(x.shape for x in ts))
+    views = [x.broadcast_to(shape) if isinstance(x, torch.Tensor) else None
+             for x in operands]
+    plan = fma.fma_plan(shape, operands)
+    assert plan["route"] == route
+    assert plan == fma.fma_plan(shape, views)
+    if modes is not None:
+        assert plan["modes"] == modes
+    consts = [None if isinstance(x, torch.Tensor) else x for x in operands]
+    got = _emulate(plan, views, consts, negate).reshape(shape)
+    want = fma_f32(*operands, negate=negate)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
 
 
 def _fma_volume():
@@ -223,16 +354,41 @@ class _Capture:
 
         self.mp.setattr(mod, name, wrapper)
 
-    def assert_equal(self, kind, skip_last_voxel=False):
+    def assert_equal(self, kind):
         jax.effects_barrier()
         want, got = self.jax.get(kind, []), self.port.get(kind, [])
         assert got and len(want) >= len(got), (kind, len(want), len(got))
         for w, g in zip(want, got):
-            w, g = w.reshape(g.shape).copy(), g.copy()
-            if skip_last_voxel:
-                w.reshape(-1)[-1] = g.reshape(-1)[-1] = 0
-            np.testing.assert_array_equal(g.view(np.int32),
-                                          w.view(np.int32), err_msg=kind)
+            np.testing.assert_array_equal(
+                g.view(np.int32), w.reshape(g.shape).view(np.int32),
+                err_msg=kind)
+
+    def host_fused_loop(self):
+        """Capture the host trace path's fused loop: the seeds of each
+        invalidation ball (hball), and the rail field and PDRF each rail
+        relaxation starts from (hrail, hnc), where the rail zeros are."""
+        def pick_jax(a, k):
+            if k.get("clamp_positive"):
+                return ("hball", a[0])
+            return ("hrail", a[0])
+
+        def pick_port(a, k):
+            if k.get("clamp_positive"):
+                return ("hball", a[0][0])
+            return ("hrail", a[0][0])
+
+        self.jax_arg(jfused, "_relax_rounds", pick_jax)
+        self.port_arg(ttrace, "relax_rounds_batched", pick_port)
+        self.jax_arg(jfused, "_relax_rounds",
+                     lambda a, k: None if k.get("clamp_positive")
+                     else ("hnc", a[2]))
+        self.port_arg(ttrace, "relax_rounds_batched",
+                      lambda a, k: None if k.get("clamp_positive")
+                      else ("hnc", a[2][0]))
+
+    def assert_host_fused_loop(self):
+        for kind in ("hball", "hrail", "hnc"):
+            self.assert_equal(kind)
 
 
 def _ball_init(a, k):
@@ -245,9 +401,10 @@ def test_fma_volume_pdrf_and_radii_match_jax(monkeypatch, teasar):
     """On that volume, voxel for voxel: the global engine's PDRF and the
     seeds of its invalidation balls (-radius at each path voxel); the
     crop engine's PDRF (its rail relaxation's nodecost) and ball seeds;
-    the host trace path's PDRF and ball seeds. The host path's balls skip
-    the crop's far corner: the JAX package's fused path loop seeds its
-    padding rows there, the port's host loop does not."""
+    the host trace path's PDRF, ball seeds and the rail field and PDRF of
+    each rail relaxation, the crop's far corner included (the JAX
+    package's fused path loop seeds a ball and zeroes the rails there
+    through its path buffer's -1 rows)."""
     vol = _fma_volume()
     cap = _Capture(monkeypatch)
     # global engine
@@ -297,18 +454,58 @@ def test_fma_volume_pdrf_and_radii_match_jax(monkeypatch, teasar):
     lab, d = one[sl], np.where(one[sl] != 0, dbf[sl], 0).astype(np.float32)
     cap.out(jtrace, "_pdrf_kernel", "hpdrf", lambda r: r, True)
     cap.out(ttrace, "_pdrf_kernel", "hpdrf", lambda r: r, False)
-    cap.jax_arg(jfused, "_relax_rounds",
-                lambda a, k: ("hball", a[0]) if k.get("clamp_positive")
-                else None)
-    cap.port_arg(ttrace, "relax_rounds_batched",
-                 lambda a, k: ("hball", a[0][0]) if k.get("clamp_positive")
-                 else None)
+    cap.host_fused_loop()
     ws = jtrace.trace(lab, d, anisotropy=ANIS, **teasar)
     gs = ttrace.trace(lab, d, anisotropy=ANIS, device="cpu", **teasar)
     np.testing.assert_array_equal(np.sort(gs.vertices, 0),
                                   np.sort(ws.vertices, 0))
     cap.assert_equal("hpdrf")
-    cap.assert_equal("hball", skip_last_voxel=True)
+    cap.assert_host_fused_loop()
+
+
+def _far_corner_label():
+    """A label whose far-corner branch is neither the root nor the first
+    target: an S from the root to the foot of a bar up to the top bar,
+    which runs to the crop's far corner (59, 40, 1); a branch down from
+    the top bar's middle and along x ends at the first target. The JAX
+    fused loop's first path already seeds a ball at the corner (its path
+    buffer holds -1 rows) that takes the branch's last voxels, and with
+    fix_branching makes the corner a rail the next path runs to."""
+    lab = np.zeros((60, 41, 2), bool)
+    lab[0:3, 20:41] = True
+    lab[0:60, 38:41] = True
+    lab[0:51, 20:23] = True
+    lab[48:51, 0:23] = True
+    lab[0:51, 0:3] = True
+    lab[30:33, 24:38] = True
+    lab[30:60, 24:27] = True
+    dbf = np.asarray(kimimaro_tpu.ops.edt.edt(
+        jnp.asarray(lab.astype(np.int32)), anisotropy=ANIS,
+        black_border=False))
+    return lab, np.where(lab, dbf, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("fix_branching", (True, False))
+def test_host_fused_loop_far_corner_matches_jax(monkeypatch, fix_branching):
+    """The host trace path on a label whose skeleton the far-corner writes
+    change: the JAX package's skeleton, ball seeds, rail fields and PDRFs
+    voxel for voxel; with those writes left out (each path's own voxels
+    only), the skeleton differs."""
+    lab, dbf = _far_corner_label()
+    kw = dict(TEASAR, anisotropy=ANIS, fix_branching=fix_branching)
+    cap = _Capture(monkeypatch)
+    cap.host_fused_loop()
+    want = jtrace.trace(lab, dbf, **kw)
+    got = ttrace.trace(lab, dbf, device="cpu", **kw)
+    np.testing.assert_array_equal(np.sort(got.vertices, 0),
+                                  np.sort(want.vertices, 0))
+    np.testing.assert_array_equal(np.sort(got.edges, 0),
+                                  np.sort(want.edges, 0))
+    cap.assert_host_fused_loop()
+    monkeypatch.setattr(ttrace, "_buffer_writes",
+                        lambda path, padded, shape: path)
+    alone = ttrace.trace(lab, dbf, device="cpu", **kw)
+    assert len(alone.vertices) != len(want.vertices)
 
 
 def test_section_flood_zb_guard_and_empty_columns():

@@ -552,6 +552,93 @@ def test_fetch_secb_kernel_matches_plain(gen):
     assert bool(got.any())
 
 
+# (tz, W, lanes, volume base offset in int32): the vector path (tz % 4
+# == 0, aligned base) and the scalar path (tz % 4 != 0, or a volume view 4
+# bytes past an aligned base), windows of Wx * Wy % 4 != 0 (4-byte zb and
+# word accesses), W up to 512, and more lanes than a grid's y extent
+B6_CASES = ((64, 32, 9, 0), (66, 64, 7, 0), (128, 128, 5, 0),
+            (23, 13, 6, 0), (512, 17, 4, 0), (36, 512, 2, 0),
+            (37, 512, 2, 0), (64, 64, 5, 1), (16, 3, 70000, 0))
+
+
+@pytest.mark.parametrize("tz,W,B,shift", B6_CASES)
+def test_fetch_secb_paths_match_plain(gen, tz, W, B, shift):
+    """B6's vector and scalar paths against the plain version: window
+    starts anywhere (the volume's faces, odd offsets), zb below 0 and
+    beyond tz, labels absent from the volume."""
+    from kimimaro_tpu_torch.ops import xsfetch
+
+    tx, ty = max(W + 9, 24), max(W + 5, 20)
+    Wx, Wy = W, W - 1 if W > 3 else W
+    raw = torch.randint(0, 4, (tx * ty * tz + shift,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    vol = raw[shift:].view(tx, ty, tz)
+    wx0 = torch.randint(0, tx - Wx + 1, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wy0 = torch.randint(0, ty - Wy + 1, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wx0[0], wy0[0] = 0, ty - Wy
+    labels = torch.randint(0, 4, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[-1] = 9  # absent from the volume
+    zb = torch.randint(-7, tz + 3, (B, Wx, Wy), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    plan = xsfetch.fetch_plan(vol, zb)
+    assert plan["vector"] == (tz % 4 == 0 and shift == 0)
+    before = kernels.LAUNCHES["fetch_secb"]
+    got = xsfetch.fetch_secb(vol, zb, wx0, wy0, labels)
+    assert kernels.LAUNCHES["fetch_secb"] == before + 1
+    want = xsfetch._fetch_secb_plain(vol, zb, wx0, wy0, labels)
+    _assert_bit_equal((got,), (want,))
+    assert bool(got.any())
+
+
+def _fma_cases(gen):
+    """(operands, route): n % 4 != 0, a view 4 bytes past an aligned
+    base, one-element tensors and constants (flat); the cross sections'
+    broadcasts of xsbatch `_finish_section` (t = zidx * denom + a) and
+    `slab_sections_volume` (the window plane), and a transposed operand
+    (strided)."""
+    n = (1 << 20) + 3
+    buf = _rand(gen, (n + 8,)) * 200 - 100
+    B, Wx, Wy, K = 37, 64, 63, 5
+    return (
+        ((buf[:n], buf[4:n + 4], buf[2:n + 2]), "flat"),
+        ((buf[1:n + 1], _rand(gen, (n,)), 1.0), "flat"),
+        ((buf[:n], torch.tensor(0.37, device="cuda"), 30.0), "flat"),
+        ((buf[:4099], 10.0, 10.0), "flat"),
+        (((torch.randint(-40, 40, (B, Wx, Wy, K), generator=gen,
+                         device="cuda")).float(),
+          _rand(gen, (B, 1, 1, 1)) * 40, _rand(gen, (B, Wx, Wy, 1)) * 900),
+         "strided"),
+        ((_rand(gen, (B, 1, Wy)) * 900, _rand(gen, (B, 1, 1)),
+          _rand(gen, (B, Wx, Wy)) * 900), "strided"),
+        ((_rand(gen, (33, 65, 7)).transpose(0, 2), 1.5,
+          _rand(gen, (7, 65, 1))), "strided"),
+    )
+
+
+@pytest.mark.parametrize("negate", (False, True))
+def test_fma_f32_routes_match_plain(gen, negate):
+    """F1's flat and strided routes, with and without `negate`, each
+    bit-equal to the plain version (float64, round-to-odd)."""
+    from kimimaro_tpu_torch.ops import fma
+
+    for operands, route in _fma_cases(gen):
+        ts = [x for x in operands if isinstance(x, torch.Tensor)]
+        shape = torch.broadcast_shapes(*(x.shape for x in ts))
+        views = [x.broadcast_to(shape) if isinstance(x, torch.Tensor)
+                 else None for x in operands]
+        assert fma.fma_plan(shape, views)["route"] == route
+        before = kernels.LAUNCHES["fma_f32"]
+        got = fma.fma_f32(*operands, negate=negate)
+        assert kernels.LAUNCHES["fma_f32"] == before + 1
+        plain = [t if isinstance(t, torch.Tensor) else torch.tensor(
+            t, dtype=torch.float32, device="cuda") for t in operands]
+        _assert_bit_equal((got,), (fma._fma_f32_plain(*plain,
+                                                       negate=negate),))
+
+
 def test_cross_sectional_area_cuda_matches_cpu(gen):
     """Cross sections on the card equal the same calls on the CPU: the
     batched path, and the per-label path (fill_holes) with its dense rung

@@ -177,6 +177,87 @@ def test_fetch_plain_matches_xsfetch_kernel(monkeypatch):
     assert got.any()
 
 
+def _fetch_windows(tz, seed=0):
+    """A (24, 40, tz) label volume in 2-voxel blocks, and windows that
+    start anywhere (volume faces included) with zb from below 0 to beyond
+    tz."""
+    rng = np.random.RandomState(seed)
+    tx, ty = 24, 40
+    vol = np.kron(rng.randint(0, 5, size=(tx // 2, ty // 2, tz // 2 + 1)),
+                  np.ones((2, 2, 2), np.int32))[:, :, :tz].astype(np.int32)
+    B, Wx, Wy = 5, 9, 13
+    wx0 = np.array([0, tx - Wx, 3, 7, 15], np.int32)
+    wy0 = np.array([ty - Wy, 0, 11, 5, 27], np.int32)
+    labels = rng.randint(0, 6, size=B).astype(np.int32)
+    zb = rng.randint(-8, tz + 4, size=(B, Wx, Wy)).astype(np.int32)
+    return vol, zb, wx0, wy0, labels
+
+
+def _fetch_vector_path(vol, zb, wx0, wy0, labels):
+    """Kernel B6's vector path emulated in numpy: per cell, the aligned
+    8-word span base .. base + 7 (base = zb & ~3) in two halves, each
+    read only where it lies inside [0, tz), its match bits shifted by
+    zb & 3."""
+    tz = vol.shape[2]
+    B, Wx, Wy = zb.shape
+    gx = wx0[:, None, None] + np.arange(Wx)[None, :, None]
+    gy = wy0[:, None, None] + np.arange(Wy)[None, None, :]
+    base = zb & ~3
+    span = np.zeros(zb.shape, np.int64)
+    for half in (0, 1):
+        start = base + 4 * half
+        inside = (start >= 0) & (start < tz)
+        z = np.clip(start, 0, tz - 4)[..., None] + np.arange(4)
+        vals = vol[gx[..., None], gy[..., None], z]
+        bits = ((vals == labels[:, None, None, None]) << np.arange(4)).sum(-1)
+        span |= np.where(inside, bits, 0) << (4 * half)
+    return ((span >> (zb & 3)) & 31).astype(np.int32)
+
+
+@pytest.mark.parametrize("tz", (160, 161, 162, 163))
+def test_fetch_plain_on_any_depth(tz):
+    """The plain B6 on volumes of every tz % 4 (kernel B6 reads two
+    16-byte loads a cell only where tz % 4 == 0 and the base is aligned,
+    and K 4-byte loads elsewhere): equal to the JAX package's element
+    gather with its z-validity mask (`slab_sections_volume`), and where
+    the vector path applies, to that path emulated; `fetch_plan` picks
+    the vector path there and not on a view at a 4-byte offset."""
+    vol, zb, wx0, wy0, labels = _fetch_windows(tz)
+    tx, ty, _ = vol.shape
+    B, Wx, Wy = zb.shape
+
+    def gather(vol_flat, zb, wx0, wy0, labels):
+        gx = wx0[:, None, None] + jnp.arange(Wx)[None, :, None]
+        gy = wy0[:, None, None] + jnp.arange(Wy)[None, None, :]
+        zidx = zb[..., None] + jnp.arange(K, dtype=jnp.int32)
+        zvalid = (zidx >= 0) & (zidx < tz)
+        flat = (gx[..., None] * (ty * tz) + gy[..., None] * tz
+                + jnp.clip(zidx, 0, tz - 1))
+        fg = (jnp.take(vol_flat, flat) == labels[:, None, None, None]) \
+            & zvalid
+        return jnp.sum(fg.astype(jnp.int32) << jnp.arange(K), axis=-1)
+
+    want = np.asarray(jax.jit(gather)(
+        jnp.asarray(vol.reshape(-1)), jnp.asarray(zb), jnp.asarray(wx0),
+        jnp.asarray(wy0), jnp.asarray(labels)))
+    tvol = torch.from_numpy(vol)
+    got = txsfetch.fetch_secb(tvol, torch.from_numpy(zb),
+                              torch.from_numpy(wx0), torch.from_numpy(wy0),
+                              torch.from_numpy(labels)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.any() and (zb < 0).any() and (zb + K > tz).any()
+    plan = txsfetch.fetch_plan(tvol, torch.from_numpy(zb))
+    assert plan["vector"] == (tz % 4 == 0 and tvol.data_ptr() % 16 == 0)
+    if tz % 4 == 0:
+        np.testing.assert_array_equal(
+            _fetch_vector_path(vol, zb, wx0, wy0, labels), want)
+    buf = torch.zeros(vol.size + 1, dtype=torch.int32)
+    shifted = buf[1:].view(vol.shape)
+    shifted.copy_(tvol)
+    assert shifted.data_ptr() % 16 != 0
+    assert not txsfetch.fetch_plan(shifted, torch.from_numpy(zb))["vector"]
+
+
 def _multi_label_volume():
     """Three disjoint tubes of different orientation and a small blob."""
     labels = np.zeros((48, 40, 36), dtype=np.uint32)
