@@ -51,12 +51,28 @@ Phases (any failure exits non-zero):
      calls with the volume cut to tz - 1 and tz - 2, and a kernel-table
      row for B6 and X1 at each rung width; then F1 bit-equal to its plain
      version on the calls phases 4 to 6 and 8 handed it (`F1Spy`), timed
-     beside torch.addcmul, with a kernel-table row for each route.
+     beside torch.addcmul, with a kernel-table row for each route;
+  9. the host-stage path: the soma volume through skeletonize with
+     fill_holes and fix_avocados (bench.py's fill stage), run twice, with
+     phase times and counters; its filled volume equal to a serial
+     oracle (scipy's binary_fill_holes per label in label order), the
+     avocado output's invariants, a skeleton for every label above the
+     dust threshold; a 64^3 hollow volume with a hole and an avocado on
+     the card and on the CPU, equal skeletons; B4, B5 and F1 recorded
+     on these runs (bit-equal to their plain versions with phases 4-8's
+     calls, a kernel-table row for each new B4 shape); postprocess and
+     join_close_components on the dense run's skeletons by the native
+     and the python route (equal SWC, host seconds); the dense volume
+     streamed from a CompressedLabelVolume (equal skeletons; upload
+     seconds and peak host RSS beside the plain array's); and
+     skeletonize_chunked of it in 2 x 2 x 2 chunks of 256 (the
+     whole-volume run's labels save those that are dust in every chunk;
+     wall and merge seconds).
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. Launch counts are reset just before each main-path run of
-phases 4 to 6 and 8 and read just after it; the table's launches are
+phases 4 to 6, 8 and 9 and read just after it; the table's launches are
 their sum, so neither the kernel comparisons nor the cross-checks count.
 
     python3 chip_smoke.py --profile
@@ -712,11 +728,13 @@ def check_b4(shapes, gen):
 class B4Spy:
     """While installed, counts the B4 calls per lane shape and keeps the
     arguments of the first call of every (shape, mode, clamp, direction),
-    up to `keep` of them."""
+    up to `keep` of them; with `per_shape`, of the first call of every
+    shape only."""
 
-    def __init__(self, tag, keep=256):
+    def __init__(self, tag, keep=256, per_shape=False):
         self.tag = tag
         self.keep = keep
+        self.per_shape = per_shape
         self.kept = {}
         self.calls = {}
 
@@ -732,7 +750,9 @@ class B4Spy:
                 self.calls[shape] = self.calls.get(shape, 0) + 1
                 key = (shape, bool(node_mode), bool(clamp_positive),
                        bool(descending))
-                if key not in self.kept and len(self.kept) < self.keep:
+                first = not self.per_shape or self.calls[shape] == 1
+                if first and key not in self.kept and \
+                        len(self.kept) < self.keep:
                     self.kept[key] = (d.clone(), ok.clone(),
                                       None if nc is None else nc.clone(),
                                       tuple(anis))
@@ -782,12 +802,14 @@ def check_b4_recorded(spy):
         plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
                                               node)
         out[shape] = (ms, plain, bms, by, err)
-        log(f"[kernels] B4 {spy.tag} {shape} ({spy.calls.get(shape, 0)} "
-            f"calls, form {plan['form']}, {plan['ctas']} CTAs a lane of "
-            f"{plan['rows']} rows): {'node' if node else 'euclid'} sweep "
-            f"{ms:.4f} ms vs plain {plain:.3f} ms, bound {bms:.4f} ms ({by})")
+        if not spy.per_shape:  # a per-shape record is summed up below
+            log(f"[kernels] B4 {spy.tag} {shape} ({spy.calls.get(shape, 0)}"
+                f" calls, form {plan['form']}, {plan['ctas']} CTAs a lane "
+                f"of {plan['rows']} rows): {'node' if node else 'euclid'} "
+                f"sweep {ms:.4f} ms vs plain {plain:.3f} ms, bound "
+                f"{bms:.4f} ms ({by})")
     log(f"[kernels] B4 bit-equal on the {len(spy.kept)} recorded {spy.tag} "
-        f"calls (distinct shape, mode, clamp, direction), twice")
+        f"calls (distinct {'shape' if spy.per_shape else 'shape, mode, clamp, direction'}), twice")
     return out
 
 
@@ -1955,6 +1977,379 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen, f1_spy):
     return launches, rep, err, b4_label
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the host-stage path (fill_holes, fix_avocados), postprocess,
+# streaming and the chunked protocol
+
+
+class HostStageSpy:
+    """While installed, keeps the input and output of `fill_all_holes`
+    and of `engage_avocado_protection` (with both remappings) of the last
+    skeletonize run. Neither function writes its input."""
+
+    def __init__(self):
+        self.fill = None
+        self.avocado = None
+
+    def install(self):
+        from kimimaro_tpu_torch import intake
+
+        fill_inner = intake.fill_all_holes
+        avo_inner = intake.engage_avocado_protection
+
+        def fill_spy(cc_labels, *a, **kw):
+            out = fill_inner(cc_labels, *a, **kw)
+            self.fill = (cc_labels, out)
+            return out
+
+        def avo_spy(cc_labels, all_dbf, remapping, *a, **kw):
+            out = avo_inner(cc_labels, all_dbf, remapping, *a, **kw)
+            self.avocado = (cc_labels, dict(remapping), out[0], out[2])
+            return out
+
+        intake.fill_all_holes = fill_spy
+        intake.engage_avocado_protection = avo_spy
+
+        def restore():
+            intake.fill_all_holes = fill_inner
+            intake.engage_avocado_protection = avo_inner
+
+        return restore
+
+
+def serial_fill(cc_labels):
+    """kimimaro's serial per-label hole filling (tests/test_ops_fill.py's
+    oracle): scipy's binary_fill_holes of each label's box, in label
+    order, a label absorbed by an earlier fill skipped. Returns (labels,
+    voxels filled)."""
+    import scipy.ndimage
+
+    cc_labels = np.copy(cc_labels)
+    labels = np.flatnonzero(np.bincount(cc_labels.ravel()))
+    labels_set = set(int(u) for u in labels if u != 0)
+    all_slices = scipy.ndimage.find_objects(cc_labels)
+    filled_px = 0
+    for label in labels:
+        label = int(label)
+        if label not in labels_set or all_slices[label - 1] is None:
+            continue
+        slices = all_slices[label - 1]
+        binimg = cc_labels[slices] == label
+        filled = scipy.ndimage.binary_fill_holes(binimg)
+        n = int(filled.sum() - binimg.sum())
+        filled_px += n
+        if n == 0:
+            continue
+        sub = set(int(u) for u in np.unique(cc_labels[slices][filled]))
+        sub.discard(label)
+        labels_set -= sub
+        cc_labels[slices] = np.where(filled, label, cc_labels[slices])
+    return cc_labels, filled_px
+
+
+def check_avocado(cc_in, remap_in, cc_out, remap_out):
+    """The avocado output's invariants: every input label lies in one
+    output label (each output label is a union of input labels, plus the
+    background it filled), the output ids are contiguous, and the
+    remapping covers every output id with an original label of the
+    input. Returns (input labels, output labels)."""
+    import torch
+
+    a = torch.from_numpy(cc_in.astype(np.int64)).cuda().reshape(-1)
+    b = torch.from_numpy(cc_out.astype(np.int64)).cuda().reshape(-1)
+    nz = a != 0
+    n_in = int(a.max()) + 1
+    lo = torch.full((n_in,), 2**62, dtype=torch.int64, device="cuda")
+    hi = torch.full((n_in,), -1, dtype=torch.int64, device="cuda")
+    lo.scatter_reduce_(0, a[nz], b[nz], "amin")
+    hi.scatter_reduce_(0, a[nz], b[nz], "amax")
+    present = hi >= 0
+    if bool((lo[present] != hi[present]).any()):
+        raise AssertionError("avocado: an input label was split")
+    if bool((lo[present] == 0).any()):
+        raise AssertionError("avocado: an input label became background")
+    ids_out = set(np.flatnonzero(np.bincount(cc_out.ravel())).tolist())
+    ids_out.discard(0)
+    if ids_out != set(range(1, len(ids_out) + 1)):
+        raise AssertionError("avocado: output ids are not contiguous")
+    if set(remap_out) != ids_out:
+        raise AssertionError(f"avocado: the remapping covers "
+                             f"{len(set(remap_out) & ids_out)} of "
+                             f"{len(ids_out)} ids")
+    if not set(remap_out.values()) <= set(remap_in.values()):
+        raise AssertionError("avocado: remapping values not from its input")
+    return int(present[1:].sum()), len(ids_out)
+
+
+def fill_main_path(vol):
+    """The fill path at full size: skeletonize(fill_holes=True,
+    fix_avocados=True) of the hollow volume twice, then its filled volume
+    against the serial oracle, the avocado invariants, and a skeleton for
+    every label above the dust threshold. Returns the launches summed
+    over both runs."""
+    spy = HostStageSpy()
+    restore = spy.install()
+    try:
+        skels, counters, launches, _ = run_main_path(
+            "fill", vol, ("gsweep_sweep0", "sweep_axis0_batched", "fma_f32"),
+            fill_holes=True, fix_avocados=True)
+    finally:
+        restore()
+    if counters.get("gengine_iterations", 0):
+        raise AssertionError("fill path: the global engine traced labels")
+    t0 = time.perf_counter()
+    cc_in, cc_out = spy.fill
+    want, n_want = serial_fill(cc_in)
+    if not np.array_equal(cc_out, want):
+        raise AssertionError(f"fill path: the filled volume differs from "
+                             f"the serial oracle on "
+                             f"{int((cc_out != want).sum())} voxels")
+    if counters.get("fill_voxels") != n_want or n_want == 0:
+        raise AssertionError(f"fill path: {counters.get('fill_voxels')} "
+                             f"voxels filled, the oracle {n_want}")
+    log(f"[fill] the filled volume equals the serial oracle (scipy's "
+        f"binary_fill_holes per label in label order; {n_want} voxels of "
+        f"{counters.get('fill_labels')} labels; {time.perf_counter() - t0:.1f}"
+        f" s)")
+    a_in, r_in, a_out, r_out = spy.avocado
+    n_in, n_out = check_avocado(a_in, r_in, a_out, r_out)
+    log(f"[fill] avocado output: {n_in} labels in, {n_out} out "
+        f"(contiguous), each a union of input labels, the remapping "
+        f"covers every id")
+    counts = np.bincount(a_out.ravel())
+    jobs = [i for i in np.flatnonzero(counts > 1000) if i != 0]
+    missing = sorted({r_out[int(i)] for i in jobs} - set(skels))
+    if missing:
+        raise AssertionError(f"fill path: labels {missing[:10]} above the "
+                             f"dust threshold have no skeleton")
+    big = {int(k) for k in np.flatnonzero(np.bincount(vol.ravel()) > 1000)
+           if k != 0}
+    gone = big - set(skels)
+    log(f"[fill] every one of the {len(jobs)} labels above the dust "
+        f"threshold after the host stages has a skeleton; of the {len(big)} "
+        f"input labels above it, {len(gone)} have none (absorbed by the "
+        f"host stages or split into dust: {sorted(gone)[:20]})")
+    return launches
+
+
+def small_fill_volume():
+    """A 64^3 hollow volume (bench.py's generator at 64^3) with a block
+    cut by the x = 0 face holding a pit on that face (an avocado), and a
+    hollow box (a hole)."""
+    vol = hollow_volume(dense_volume(64))
+    vol[0:40, 4:60, 10:54] = vol.max() + 1
+    vol[0:5, 8:16, 14:22] = vol.max() + 1
+    vol[46:62, 40:62, 2:12] = vol.max() + 1
+    vol[49:59, 44:58, 4:9] = 0
+    return vol
+
+
+def small_fill_path():
+    """The fill path at 64^3 on the card and on the CPU: equal
+    skeletons; at least one hole filled and one label absorbed by the
+    avocado passes. Returns the card run's launches."""
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    vol = small_fill_volume()
+    out, launches = {}, None
+    for device in ("cuda", "cpu"):
+        profiling.reset_stats()
+        profiling.collect(True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[device] = kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, fill_holes=True,
+            fix_avocados=True, device=device)
+        profiling.collect(False)
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
+        counters = profiling.get_stats()["counters"]
+        log(f"[small-fill] device={device}: {len(out[device])} skeletons in "
+            f"{time.perf_counter() - t0:.2f} s, counters {counters}")
+        if counters.get("fill_voxels", 0) < 1 or \
+                counters.get("avocado_absorbed", 0) < 1:
+            raise AssertionError("small fill volume: no hole filled or no "
+                                 "avocado absorbed")
+    log(f"[small-fill] launches: {json.dumps(launches)}")
+    assert_same_skeletons(out["cpu"], out["cuda"], "small fill cuda vs cpu")
+    log("[small-fill] CUDA skeletons equal CPU skeletons (vertices, edges, "
+        "radii)")
+    return launches
+
+
+def postprocess_phase(skels):
+    """postprocess and join_close_components on the dense run's
+    skeletons, by the native and the pure-python routes: equal SWC
+    text; the host seconds of each are logged."""
+    from kimimaro_tpu_torch import join_close_components, native, postprocess
+
+    if not native.available():
+        raise AssertionError("the native host library did not build")
+    out = {}
+    load = native._load
+    for route in ("native", "python"):
+        if route == "python":  # the loader finds no library
+            native._load = lambda: None
+        try:
+            t0 = time.perf_counter()
+            pp = {k: postprocess(s.clone(), dust_threshold=1000,
+                                 tick_threshold=3500)
+                  for k, s in skels.items()}
+            t1 = time.perf_counter()
+            jc = {k: join_close_components(s.clone(), radius=1500)
+                  for k, s in skels.items()}
+            t2 = time.perf_counter()
+        finally:
+            native._load = load
+        out[route] = ({k: s.to_swc() for k, s in pp.items()},
+                      {k: s.to_swc() for k, s in jc.items()})
+        log(f"[post] {route} route on {len(skels)} skeletons: postprocess "
+            f"{t1 - t0:.3f} s, join_close_components {t2 - t1:.3f} s")
+    for i, what in enumerate(("postprocess", "join_close_components")):
+        bad = [k for k in out["native"][i]
+               if out["native"][i][k] != out["python"][i][k]]
+        if bad:
+            raise AssertionError(f"{what}: SWC differs between the routes "
+                                 f"on labels {bad[:10]}")
+    log("[post] native and python routes give equal SWC text")
+
+
+class RssPeak:
+    """Peak resident set size of this process above its size at start,
+    sampled every 5 ms on a thread while in the block."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def mib(self):
+        return (self.peak - self.base) / 2**20
+
+
+def streaming_phase(dense, dense_skels):
+    """A CompressedLabelVolume of the dense volume through skeletonize:
+    skeletons equal the plain array's; the upload phase and the peak host
+    RSS above the start of each run. Returns the launches of the
+    streaming run."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    cv = kimimaro_tpu_torch.CompressedLabelVolume(dense, slab=16)
+    log(f"[stream] compressed {dense.nbytes / 2**20:.0f} MiB to "
+        f"{cv.nbytes_compressed / 2**20:.1f} MiB in "
+        f"{time.perf_counter() - t0:.1f} s (set-up, not timed)")
+    got, launches = {}, None
+    for tag, vol in (("plain", dense), ("stream", cv)):
+        profiling.reset_stats()
+        profiling.collect(True)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            got[tag] = kimimaro_tpu_torch.skeletonize(
+                vol, teasar_params=TEASAR, anisotropy=ANIS,
+                dust_threshold=1000, fix_borders=True, fix_branching=True,
+                device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        profiling.collect(False)
+        if tag == "stream":
+            launches = dict(kernels.LAUNCHES)
+        up = profiling.get_stats()["phases"]["upload"]
+        log(f"[stream] {tag}: {secs:.2f} s, upload {up:.4f} s, host RSS "
+            f"{rss.base / 2**20:.0f} MiB at the start, peak "
+            f"{rss.peak / 2**20:.0f} MiB ({rss.mib:.0f} MiB above)")
+    assert_same_skeletons(got["plain"], got["stream"], "stream vs plain")
+    assert_same_skeletons(dense_skels, got["stream"], "stream vs dense run")
+    log(f"[stream] streamed skeletons equal the plain array's "
+        f"({len(got['stream'])})")
+    return launches
+
+
+def chunked_phase(dense, dense_skels):
+    """skeletonize_chunked of the dense volume in 2 x 2 x 2 chunks of 256
+    (one-voxel overlap): the label set of the whole-volume run, save
+    labels whose every piece in every chunk is dust. Returns the launches
+    summed over its chunks."""
+    import scipy.ndimage
+    import torch
+
+    from kimimaro_tpu_torch import chunked, kernels
+
+    merge_inner = chunked.merge_chunk_skeletons
+    merge_s = []
+
+    def merge_spy(*a, **kw):
+        t0 = time.perf_counter()
+        out = merge_inner(*a, **kw)
+        merge_s.append(time.perf_counter() - t0)
+        return out
+
+    chunked.merge_chunk_skeletons = merge_spy
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        got = chunked.skeletonize_chunked(
+            dense, chunk_size=(256, 256, 256), teasar_params=TEASAR,
+            anisotropy=ANIS, dust_threshold=1000, fix_borders=True,
+            fix_branching=True, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        chunked.merge_chunk_skeletons = merge_inner
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    extra = set(got) - set(dense_skels)
+    if extra:
+        raise AssertionError(f"chunked: labels {sorted(extra)[:10]} not in "
+                             f"the whole-volume run")
+    dust_only = 0
+    bounds = chunked.chunk_bounds(dense.shape, (256, 256, 256))
+    for k in set(dense_skels) - set(got):
+        for lo, hi in bounds:
+            piece = dense[tuple(slice(a, b) for a, b in zip(lo, hi))] == k
+            if piece.sum() <= 1000:
+                continue
+            comp, _ = scipy.ndimage.label(piece, structure=np.ones((3, 3, 3)))
+            if np.bincount(comp.ravel())[1:].max() > 1000:
+                raise AssertionError(f"chunked: label {k} has a component "
+                                     f"above the dust threshold in chunk "
+                                     f"{lo} but no skeleton")
+        dust_only += 1
+    log(f"[chunked] {len(bounds)} chunks of 256 (one-voxel overlap): "
+        f"{secs:.2f} s wall, merge {sum(merge_s):.3f} s; {len(got)} labels, "
+        f"the whole-volume run's {len(dense_skels)}; {dust_only} labels are "
+        f"dust in every chunk")
+    return launches
+
+
 def profile_dense(top=25):
     """`--profile`: one warm dense 512^3 run under torch.profiler. Prints
     the card's busy share (device time of all kernels and copies over the
@@ -2414,19 +2809,50 @@ def main() -> int:
     f1_xs = F1Spy("cross sections")
     xs_launches, xs_rep, xs_err, b4_label = cross_sections(
         dense, dense_skels, hollow, soma_skels, gen, f1_xs)
-    # F1 on the calls of phases 4 to 6 and 8
-    f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs))
-    del f1_main, f1_xs
+    # 9. the host-stage path at full size and at 64^3 against the CPU,
+    # with B4, B5 and F1 recorded; postprocess, streaming and chunked
+    b4_fill = B4Spy("fill path", keep=4096, per_shape=True)
+    b5_fill, f1_fill = B5Spy(), F1Spy("fill")
+    restores = [b4_fill.install(), b5_fill.install(), f1_fill.install()]
+    try:
+        fill_launches = fill_main_path(hollow)
+        small_fill_launches = small_fill_path()
+    finally:
+        for restore in reversed(restores):
+            restore()
+    postprocess_phase(dense_skels)
+    stream_launches = streaming_phase(dense, dense_skels)
+    chunk_launches = chunked_phase(dense, dense_skels)
+    if b5_fill.kept:
+        b5_err = max(b5_err, check_b5_recorded(b5_fill))
+    del b5_fill
+
+    # F1 on the calls of phases 4 to 6, 8 and 9
+    f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs, f1_fill))
+    del f1_main, f1_xs, f1_fill
     # B4 on the calls of phases 4 and 5 (the crop engine, the host trace
     # path's fused loop), the per-label path and the crop cross-check;
     # the main-path calls of each shape
     b4_rows = {}
     for spy, calls in ((b4_spy, b4_main_calls), (b4_label, b4_label.calls),
-                       (b4_crop, {})):
-        for shape, v in check_b4_recorded(spy).items():
+                       (b4_crop, {}), (b4_fill, b4_fill.calls)):
+        checked = check_b4_recorded(spy)
+        if spy is b4_fill:
+            # every shape of the fill path checked; the table's rows: its
+            # eight shapes of the most swept voxels
+            ms = [v[0] for v in checked.values()]
+            log(f"[kernels] B4 fill path: {len(checked)} shapes, "
+                f"{sum(calls.values())} calls, {min(ms):.4f}-{max(ms):.4f} "
+                f"ms a sweep, "
+                f"{sum(calls[k] * v[0] for k, v in checked.items()):.1f} ms "
+                f"at those times over the calls")
+            top = sorted(checked, key=lambda k: calls[k] * int(np.prod(k)))
+            checked = {k: checked[k] for k in top[-8:]}
+        for shape, v in checked.items():
             b4_rows.setdefault(shape, [0, v])
             b4_rows[shape][0] += calls.get(shape, 0)
-    for part in (dense_launches, soma_launches, xs_launches):
+    for part in (dense_launches, soma_launches, xs_launches, fill_launches,
+                 small_fill_launches, stream_launches, chunk_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from .ops.chase import RELAX_ROUNDS, chase_batched
 from .ops.fma import fma_f32
-from .ops.geodesic import relax_rounds_batched
+from .ops.geodesic import _flood6_stage, relax_rounds_batched
 from .skeleton import Skeleton
 from .trace import _pdrf_kernel, root_distance
 from .utils import profiling
@@ -150,42 +150,15 @@ def _crop_fill(fg, rounds: int):
     """Border-seeded 6-connected background flood of each lane's crop ->
     (filled foreground, converged). Counterpart of the JAX engine's
     `_crop_fill`, which floods by distance sweeps and reads only
-    reachability: here each directed sweep is a segmented scan of
-    reachability along the axis (a voxel is reached when a reached voxel
-    precedes it in its run of background; plane 0 passes through), with
-    the same rounds and the same stall flag. A round that reaches nothing
-    new is a fixpoint, so the loop stops there."""
+    reachability: the same rounds and the same stall flag
+    (ops.geodesic._flood6_stage)."""
     bg = ~fg
-    reached = torch.zeros_like(fg)
+    border = torch.zeros_like(fg)
     for axis in (1, 2, 3):
-        reached.narrow(axis, 0, 1).fill_(True)
-        reached.narrow(axis, fg.shape[axis] - 1, 1).fill_(True)
-    reached &= bg
-
-    def scan(r, axis, descending):
-        n = r.shape[axis]
-        if descending:
-            r, ok = r.flip(axis), bg.flip(axis)
-        else:
-            ok = bg
-        pos = torch.arange(n, dtype=torch.int32, device=r.device).view(
-            [n if a == axis else 1 for a in range(4)])
-        last_r = torch.where(r, pos, -1).cummax(axis).values
-        last_wall = torch.where(ok, -1, pos).cummax(axis).values
-        out = last_r > last_wall
-        return out.flip(axis) if descending else out
-
-    changed = torch.ones(fg.shape[0], dtype=torch.bool, device=fg.device)
-    for _ in range(int(rounds) + 1):
-        nr = reached
-        for axis in (1, 2, 3):
-            for descending in (False, True):
-                nr = scan(nr, axis, descending)
-        changed = (nr != reached).flatten(1).any(dim=1)
-        reached = nr
-        if not bool(changed.any()):
-            break
-    return fg | (bg & ~reached), ~changed
+        border.narrow(axis, 0, 1).fill_(True)
+        border.narrow(axis, fg.shape[axis] - 1, 1).fill_(True)
+    reached, conv = _flood6_stage(bg, border, rounds)
+    return fg | (bg & ~reached), conv
 
 
 def _pad_last(t, band, fill):

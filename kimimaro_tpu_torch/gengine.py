@@ -358,13 +358,14 @@ def trace_global(
     teasar_params: dict,
     anisotropy: Sequence[float],
     fix_branching: bool,
-    firstvox_arr: np.ndarray,
+    firstvox_arr: Optional[np.ndarray] = None,
 ) -> Tuple[Dict[int, List[Tuple[np.ndarray, np.ndarray]]], List[dict]]:
     """Run eligible labels through the global engine.
 
     cc_dev: compact int32 component ids; dbf_dev: float32 DBF, both on the
     working device; firstvox_arr: (n_ids, 3) each component's
-    lexicographically first voxel. Returns ({segid: [(verts, radii),
+    lexicographically first voxel, or None to find them here
+    (`_first_voxels`). Returns ({segid: [(verts, radii),
     ...]}, leftover_jobs): path vertices in the job's bbox frame,
     rail-first. Leftover jobs (ineligible or tainted labels) are for the
     caller to trace otherwise.
@@ -483,7 +484,14 @@ def trace_global(
 
     # first foreground voxel per label (lexicographic min = the crop
     # engine's argmax(fg.ravel()) in any containing crop)
-    firstvox = np.where(live[:, None], firstvox_arr[lids], 0).astype(np.int64)
+    if firstvox_arr is None:
+        flat_first = _first_voxels(cc_dev, int(np.max(lids)) + 1).cpu()
+        firstvox = np.stack(np.unravel_index(
+            np.minimum(flat_first.numpy()[lids], int(np.prod(vol_shape)) - 1),
+            vol_shape), axis=-1)
+    else:
+        firstvox = firstvox_arr[lids]
+    firstvox = np.where(live[:, None], firstvox, 0).astype(np.int64)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
@@ -655,3 +663,15 @@ def trace_global(
     profiling.count("gengine_taint_capacity", int(t_capacity.sum()))
     profiling.count("gengine_taint_structural", int(t_struct.sum()))
     return results, leftover
+
+
+def _first_voxels(cc_dev: torch.Tensor, n_ids: int) -> torch.Tensor:
+    """Per-label minimum flat index (the lexicographically first voxel) of
+    ids 0..n_ids-1, by a scatter-min of the flat indices; ids absent from
+    the volume get the voxel count (kimimaro_tpu.gengine._first_voxels)."""
+    flat = cc_dev.reshape(-1).long()
+    n = flat.numel()
+    out = torch.full((n_ids,), n, dtype=torch.int64, device=cc_dev.device)
+    keep = flat < n_ids
+    return out.scatter_reduce_(
+        0, flat[keep], torch.arange(n, device=cc_dev.device)[keep], "amin")

@@ -9,8 +9,17 @@ the batched crop engine (engine.trace_batched); and only the labels the
 crop engine cannot hold are traced one by one by the host trace path
 (trace.trace).
 
-Stages: upload, ccl, edt, label_info, border_targets, gengine,
-crop_engine, finalize, host_fallback, merge.
+With `fill_holes` or `fix_avocados` the host stages of
+kimimaro_tpu.intake run between CCL and the engines: hole filling
+(hole masks batched by crop tier on the device, ops.fill), avocado
+protection (host passes over the labels, EDT on the device), then counts
+and boxes on the host. Every label is then soma-possible (no DBF max), so
+the global engine takes none and the crop engine takes all. A
+CompressedLabelVolume streams slab by slab into one device volume.
+
+Stages: upload, ccl, edt, label_info (or fill_holes, avocado_pass_{i},
+avocado_edt), border_targets, gengine, crop_engine, finalize,
+host_fallback, merge.
 """
 
 from __future__ import annotations
@@ -23,10 +32,14 @@ import torch
 
 from . import engine, gengine
 from . import trace as trace_mod
+from .carray import CompressedLabelVolume
 from .ops import edt as edt_ops
+from .ops import fill as fill_ops
 from .ops.ccl import compact_cc, connected_components, label_info
 from .skeleton import Skeleton
+from .utility import find_objects
 from .utils import profiling
+from .utils.bbox import Bbox
 from .utils.profiling import phase
 
 
@@ -56,18 +69,100 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _upload(labels: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host -> device copy of the labels as int32 (unsigned 32-bit values
-    bitcast, which keeps equality and != 0), pinned for a CUDA target."""
+def _as_int32(labels: np.ndarray) -> np.ndarray:
+    """The labels as the device holds them: int32, with unsigned 32-bit
+    values bitcast (which keeps equality and != 0)."""
     if labels.dtype.kind == "u" or labels.dtype == bool:
-        arr = np.ascontiguousarray(labels.astype(np.uint32, copy=False))
-        arr = arr.view(np.int32)
-    else:
-        arr = np.ascontiguousarray(labels.astype(np.int32, copy=False))
-    t = torch.from_numpy(arr)
+        return np.ascontiguousarray(
+            labels.astype(np.uint32, copy=False)).view(np.int32)
+    return np.ascontiguousarray(labels.astype(np.int32, copy=False))
+
+
+def _upload(labels: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host -> device copy of the labels as int32 (`_as_int32`), pinned
+    for a CUDA target."""
+    t = torch.from_numpy(_as_int32(labels))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _plan_streaming(clv: CompressedLabelVolume, object_ids):
+    """Slab-streaming upload plan for a CompressedLabelVolume
+    (kimimaro_tpu.intake._plan_streaming): one pass over the slabs for
+    min/max (and the unique set of labels wider than 32 bits), then an
+    upload function that allocates the device volume once and copies each
+    decompressed slab into its z range through a pinned buffer, so host
+    RAM stays at slab scale and the device holds the volume once. Slabs
+    travel as uint16 when every label fits; the device volume is int32,
+    equal to `_upload` of the whole array.
+
+    Returns (minlabel, maxlabel, wide_back, upload(device))."""
+    if not (clv.dtype == bool or np.issubdtype(clv.dtype, np.integer)):
+        raise TypeError(
+            f"Input labels must be an integer data type. Got: {clv.dtype}")
+    obj = None
+    if object_ids is not None:
+        obj = np.asarray(list(object_ids), dtype=clv.dtype)
+
+    minlabel, maxlabel = None, None
+    wide = clv.dtype.itemsize > 4
+    uniques = set()
+    for _, sl in clv.slabs():
+        if obj is not None:
+            sl = np.where(np.isin(sl, obj), sl, 0)
+        mn, mx = int(sl.min()), int(sl.max())
+        minlabel = mn if minlabel is None else min(minlabel, mn)
+        maxlabel = mx if maxlabel is None else max(maxlabel, mx)
+        if wide:
+            uniques.update(np.unique(sl).tolist())
+
+    wide_back = None
+    u_nz = None
+    if wide:
+        u_nz = np.array(sorted(x for x in uniques if x != 0),
+                        dtype=clv.dtype)
+        wide_back = {i + 1: int(v) for i, v in enumerate(u_nz)}
+    narrow = (len(u_nz) if wide else maxlabel) < 2**16 and (
+        wide or minlabel >= 0)
+
+    def upload(device: torch.device) -> torch.Tensor:
+        out = torch.empty(clv.shape, dtype=torch.int32, device=device)
+        pinned, busy = {}, {}
+        for i, (z0, sl) in enumerate(clv.slabs()):
+            if obj is not None:
+                sl = np.where(np.isin(sl, obj), sl, 0)
+            if wide:
+                compact = np.searchsorted(u_nz, sl).astype(np.uint32) + 1
+                compact[sl == 0] = 0
+                sl = compact
+            if narrow:
+                host = np.ascontiguousarray(
+                    sl.astype(np.uint16, copy=False)).view(np.int16)
+            else:
+                host = _as_int32(sl)
+            if not host.flags.writeable:
+                host = host.copy()
+            src = torch.from_numpy(host)
+            if device.type == "cuda":
+                # two pinned buffers in turn: a buffer is refilled only
+                # after its last copy to the device has ended
+                slot = i % 2
+                if slot in busy:
+                    busy[slot].synchronize()
+                buf = pinned.get(slot)
+                if buf is None or buf.shape != src.shape:
+                    buf = pinned[slot] = torch.empty_like(
+                        src, pin_memory=True)
+                buf.copy_(src)
+                src = buf.to(device, non_blocking=True)
+                busy[slot] = torch.cuda.Event()
+                busy[slot].record()
+            out[:, :, z0: z0 + sl.shape[2]] = (
+                src.to(torch.int32) & 0xFFFF if narrow else src)
+        return out
+
+    return minlabel, maxlabel, wide_back, upload
 
 
 def skeletonize(
@@ -89,65 +184,133 @@ def skeletonize(
     voxel_graph=None,
     device="cuda",
 ) -> Dict[int, Skeleton]:
-    """Skeletonize all nonzero labels of a 2D/3D integer volume.
+    """Skeletonize all nonzero labels of a 2D/3D integer volume (or of a
+    CompressedLabelVolume, which streams to the device slab by slab).
 
     The signature of kimimaro_tpu.skeletonize plus `device` ("cuda" or
     "cpu"). Returns {segid: Skeleton} with vertices in physical space.
     `progress`, `parallel` and `parallel_chunk_size` are accepted for API
-    parity. `fill_holes`, `fix_avocados` and `voxel_graph` are not ported
-    yet and raise.
+    parity (`progress` draws no bar). `voxel_graph` is not ported yet and
+    raises.
     """
-    if fill_holes or fix_avocados or voxel_graph is not None:
-        raise NotImplementedError(
-            "fill_holes, fix_avocados and voxel_graph are not ported yet")
+    if voxel_graph is not None:
+        raise NotImplementedError("voxel_graph is not ported yet")
     device = resolve_device(device)
     anisotropy = np.array(anisotropy, dtype=np.float32)
+    host_stages = fill_holes or fix_avocados
 
-    all_labels = format_labels(all_labels,
-                               in_place=in_place or object_ids is None)
-    all_labels = apply_object_mask(all_labels, object_ids)
-    if all_labels.size <= dust_threshold:
-        return {}
-    minlabel, maxlabel = int(all_labels.min()), int(all_labels.max())
-    if minlabel == 0 and maxlabel == 0:
-        return {}
+    # a compressed volume streams slab by slab; the host stages are
+    # whole-volume by nature and materialize it
+    streaming = (isinstance(all_labels, CompressedLabelVolume)
+                 and not host_stages)
+    if streaming:
+        if all_labels.size <= dust_threshold:
+            return {}
+        minlabel, maxlabel, wide_back, stream_upload = _plan_streaming(
+            all_labels, object_ids)
+        if minlabel == 0 and maxlabel == 0:
+            return {}
+        n_voxels = all_labels.size
+    else:
+        # the caller's array is copied only where a stage writes: object
+        # masking and the host stages
+        will_mutate = object_ids is not None or host_stages
+        all_labels = format_labels(all_labels,
+                                   in_place=in_place or not will_mutate)
+        all_labels = apply_object_mask(all_labels, object_ids)
+        if all_labels.size <= dust_threshold:
+            return {}
+        minlabel, maxlabel = int(all_labels.min()), int(all_labels.max())
+        if minlabel == 0 and maxlabel == 0:
+            return {}
+        n_voxels = all_labels.size
 
-    # labels wider than 32 bits are renumbered on the host first; wide_back
-    # restores the original ids at the end
-    wide_back = None
-    if all_labels.dtype.itemsize > 4:
-        u = np.unique(all_labels)
-        u_nz = u[u != 0]
-        compact = np.searchsorted(u_nz, all_labels).astype(np.uint32) + 1
-        compact[all_labels == 0] = 0
-        wide_back = {i + 1: int(v) for i, v in enumerate(u_nz)}
-        all_labels = compact
+        # labels wider than 32 bits are renumbered on the host first;
+        # wide_back restores the original ids at the end
+        wide_back = None
+        if all_labels.dtype.itemsize > 4:
+            u = np.unique(all_labels)
+            u_nz = u[u != 0]
+            compact = np.searchsorted(u_nz, all_labels).astype(np.uint32) + 1
+            compact[all_labels == 0] = 0
+            wide_back = {i + 1: int(v) for i, v in enumerate(u_nz)}
+            all_labels = compact
 
     with phase("upload", device):
-        labels_dev = _upload(all_labels, device)
+        labels_dev = (stream_upload(device) if streaming
+                      else _upload(all_labels, device))
     with phase("ccl", device):
         cc_dev, n_components, rep_prefix = compact_cc(
             connected_components(labels_dev))
     if n_components == 0:
         return {}
 
-    with phase("edt", device):
-        dbf_dev = edt_ops.edt(
-            cc_dev, anisotropy=tuple(float(a) for a in anisotropy),
-            black_border=(minlabel == maxlabel))
-    with phase("label_info", device):
-        n_max = 1 << max(int(np.ceil(np.log2(max(n_components, 2)))), 1)
-        info = label_info(cc_dev, labels_dev, n_max=n_max,
-                          rep_prefix=rep_prefix, dbf=dbf_dev)
-        counts, bbmin, bbmax, orig, dbfmax_arr = (
-            a.to("cpu").numpy()[: n_components + 1] for a in info)
-        orig = orig.view(np.uint32)
-    remapping = {i: int(orig[i]) for i in range(1, n_components + 1)}
-    counts_map = {i: int(counts[i]) for i in range(1, n_components + 1)}
-    bb = {i: (bbmin[i], bbmax[i])
-          for i in range(1, n_components + 1) if counts[i] > 0}
-    segid_iter = [s for s in range(1, n_components + 1)
-                  if counts_map.get(s, 0) > dust_threshold and s in bb]
+    anis_t = tuple(float(a) for a in anisotropy)
+
+    def edtfn_dev(cc):
+        return edt_ops.edt(cc, anisotropy=anis_t,
+                           black_border=(minlabel == maxlabel))
+
+    dbfmax_arr = None  # per-label DBF max; only the device preamble has it
+    if host_stages:
+        # the host stages need the labels on the host once
+        cc_labels = cc_dev.cpu().numpy()
+        # each component's original label, read at its first voxel
+        firstcc = gengine._first_voxels(cc_dev, n_components + 1).cpu()
+        flat_orig = all_labels.reshape(-1)
+        remapping = {u: int(flat_orig[int(firstcc[u])])
+                     for u in range(1, n_components + 1)}
+
+        if fill_holes:
+            with phase("fill_holes", device):
+                cc_labels = fill_all_holes(cc_labels, progress,
+                                           vol_dev=cc_dev)
+
+        def edtfn(labels):
+            with phase("avocado_edt", device):
+                return edtfn_dev(torch.from_numpy(labels).to(device)).cpu(
+                ).numpy()
+
+        all_dbf = edtfn(cc_labels)
+        if fix_avocados:
+            cc_labels, all_dbf, remapping = engage_avocado_protection(
+                cc_labels, all_dbf, remapping,
+                soma_detection_threshold=teasar_params.get(
+                    "soma_detection_threshold", 0),
+                edtfn=edtfn, progress=progress, device=device)
+        with phase("host_label_info", device):
+            cc_dev = torch.from_numpy(cc_labels).to(device)
+            dbf_dev = torch.from_numpy(all_dbf).to(device)
+            cc_segids_all, pxct = _unique_ids(cc_labels, return_counts=True)
+            counts_map = dict(zip(cc_segids_all.tolist(), pxct.tolist()))
+            slices = find_objects(cc_labels)
+            bb = {}
+            for sid in cc_segids_all:
+                sid = int(sid)
+                if sid == 0 or slices[sid - 1] is None:
+                    continue
+                roi = Bbox.from_slices(slices[sid - 1])
+                bb[sid] = (roi.minpt, roi.maxpt - 1)
+            segid_iter = [s for s in counts_map
+                          if s != 0 and counts_map[s] > dust_threshold
+                          and s in bb]
+    else:
+        with phase("edt", device):
+            dbf_dev = edtfn_dev(cc_dev)
+        with phase("label_info", device):
+            n_max = 1 << max(int(np.ceil(np.log2(max(n_components, 2)))), 1)
+            info = label_info(cc_dev, labels_dev, n_max=n_max,
+                              rep_prefix=rep_prefix, dbf=dbf_dev)
+            counts, bbmin, bbmax, orig, dbfmax_arr = (
+                a.to("cpu").numpy()[: n_components + 1] for a in info)
+            orig = orig.view(np.uint32)
+        remapping = {i: int(orig[i]) for i in range(1, n_components + 1)}
+        counts_map = {i: int(counts[i]) for i in range(1, n_components + 1)}
+        bb = {i: (bbmin[i], bbmax[i])
+              for i in range(1, n_components + 1) if counts[i] > 0}
+        segid_iter = [s for s in range(1, n_components + 1)
+                      if counts_map.get(s, 0) > dust_threshold and s in bb]
+    del labels_dev
     if wide_back is not None:
         remapping = {k: wide_back[v] for k, v in remapping.items()}
 
@@ -194,19 +357,24 @@ def skeletonize(
             "after": manual_after,
             "root": root,
             "count": counts_map.get(segid, 0),
-            "dbfmax": float(dbfmax_arr[segid]),
+            "dbfmax": (None if dbfmax_arr is None
+                       else float(dbfmax_arr[segid])),
         })
 
     with phase("gengine", device):
-        # each component's lexicographically first voxel, from the monotone
-        # root prefix (compact ids are first-appearance ordered)
-        fv_flat = torch.searchsorted(
-            rep_prefix, torch.arange(1, n_components + 1, dtype=torch.int32,
-                                     device=device)).to("cpu").numpy()
-        fv_flat = np.minimum(fv_flat, all_labels.size - 1)
-        firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
-        firstvox_arr[1:] = np.stack(
-            np.unravel_index(fv_flat, tuple(cc_dev.shape)), axis=-1)
+        firstvox_arr = None
+        if not host_stages:
+            # each component's lexicographically first voxel, from the
+            # monotone root prefix (compact ids are first-appearance
+            # ordered); the host stages renumber, so the engine finds them
+            fv_flat = torch.searchsorted(
+                rep_prefix, torch.arange(1, n_components + 1,
+                                         dtype=torch.int32, device=device)
+            ).to("cpu").numpy()
+            fv_flat = np.minimum(fv_flat, n_voxels - 1)
+            firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
+            firstvox_arr[1:] = np.stack(
+                np.unravel_index(fv_flat, tuple(cc_dev.shape)), axis=-1)
         results, crop_jobs = gengine.trace_global(
             cc_dev, dbf_dev, jobs, teasar_params, anisotropy, fix_branching,
             firstvox_arr=firstvox_arr)
@@ -342,6 +510,241 @@ def merge(skeletons: Dict[int, List[Skeleton]]) -> Dict[int, Skeleton]:
         skel.id = segid
         merged[segid] = skel.consolidate()
     return merged
+
+
+def _unique_ids(arr: np.ndarray, return_counts: bool = False):
+    """np.unique of a label array (with the counts), by one counting pass
+    where the labels are small non-negative integers (compact ids), else
+    by np.unique's sort."""
+    arr = np.asarray(arr)
+    if arr.size and arr.dtype.kind in "ui" and arr.dtype.itemsize <= 4 \
+            and int(arr.min()) >= 0 and int(arr.max()) < (1 << 26):
+        counts = np.bincount(arr.reshape(-1))
+        ids = np.flatnonzero(counts).astype(arr.dtype)
+        return (ids, counts[ids]) if return_counts else ids
+    return np.unique(arr, return_counts=return_counts)
+
+
+# --------------------------------------------------------------------------- #
+# Hole filling (kimimaro intake.py:747-794)
+
+
+def fill_all_holes(cc_labels: np.ndarray, progress: bool = False,
+                   return_fill_count: bool = False, vol_dev=None,
+                   device="cuda"):
+    """Fill interior holes of each connected component; labels that were
+    holes are absorbed by the surrounding label
+    (kimimaro_tpu.intake.fill_all_holes).
+
+    Hole masks for ALL labels are computed in lane-batched device passes
+    per crop tier from the pre-fill volume (ops.fill.fill_label_crops);
+    kimimaro's serial per-label form is replayed on the host over those
+    masks, which is exact: an applied label's mask never changes under
+    earlier labels' writes (a label with any voxel inside an earlier
+    filled hole is absorbed and skipped; all other labels' voxel sets are
+    untouched). `vol_dev` is the volume already on its device (else it is
+    uploaded to `device`). `progress` draws no bar."""
+    cc_labels = np.copy(cc_labels)
+    labels = _unique_ids(cc_labels)
+    labels_set = set(int(u) for u in labels if u != 0)
+
+    all_slices = find_objects(cc_labels)
+    pixels_filled = 0
+
+    cand, offsets, shapes = [], [], []
+    for label in labels:
+        label = int(label)
+        if label == 0 or all_slices[label - 1] is None:
+            continue
+        roi = Bbox.from_slices(all_slices[label - 1])
+        cand.append(label)
+        offsets.append(np.asarray(roi.minpt))
+        shapes.append(np.asarray(roi.maxpt) - np.asarray(roi.minpt))
+
+    if vol_dev is None:
+        vol_dev = torch.from_numpy(cc_labels.astype(np.int32)).to(
+            resolve_device(device))
+    masks = fill_ops.fill_label_crops(
+        vol_dev, np.asarray(offsets).reshape(-1, 3),
+        np.asarray(shapes).reshape(-1, 3),
+        np.asarray(cand, dtype=np.int64), cc_labels.shape)
+
+    for label, (holes, n) in zip(cand, masks):
+        if label not in labels_set or n == 0:
+            continue
+        slices = all_slices[label - 1]
+        pixels_filled += int(n)
+        sub_labels = set(int(u) for u in np.unique(cc_labels[slices][holes]))
+        sub_labels.discard(label)
+        labels_set -= sub_labels
+        cc_labels[slices] = np.where(holes, label, cc_labels[slices])
+    profiling.count("fill_labels", sum(1 for _, n in masks if n))
+    profiling.count("fill_voxels", pixels_filled)
+
+    if return_fill_count:
+        return cc_labels, pixels_filled
+    return cc_labels
+
+
+# --------------------------------------------------------------------------- #
+# Avocado protection (kimimaro intake.py:600-704, skeletontricks.pyx:905-993)
+
+
+def find_avocado_fruit(labels: np.ndarray, cx: int, cy: int, cz: int,
+                       background=0):
+    """Cast 6 axis rays from (cx,cy,cz); if >=3 rays terminate on the same
+    surrounding label (one mismatch allowed when more than 3 hits), classify
+    (pit, fruit). Mirrors kimimaro pyx:905-993."""
+    sx, sy, sz = labels.shape
+    if cx >= sx or cy >= sy or cz >= sz:
+        raise ValueError(f"<{cx},{cy},{cz}> must be within <{sx},{sy},{sz}>")
+
+    label = labels[cx, cy, cz]
+
+    def ray(coords_iter, index_fn):
+        for i in coords_iter:
+            v = index_fn(i)
+            if v == background:
+                return None
+            if v != label:
+                return v
+        return None
+
+    rays = [
+        ray(range(cx, sx), lambda x: labels[x, cy, cz]),
+        ray(range(cx, 0, -1), lambda x: labels[x, cy, cz]),
+        ray(range(cy, sy), lambda y: labels[cx, y, cz]),
+        ray(range(cy, 0, -1), lambda y: labels[cx, y, cz]),
+        ray(range(cz, sz), lambda z: labels[cx, cy, z]),
+        ray(range(cz, 0, -1), lambda z: labels[cx, cy, z]),
+    ]
+    changes = [r for r in rays if r is not None]
+
+    if len(changes) < 3:
+        return (label, label)
+
+    allowed_differences = 1 if len(changes) > 3 else 0
+    uniq, cts = np.unique(changes, return_counts=True)
+    candidate = int(np.argmax(cts))
+    differences = len(changes) - cts[candidate]
+    if differences > allowed_differences:
+        return (label, label)
+    return (label, uniq[candidate])
+
+
+def _paint_walls(binimg: np.ndarray, device) -> np.ndarray:
+    """2D-fill each wall so inclusions touching a wall are still treated as
+    interior (kimimaro intake.py:666-677); the fills run on `device`."""
+    for axis in range(3):
+        for side in (0, -1):
+            idx = [slice(None)] * 3
+            idx[axis] = side
+            wall = torch.from_numpy(binimg[tuple(idx)]).to(device)
+            binimg[tuple(idx)] = fill_ops.fill(wall).cpu().numpy()
+    return binimg
+
+
+def engage_avocado_protection(cc_labels, all_dbf, remapping,
+                              soma_detection_threshold, edtfn,
+                              progress=False, device="cuda"):
+    """Merge each "pit" label enclosed by a "fruit" label into it, up to 20
+    passes (kimimaro intake.py:600-644), then renumber contiguously by
+    first appearance and rebuild the remapping. `edtfn` recomputes the
+    EDT of a host volume after a pass that changed labels; the fills run
+    on `device`. `progress` draws no bar."""
+    orig_cc_labels = np.copy(cc_labels)
+    cc_labels = np.copy(cc_labels)
+    unchanged = set()
+    device = resolve_device(device)
+
+    for _ in range(20):
+        # nested-avocado cap (kimimaro intake.py:610-614)
+        candidates = set(_unique_ids(
+            cc_labels[all_dbf > soma_detection_threshold / 2.5]).tolist())
+        candidates -= unchanged
+        candidates.discard(0)
+
+        profiling.count("avocado_passes")
+        profiling.count("avocado_candidates", len(candidates))
+        with phase("avocado_pass", device):
+            cc_labels, unchanged_this_cycle, changes = _avocado_single_pass(
+                cc_labels, all_dbf, candidates=sorted(candidates),
+                device=device)
+        unchanged |= unchanged_this_cycle
+        if len(changes) == 0:
+            break
+        all_dbf = edtfn(cc_labels)
+
+    # renumber contiguously by first appearance in scan order and rebuild
+    # the remapping (kimimaro intake.py:636-644; fastremap.renumber orders
+    # labels by first occurrence): the first voxel of each id by a
+    # scatter-min on the device, in place of a sort of the volume
+    cc_t = torch.from_numpy(cc_labels.astype(np.int64, copy=False)).to(device)
+    n_ids = int(cc_t.max()) + 1 if cc_t.numel() else 1
+    first = gengine._first_voxels(cc_t, n_ids).cpu().numpy()
+    fg_ids = np.flatnonzero(first[1:] < cc_labels.size) + 1
+    order = np.argsort(first[fg_ids], kind="stable")
+    lut = np.zeros(n_ids, dtype=np.int64)
+    lut[fg_ids[order]] = np.arange(1, len(fg_ids) + 1)
+    new_t = torch.from_numpy(lut).to(device)[cc_t]
+    new_cc = new_t.cpu().numpy().astype(cc_labels.dtype)
+
+    # new cc id -> the smallest old cc id occupying its voxels that the
+    # remapping holds -> original label
+    old_t = torch.from_numpy(
+        orig_cc_labels.astype(np.int64, copy=False)).to(device).reshape(-1)
+    known = np.zeros(max(int(orig_cc_labels.max()) + 1, 1), dtype=bool)
+    keys = np.fromiter((k for k in remapping if 0 <= k < len(known)),
+                       dtype=np.int64)
+    known[keys] = True
+    big = torch.iinfo(torch.int64).max
+    old_t = torch.where(torch.from_numpy(known).to(device)[old_t], old_t,
+                        big)
+    least = torch.full((len(fg_ids) + 1,), big, dtype=torch.int64,
+                       device=device).scatter_reduce_(
+        0, new_t.reshape(-1), old_t, "amin").cpu().numpy()
+    seen = {i: remapping[int(least[i])] for i in range(1, len(least))
+            if least[i] != big}
+
+    profiling.count("avocado_absorbed",
+                    int(np.count_nonzero(_unique_ids(orig_cc_labels)))
+                    - len(fg_ids))
+    return new_cc, all_dbf, seen
+
+
+def _avocado_single_pass(cc_labels, all_dbf, candidates, device="cuda"):
+    unchanged = set()
+    changed = set()
+    if len(candidates) == 0:
+        return cc_labels, unchanged, changed
+
+    slcs = find_objects(cc_labels)
+    device = resolve_device(device)
+
+    for label in candidates:
+        slc = slcs[label - 1]
+        if slc is None:
+            continue
+        offset = Bbox.from_slices(slc).minpt
+        binimg = _paint_walls(cc_labels[slc] == label, device)
+        masked = np.where(binimg, all_dbf[slc], 0.0)
+        coord = np.unravel_index(np.argmax(masked), masked.shape)
+        coord = tuple(int(c) + int(o) for c, o in zip(coord, offset))
+
+        pit, fruit = find_avocado_fruit(cc_labels, *coord)
+        if pit == fruit and pit not in changed:
+            unchanged.add(int(pit))
+        else:
+            unchanged.discard(int(pit))
+            unchanged.discard(int(fruit))
+            changed.add(int(pit))
+            changed.add(int(fruit))
+            binimg |= cc_labels[slc] == fruit
+
+        filled = fill_ops.fill(torch.from_numpy(binimg).to(device))
+        cc_labels[slc] = np.where(filled.cpu().numpy(), fruit, cc_labels[slc])
+
+    return cc_labels, unchanged, changed
 
 
 # --------------------------------------------------------------------------- #

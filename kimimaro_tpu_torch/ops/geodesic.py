@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .fma import fma_f32
 from .stencils import neighborhood_offsets, shifted
 from .sweep import sweep_axis0, sweep_axis0_batched
@@ -251,48 +252,56 @@ def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
     return dist <= 0.0
 
 
-def _flood6_stage(ok, init, rounds: int):
-    """6-connected flood by plane sweeps (only the axial offsets take
-    part). `rounds` rounds plus one checking round; returns (d, converged)
-    under the reachability criterion."""
+def _reach_scan(reached, ok, axis: int, descending: bool):
+    """One directed 6-connected sweep of reachability along `axis`: a
+    voxel is reached when it is ok and a reached voxel precedes it in its
+    run of ok voxels (the first plane passes through). The distance
+    sweep's `where(ok, min(cur, prev + 1), inf)` read through isfinite,
+    as one segmented scan instead of a loop over planes."""
+    if descending:
+        reached, ok = reached.flip(axis), ok.flip(axis)
+    n = reached.shape[axis]
+    pos = torch.arange(n, dtype=torch.int32, device=reached.device).view(
+        [n if a == axis else 1 for a in range(reached.ndim)])
+    last_r = torch.where(reached, pos, -1).cummax(axis).values
+    last_wall = torch.where(ok, -1, pos).cummax(axis).values
+    out = last_r > last_wall
+    return out.flip(axis) if descending else out
 
-    def sweep6(d, axis, direction):
-        n = d.shape[axis]
-        if n <= 1:
-            return d
-        dd = torch.movedim(d, axis, 0)
-        mm = torch.movedim(ok, axis, 0)
-        out = torch.empty_like(dd)
-        order = range(n - 1, -1, -1) if direction < 0 else range(n)
-        prev = None
-        for p in order:
-            new = dd[p] if prev is None else torch.where(
-                mm[p], torch.minimum(dd[p], prev + 1.0), INF)
-            out[p] = new
-            prev = new
-        return torch.movedim(out, 0, axis)
 
-    d = torch.where(ok, init, INF)
-    changed = True
+def _flood6_stage(ok, reached, rounds: int):
+    """6-connected flood of `reached` through `ok`, both (..., X, Y, Z)
+    bool with any leading lane dimensions: `rounds` rounds of six directed
+    sweeps plus one checking round, as the JAX package's `_flood6_stage`
+    runs them (its distances are read only through isfinite, so the
+    reachability is carried alone). Returns (reached, converged per
+    lane): converged when the last round reached nothing new. A round
+    that reaches nothing new in any lane is a fixpoint, so the loop stops
+    there with every lane converged."""
+    nd = ok.ndim
+    reached = reached & ok
+    changed = torch.ones(ok.shape[:-3], dtype=torch.bool, device=ok.device)
     for _ in range(int(rounds) + 1):
-        nd = d
-        for axis in range(3):
-            for direction in (1, -1):
-                nd = sweep6(nd, axis, direction)
-        changed = _changed(nd, d, "reach")
-        d = nd
-    return d, not changed
+        profiling.count("flood6_rounds")
+        nr = reached
+        for axis in range(nd - 3, nd):
+            for descending in (False, True):
+                nr = _reach_scan(nr, ok, axis, descending)
+        changed = (nr != reached).flatten(nd - 3).any(dim=-1)
+        reached = nr
+        if not bool(changed.any()):
+            break
+    return reached, ~changed
 
 
 def flood_fill(seed_mask, ok_mask) -> torch.Tensor:
     """Binary reachability: all ok voxels 6-connected to seed_mask."""
     ok = ok_mask.to(torch.bool)
-    init = torch.where(seed_mask.to(torch.bool) & ok, 0.0, INF)
-    d = torch.where(ok, init, INF)
+    reached = seed_mask.to(torch.bool)
     done = 0
     while done < _MAX_ROUNDS:
-        d, converged = _flood6_stage(ok, d, _STAGE_ROUNDS)
+        reached, converged = _flood6_stage(ok, reached, _STAGE_ROUNDS)
         done += _STAGE_ROUNDS + 1
-        if converged:
-            return torch.isfinite(d)
+        if bool(converged.all()):
+            return reached
     raise RuntimeError("flood_fill: not converged")

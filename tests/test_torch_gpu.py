@@ -681,3 +681,102 @@ def test_cross_sectional_area_cuda_matches_cpu(gen):
     b = xsarea.cross_section_areas(binimg, verts, normals, (16, 16, 40))
     np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=0)
     np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_fill_label_crops_cuda_matches_cpu(gen):
+    """The batched hole masks at every crop tier up to 128: a label whose
+    bbox spans 128 along x takes the 128 tier."""
+    import scipy.ndimage
+
+    from kimimaro_tpu_torch.ops import fill as tfill
+
+    vol = np.zeros((140, 62, 62), dtype=np.int32)
+    spans = ((4, 1), (12, 7), (28, 21), (60, 51), (128, 9))
+    lid = 1
+    for ext, x0 in spans[:4]:
+        sl = (slice(x0, x0 + ext), slice(1, 1 + min(ext, 60)),
+              slice(1, 1 + min(ext, 60)))
+        vol[sl] = lid
+        vol[tuple(slice(q.start + 1, q.stop - 1) for q in sl)] = 0
+        lid += 1
+    # the 128 tier: a long hollow bar
+    vol[9:137, 40:50, 40:50] = lid
+    vol[11:135, 42:48, 42:48] = 0
+    vol[60:62, 44:46, 44:46] = lid + 1  # a pit in its hole
+    slcs = scipy.ndimage.find_objects(vol)
+    lids = [i + 1 for i, s in enumerate(slcs) if s is not None]
+    offs = np.array([[x.start for x in slcs[i - 1]] for i in lids])
+    shapes = np.array([[x.stop - x.start for x in slcs[i - 1]]
+                       for i in lids])
+    assert shapes.max() == 128
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = tfill.fill_label_crops(
+            torch.from_numpy(vol).to(device), offs, shapes, np.array(lids),
+            vol.shape)
+    assert sum(n for _, n in out["cpu"]) > 0
+    for (gh, gn), (wh, wn) in zip(out["cuda"], out["cpu"]):
+        assert gn == wn
+        if wn:
+            np.testing.assert_array_equal(gh, wh)
+        else:
+            assert gh is None
+
+
+def test_skeletonize_host_stages_cuda_matches_cpu(gen):
+    """skeletonize(fill_holes=True, fix_avocados=True): a hollow ball
+    clipped by the volume's face with a pit on that face, among blobs;
+    every label takes the crop engine (B4)."""
+    rng = np.random.RandomState(1)
+    vol = np.zeros((40, 36, 30), dtype=np.uint32)
+    x, y, z = np.ogrid[:40, :36, :30]
+    for lab in range(1, 7):
+        c = rng.randint(4, np.array(vol.shape) - 4)
+        r = rng.randint(3, 7, size=3)
+        e = (((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / (r[1] * 1.3)) ** 2
+             + ((z - c[2]) / r[2]) ** 2)
+        vol[((e + rng.rand(*vol.shape) * 0.4) < 1.0) & (vol == 0)] = lab
+    vol[((x - 3) ** 2 + (y - 18) ** 2 + ((z - 15) * 1.2) ** 2) <= 100] = 8
+    vol[((x - 6) ** 2 + (y - 18) ** 2 + ((z - 15) * 1.2) ** 2) <= 6] = 0
+    vol[(x ** 2 + (y - 18) ** 2 + ((z - 15) * 1.2) ** 2) <= 12] = 9
+    tp = {"scale": 1.5, "const": 30, "pdrf_exponent": 4,
+          "pdrf_scale": 100000, "soma_detection_threshold": 60,
+          "soma_acceptance_threshold": 3500}
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = kernels.LAUNCHES["sweep_axis0_batched"]
+        out[device] = kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=tp, anisotropy=(16, 16, 40),
+            dust_threshold=10, fill_holes=True, fix_avocados=True,
+            device=device)
+        if device == "cuda":
+            assert kernels.LAUNCHES["sweep_axis0_batched"] > before
+    assert set(out["cuda"]) == set(out["cpu"]) and 9 not in out["cpu"]
+    for k in out["cpu"]:
+        assert kimimaro_tpu_torch.Skeleton.equivalent(out["cuda"][k],
+                                                      out["cpu"][k]), k
+
+
+@pytest.mark.parametrize("dtype", (np.uint32, np.uint64, np.int16))
+def test_streamed_upload_cuda_matches_plain(gen, dtype):
+    """A CompressedLabelVolume streamed into the card (partial last slab,
+    pinned buffers in turn) equals the plain upload of the array."""
+    from kimimaro_tpu_torch import intake
+
+    rng = np.random.RandomState(2)
+    labels = rng.randint(0, 6, size=(33, 17, 45)).astype(dtype)
+    if dtype == np.uint64:
+        labels *= np.uint64(2**40)
+    elif dtype == np.int16:
+        labels -= 2
+    cv = kimimaro_tpu_torch.CompressedLabelVolume(labels, slab=8)
+    _, _, wide_back, up = intake._plan_streaming(cv, None)
+    got = up(torch.device("cuda"))
+    host = labels
+    if wide_back is not None:
+        u = np.unique(labels)
+        u = u[u != 0]
+        host = (np.searchsorted(u, labels).astype(np.uint32) + 1) * (
+            labels != 0)
+    want = intake._upload(host, torch.device("cuda"))
+    assert got.dtype == torch.int32 and torch.equal(got, want)
