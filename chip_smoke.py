@@ -67,12 +67,26 @@ Phases (any failure exits non-zero):
      seconds and peak host RSS beside the plain array's); and
      skeletonize_chunked of it in 2 x 2 x 2 chunks of 256 (the
      whole-volume run's labels save those that are dust in every chunk;
-     wall and merge seconds).
+     wall and merge seconds);
+ 10. self-touch (voxel_graph): the dense volume with a quarter of its
+     labels relabelled to a touching neighbour, under the connectivity
+     graph of the labels before that merge (cc3d's convention, 512 MiB of
+     uint32): compute_cc_labels under the graph counts the pre-merge
+     components, plain CCL fewer; skeletonize twice (cold, warm) with
+     B1's and B5's graph-gated forms and B4's graph gating recorded; its
+     skeletons equal skeletonize(pre-merge, all-ones graph) merged by the
+     merge map, label by label in SWC (labels whose lane refilled a soma
+     left out and counted); a 64^3 self-touch volume with a label that
+     takes the host trace path, card against CPU; then B1-vg and B5-vg
+     bit-equal to their plain versions at strip-stressing shapes, on
+     each side of their shape rules and on the recorded calls, and B4 on
+     the self-touch runs' calls, with kernel-table rows for B1-vg, B5-vg
+     and B4's graph-gated shapes.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. Launch counts are reset just before each main-path run of
-phases 4 to 6, 8 and 9 and read just after it; the table's launches are
+phases 4 to 6 and 8 to 10 and read just after it; the table's launches are
 their sum, so neither the kernel comparisons nor the cross-checks count.
 
     python3 chip_smoke.py --profile
@@ -86,6 +100,10 @@ times kernels B6 and F1 of this checkout against those built from the
 sources of the checkout at DIR (the parent commit, e.g. unpacked with
 git archive), on the same inputs in one process, in turns, and the dense
 volume's and the dense cross sections' warm walls with either.
+
+    python3 chip_smoke.py --self-touch
+
+runs phase 10 alone (after the build).
 
     python3 chip_smoke.py --host-soma
 
@@ -609,8 +627,8 @@ def check_b5(shapes, gen):
 
 class B5Spy:
     """While installed, keeps the arguments of the first host trace path
-    B5 call of every (shape, mode, clamp, direction), up to `keep` of them,
-    and counts the calls by the form their plane takes."""
+    B5 call of every (shape, mode, clamp, direction, graph bits), up to
+    `keep` of them, and counts the calls by the form their plane takes."""
 
     def __init__(self, keep=64):
         self.keep = keep
@@ -622,17 +640,20 @@ class B5Spy:
 
         inner = geodesic.sweep_axis0
 
-        def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False):
+        def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False,
+                vg=None, bits9=None):
             if d.device.type == "cuda":
                 key = (tuple(d.shape), bool(node_mode), bool(clamp_positive),
-                       bool(descending))
+                       bool(descending), None if bits9 is None
+                       else tuple(bits9))
                 if key not in self.kept and len(self.kept) < self.keep:
-                    self.kept[key] = (d.clone(), ok, nc, tuple(anis))
+                    self.kept[key] = (d.clone(), ok, nc, tuple(anis), vg)
                 form = sweep.sweep_axis0_plan(d.shape[1], d.shape[2],
-                                              node_mode)["form"]
+                                              node_mode, vg is not None)
+                form = form["form"] + ("-vg" if vg is not None else "")
                 self.calls[form] = self.calls.get(form, 0) + 1
             return inner(d, ok, nc, anis, node_mode, clamp_positive,
-                         descending)
+                         descending, vg=vg, bits9=bits9)
 
         geodesic.sweep_axis0 = spy
 
@@ -651,17 +672,21 @@ def check_b5_recorded(spy):
     err = 0.0
     ms_total = plain_total = 0.0
     forms = {}
-    for key, (d, ok, nc, anis) in sorted(spy.kept.items()):
-        shape, node, clamp, desc = key
-        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
-        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc)
+    for key, (d, ok, nc, anis, vg) in sorted(
+            spy.kept.items(), key=lambda kv: (kv[0][:4], kv[0][4] or ())):
+        shape, node, clamp, desc, bits = key
+        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
+                                bits9=bits)
+        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
+                                  bits9=bits)
         want, plain = timed_once(lambda: sweep._sweep_axis0_plain(
-            d, ok, nc, anis, node, clamp, desc))
+            d, ok, nc, anis, node, clamp, desc, vg, bits))
         err = max(err, require_equal(f"B5 host call {key}", got, want))
         require_equal(f"B5 host call {key} run twice", again, got)
         ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, node, clamp,
-                                               desc), 3)
-        form = sweep.sweep_axis0_plan(shape[1], shape[2], node)["form"]
+                                               desc, vg=vg, bits9=bits), 3)
+        form = sweep.sweep_axis0_plan(shape[1], shape[2], node,
+                                      vg is not None)["form"]
         forms[form] = forms.get(form, 0) + 1
         ms_total += ms
         plain_total += plain
@@ -749,13 +774,15 @@ class B4Spy:
                 shape = tuple(d.shape)
                 self.calls[shape] = self.calls.get(shape, 0) + 1
                 key = (shape, bool(node_mode), bool(clamp_positive),
-                       bool(descending))
+                       bool(descending), None if bits9 is None
+                       else tuple(bits9))
                 first = not self.per_shape or self.calls[shape] == 1
                 if first and key not in self.kept and \
                         len(self.kept) < self.keep:
                     self.kept[key] = (d.clone(), ok.clone(),
                                       None if nc is None else nc.clone(),
-                                      tuple(anis))
+                                      tuple(anis),
+                                      None if vg is None else vg.clone())
             return inner(d, ok, nc, anis, node_mode, clamp_positive,
                          descending, vg=vg, bits9=bits9)
 
@@ -767,12 +794,12 @@ class B4Spy:
         return restore
 
 
-def b4_bound(shape, node):
-    """Least time of one B4 sweep of `shape`: d, ok (and nodecost) read
-    once, d written once, over the HBM rate, against nine candidates a
-    voxel over the float32 peak. Returns (ms, by)."""
+def b4_bound(shape, node, vg=False):
+    """Least time of one B4 sweep of `shape`: d, ok (and nodecost, and the
+    voxel graph) read once, d written once, over the HBM rate, against
+    nine candidates a voxel over the float32 peak. Returns (ms, by)."""
     vox = int(np.prod(shape))
-    t_b = (13 if node else 9) * vox / HBM_BYTES_PER_S
+    t_b = ((13 if node else 9) + (4 if vg else 0)) * vox / HBM_BYTES_PER_S
     t_o = (12 if node else 18) * vox / ALU_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
@@ -784,23 +811,26 @@ def check_b4_recorded(spy):
     from kimimaro_tpu_torch.ops import sweep
 
     out = {}
-    for key in sorted(spy.kept, key=lambda k: (k[0], not k[1], k[2], k[3])):
-        shape, node, clamp, desc = key
-        d, ok, nc, anis = spy.kept[key]
-        got = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc)
-        again = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc)
+    for key in sorted(spy.kept, key=lambda k: (k[0], not k[1], k[2], k[3],
+                                               k[4] or ())):
+        shape, node, clamp, desc, bits = key
+        d, ok, nc, anis, vg = spy.kept[key]
+        got = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc,
+                                        vg=vg, bits9=bits)
+        again = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc,
+                                          vg=vg, bits9=bits)
         want, plain = timed_once(lambda: sweep._sweep_axis0_batched_plain(
-            d, ok, nc, anis, node, clamp, desc))
+            d, ok, nc, anis, node, clamp, desc, vg, bits))
         err = require_equal(f"B4 {spy.tag} call {key}", got, want)
         require_equal(f"B4 {spy.tag} call {key} run twice", again, got)
         if shape in out:
             out[shape] = out[shape][:4] + (max(out[shape][4], err),)
             continue
-        ms = cuda_ms(lambda: sweep.sweep_axis0_batched(d, ok, nc, anis, node,
-                                                       clamp, desc), 5)
-        bms, by = b4_bound(shape, node)
+        ms = cuda_ms(lambda: sweep.sweep_axis0_batched(
+            d, ok, nc, anis, node, clamp, desc, vg=vg, bits9=bits), 5)
+        bms, by = b4_bound(shape, node, vg is not None)
         plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
-                                              node)
+                                              node, vg is not None)
         out[shape] = (ms, plain, bms, by, err)
         if not spy.per_shape:  # a per-shape record is summed up below
             log(f"[kernels] B4 {spy.tag} {shape} ({spy.calls.get(shape, 0)}"
@@ -1270,6 +1300,7 @@ def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
         profiling.collect(True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         kernels.reset_launches()
         t0 = time.perf_counter()
         try:
@@ -1289,9 +1320,11 @@ def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
             total[k] += v
         stats = profiling.get_stats()
         phases = {k: round(v, 3) for k, v in stats["phases"].items()}
+        peak = torch.cuda.max_memory_allocated()
         log(f"[{tag}] {run} run: {secs:.2f} s, {len(skels)} skeletons, "
             f"{len(skels) / secs:.1f} labels/s, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above "
+            f"the {held / 2**30:.2f} GiB held at the run's start)")
         log(f"[{tag}] {run} run phases (s): {json.dumps(phases)}")
         log(f"[{tag}] {run} run counters: {json.dumps(stats['counters'])}")
         log(f"[{tag}] {run} run launches: {json.dumps(launches)}")
@@ -2350,6 +2383,516 @@ def chunked_phase(dense, dense_skels):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: self-touch (voxel_graph) at 512^3: B1's and B5's graph-gated
+# forms, B4 with the graph
+
+
+def graph_slices(o, shape):
+    """(dst, src) slices: v in dst, v + o in src."""
+    dst = tuple(slice(max(-c, 0), n + min(-c, 0)) for c, n in zip(o, shape))
+    src = tuple(slice(max(c, 0), n + min(c, 0)) for c, n in zip(o, shape))
+    return dst, src
+
+
+def label_graph(pre):
+    """cc3d's voxel_connectivity_graph of a device label volume: bit
+    GRAPH_BITS[o] at v set where v + o is in the volume and has v's label
+    (int32 words)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops.stencils import GRAPH_BITS
+
+    vg = torch.zeros(pre.shape, dtype=torch.int32, device=pre.device)
+    for o, bit in GRAPH_BITS.items():
+        dst, src = graph_slices(o, pre.shape)
+        vg[dst] |= (pre[dst] == pre[src]).to(torch.int32) << bit
+    return vg
+
+
+def self_touch_volume(pre, share=4):
+    """The self-touch volume of a label volume (numpy uint32): about one
+    label in `share` relabelled to the id of a touching neighbour (each
+    label takes part in one merge at most). Returns (merged (numpy
+    uint32), its voxel graph (numpy uint32: the connectivity of `pre`),
+    {pre label: merged label}, merges)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops.stencils import GRAPH_BITS
+
+    dev = torch.from_numpy(pre.view(np.int32)).cuda()
+    ids = torch.unique(dev).cpu().numpy()
+    k = int(ids.max()) + 1
+    keys = []
+    for o in GRAPH_BITS:
+        if o < (0, 0, 0):
+            continue  # each undirected pair of offsets once
+        dst, src = graph_slices(o, pre.shape)
+        a, b = dev[dst], dev[src]
+        m = (a != b) & (a != 0) & (b != 0)
+        lo, hi = torch.minimum(a, b)[m].long(), torch.maximum(a, b)[m].long()
+        keys.append(torch.unique(lo * k + hi))
+    keys = torch.unique(torch.cat(keys)).cpu().numpy()
+    want = int((ids != 0).sum()) // share
+    merge, used = {}, set()
+    for key in keys:
+        a, b = int(key // k), int(key % k)
+        if a in used or b in used:
+            continue
+        merge[b] = a
+        used.update((a, b))
+        if len(merge) >= want:
+            break
+    lut = torch.arange(k, dtype=torch.int32, device=dev.device)
+    for b, a in merge.items():
+        lut[b] = a
+    merged = lut[dev.long()]
+    vg = label_graph(dev)
+    mapping = {int(i): int(merge.get(int(i), int(i))) for i in ids if i}
+    out = (merged.cpu().numpy().view(np.uint32),
+           vg.cpu().numpy().view(np.uint32), mapping, len(merge))
+    del dev, merged, vg, lut
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_components(vol, vg=None):
+    """Components of a numpy label volume by the port's CCL on the card
+    (with the graph `vg` where given)."""
+    import torch
+
+    from kimimaro_tpu_torch.intake import _upload
+    from kimimaro_tpu_torch.ops.ccl import compact_cc, connected_components
+
+    g = None if vg is None else torch.from_numpy(vg).cuda()
+    _, n, _ = compact_cc(connected_components(
+        _upload(vol, torch.device("cuda")), voxel_graph=g))
+    return n
+
+
+class GateSpy:
+    """While installed, keeps the arguments of the first graph-gated B1
+    sweep of every (shape, direction, bits) and counts the gated calls."""
+
+    def __init__(self):
+        self.kept = {}
+        self.calls = 0
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import gsweep
+
+        inner = gsweep.sweep0
+
+        def spy(d, cc, nodecost, okmask, anis, mode, clamp, desc, gate=None,
+                bits9=None):
+            if gate is not None and d.device.type == "cuda":
+                self.calls += 1
+                key = (tuple(d.shape), bool(desc), tuple(bits9))
+                if key not in self.kept:
+                    self.kept[key] = (d.clone(), cc, gate, tuple(anis))
+            return inner(d, cc, nodecost, okmask, anis, mode, clamp, desc,
+                         gate, bits9)
+
+        gsweep.sweep0 = spy
+
+        def restore():
+            gsweep.sweep0 = inner
+
+        return restore
+
+
+# B1's graph gate on each side of its shape rule on an H100 (132 SMs, 227
+# KB): persistent up to 784 x 784 (a voxel's operands 12 bytes a stage)
+B1_VG_RULE = ((784, True), (800, False))
+
+
+def b1_vg_case(shape, gen, layout, desc):
+    """The graph-gated B1 (minid) against its plain version, twice."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import gsweep
+
+    d, cc, _, _ = sweep_inputs(shape, "minid", False, False, gen)
+    gate = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bits = gsweep.gate_bits9(layout, desc)
+    anis = (1.0, 1.0, 1.0)
+    got = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc, gate,
+                        bits)
+    again = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
+                          gate, bits)
+    want = gsweep._sweep0_plain(d, cc, None, None, anis, "minid", False, desc,
+                                gate, bits)
+    name = f"B1-vg layout={layout} desc={desc} {shape}"
+    err = require_equal(name, got, want)
+    require_equal(name + " run twice", again, got)
+    return err
+
+
+def check_b1_vg(spy, gen):
+    """B1's graph-gated form against its plain version at strip-stressing
+    shapes, on each side of its shape rule and on the recorded sweeps of
+    the 512^3 CCL (each twice), timed there. Returns (ms, plain_ms, err,
+    shape)."""
+    from kimimaro_tpu_torch.ops import gsweep
+
+    err = 0.0
+    for i, shape in enumerate(((11, 9, 8), (13, 37, 45), *B1_STRESS_SHAPES)):
+        err = max(err, b1_vg_case(shape, gen, i % 3, bool(i % 2)))
+    for side, persistent in B1_VG_RULE:
+        plan = gsweep.sweep0_plan(side, side, "minid", False, True)
+        if plan["persistent"] != persistent:
+            raise AssertionError(f"B1-vg {side}^2: plan {plan}, expected "
+                                 f"persistent={persistent}")
+        for desc in (False, True):
+            err = max(err, b1_vg_case((2, side, side), gen, 1, desc))
+    log(f"[kernels] B1-vg bit-equal at {len(B1_STRESS_SHAPES) + 2} shapes "
+        f"and on each side of its shape rule (persistent / per plane: "
+        f"{json.dumps(B1_VG_RULE)})")
+    if not spy.kept:
+        raise AssertionError("the self-touch CCL made no graph-gated sweep")
+    timed = None
+    for key, (d, cc, gate, anis) in sorted(spy.kept.items()):
+        shape, desc, bits = key
+        got = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
+                            gate, bits)
+        again = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
+                              gate, bits)
+        want, plain = timed_once(lambda: gsweep._sweep0_plain(
+            d, cc, None, None, anis, "minid", False, desc, gate, bits))
+        err = max(err, require_equal(f"B1-vg recorded {key}", got, want))
+        require_equal(f"B1-vg recorded {key} run twice", again, got)
+        if timed is None or int(np.prod(shape)) > int(np.prod(timed[3])):
+            ms = cuda_ms(lambda: gsweep.sweep0(
+                d, cc, None, None, anis, "minid", False, desc, gate, bits), 5)
+            timed = (ms, plain, 0.0, shape)
+    log(f"[kernels] B1-vg bit-equal on the {len(spy.kept)} recorded sweeps "
+        f"of the self-touch CCL (each layout and direction; "
+        f"{spy.calls} gated calls), twice")
+    return timed[0], timed[1], err, timed[3]
+
+
+# B5 with a voxel graph on each side of its form rules on an H100: the
+# bitfield rides the carried-id channel, so the grid strips hold square
+# planes up to 848 x 848 in euclid mode and 784 x 784 in node mode
+B5_VG_RULE = {False: ((170, "cluster"), (171, "strips"), (848, "strips"),
+                      (864, "plane")),
+              True: ((170, "cluster"), (171, "strips"), (784, "strips"),
+                     (800, "plane"))}
+
+
+def b5_vg_case(shape, node, clamp, gen, anis, axis=0):
+    """B5's graph-gated form against its plain version in both
+    directions, twice; the first plane passes through."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import geodesic, sweep
+
+    d, ok, nc = b5_inputs(shape, clamp, gen)
+    vg = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                       dtype=torch.int32)
+    err = 0.0
+    for desc in (False, True):
+        bits = geodesic.sweep_bits9(axis, desc)
+        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
+                                bits9=bits)
+        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
+                                  bits9=bits)
+        want = sweep._sweep_axis0_plain(d, ok, nc, anis, node, clamp, desc,
+                                        vg, bits)
+        name = f"B5-vg node={node} clamp={clamp} desc={desc} {shape}"
+        err = max(err, require_equal(name, got, want))
+        require_equal(name + " run twice", again, got)
+        first = -1 if desc else 0
+        require_equal(name + " first plane", got[first], d[first])
+    return err
+
+
+def check_b5_vg(gen):
+    """B5's graph-gated form at B5's stress shapes and on each side of its
+    form rules; timed on a node sweep of a 96^3 crop (B5's row shape).
+    Returns (ms, plain_ms, err)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import geodesic, sweep
+
+    anis = (40.0, 16.0, 16.0)
+    err = 0.0
+    for i, shape in enumerate(((11, 9, 8), *B5_STRESS_SHAPES)):
+        for node in (False, True):
+            for clamp in (False, True):
+                err = max(err, b5_vg_case(shape, node, clamp, gen, anis,
+                                          i % 3))
+    for node, sides in B5_VG_RULE.items():
+        for side, form in sides:
+            plan = sweep.sweep_axis0_plan(side, side, node, True)
+            if plan["form"] != form:
+                raise AssertionError(f"B5-vg node={node} {side}^2: plan "
+                                     f"{plan}, expected {form}")
+            err = max(err, b5_vg_case((2, side, side), node, True, gen,
+                                      anis))
+    log(f"[kernels] B5-vg bit-equal at {len(B5_STRESS_SHAPES) + 1} shapes "
+        f"and on each side of its form rules: "
+        f"{json.dumps({('node' if k else 'euclid'): v for k, v in B5_VG_RULE.items()})}")
+    d, ok, nc = b5_inputs((96, 96, 96), False, gen)
+    vg = torch.randint(0, 1 << 26, d.shape, generator=gen, device="cuda",
+                       dtype=torch.int32)
+    bits = geodesic.sweep_bits9(0, False)
+    ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, True, False,
+                                           vg=vg, bits9=bits), 5)
+    plain = cuda_ms(lambda: sweep._sweep_axis0_plain(
+        d, ok, nc, anis, True, False, False, vg, bits), 1)
+    return ms, plain, err
+
+
+class RefillSpy:
+    """While installed, keeps the component volume and the jobs of the
+    last crop-engine call; `labels()` then names the labels (in
+    `labels_dev`, at a first voxel of the component) of the jobs whose DBF
+    max passes the soma detection threshold: the lanes that refill and
+    re-EDT."""
+
+    def __init__(self, labels_dev, sdt):
+        self.labels_dev = labels_dev
+        self.sdt = sdt
+        self.last = None
+
+    def install(self):
+        from kimimaro_tpu_torch import engine, intake
+
+        inner = engine.trace_batched
+
+        def spy(cc_dev, dbf_dev, jobs, *args, **kw):
+            self.last = (cc_dev, list(jobs))
+            return inner(cc_dev, dbf_dev, jobs, *args, **kw)
+
+        intake.engine.trace_batched = spy
+
+        def restore():
+            intake.engine.trace_batched = inner
+
+        return restore
+
+    def labels(self):
+        cc_dev, jobs = self.last
+        out = set()
+        for job in jobs:
+            if job["dbfmax"] is None or job["dbfmax"] > self.sdt:
+                sl = tuple(slice(int(o), int(o) + int(s))
+                           for o, s in zip(job["offset"], job["shape"]))
+                first = (cc_dev[sl] == job["segid"]).reshape(-1).nonzero()
+                out.add(int(self.labels_dev[sl].reshape(-1)[first[0, 0]]))
+        return out
+
+
+def first_voxels(vol):
+    """{label: linear index of its first voxel} of a numpy volume, by a
+    scatter-min on the card."""
+    import torch
+
+    v = torch.from_numpy(vol.view(np.int32).reshape(-1)).cuda().long()
+    first = torch.full((int(v.max()) + 1,), v.numel(), dtype=torch.int64,
+                       device=v.device)
+    first.scatter_reduce_(0, v, torch.arange(v.numel(), device=v.device),
+                          "amin")
+    first = first.cpu().numpy()
+    return {i: int(first[i]) for i in range(1, len(first))
+            if first[i] < v.numel()}
+
+
+def self_touch_identity(merged_skels, pre, vg_ones_run, mapping, refill):
+    """The self-touch run against skeletonize(pre, all-ones graph) merged
+    by the merge map: equal SWC on every label none of whose lanes
+    refilled. Returns (compared, left out)."""
+    from kimimaro_tpu_torch.skeleton import Skeleton
+
+    b = vg_ones_run
+    want_labels = {mapping[k] for k in b}
+    if set(merged_skels) != want_labels:
+        raise AssertionError(
+            f"self-touch identity: labels {sorted(set(merged_skels) ^ want_labels)[:10]} "
+            f"are in one run only")
+    first = first_voxels(pre)
+    parts = {}
+    for k in b:
+        parts.setdefault(mapping[k], []).append(k)
+    compared = skipped = 0
+    for m, skel in merged_skels.items():
+        if m in refill:
+            skipped += 1
+            continue
+        ks = sorted(parts[m], key=lambda k: first[k])
+        want = b[ks[0]] if len(ks) == 1 else Skeleton.simple_merge(
+            [b[k] for k in ks]).consolidate()
+        got_swc, want_swc = skel.to_swc(), want.to_swc()
+        if got_swc != want_swc:
+            g, w = got_swc.splitlines(), want_swc.splitlines()
+            i = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                     min(len(g), len(w)))
+            raise AssertionError(
+                f"self-touch identity: label {m} (pieces {ks}) differs at "
+                f"SWC line {i}: {g[i] if i < len(g) else None!r} vs "
+                f"{w[i] if i < len(w) else None!r}")
+        compared += 1
+    return compared, skipped
+
+
+def small_self_touch_volume():
+    """A 64^3 self-touch volume: bench.py's generator at 64^3 cut to its
+    first 16 x planes (its four labels), plus a bent tube and a block
+    touching it, half of the labels merged into a touching neighbour (the
+    block into the tube) and walled apart by the pre-merge graph; the tube
+    is given 17 manual targets (more than the crop engine holds: the host
+    trace path). Returns (merged, graph, targets)."""
+    pre = dense_volume(64)
+    pre[16:] = 0
+    tube, block = int(pre.max()) + 1, int(pre.max()) + 2
+    pre[30:56, 26:32, 20:25] = tube
+    pre[40:46, 10:44, 20:25] = tube
+    pre[50:56, 32:37, 20:25] = block
+    merged, vg, mapping, _ = self_touch_volume(pre, share=2)
+    merged = np.where(pre == block, mapping[tube], merged).astype(np.uint32)
+    pts = np.argwhere(pre == tube)
+    pts = [tuple(int(c) for c in p) for p in pts[::len(pts) // 17][:17]]
+    return merged, vg, pts
+
+
+def small_self_touch_path():
+    """The 64^3 self-touch volume with its host-path label on the card
+    and on the CPU: equal skeletons, one label to the host trace path.
+    Returns the card run's launches."""
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    vol, vg, pts = small_self_touch_volume()
+    out, launches = {}, None
+    for device in ("cuda", "cpu"):
+        profiling.reset_stats()
+        profiling.collect(True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[device] = kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, voxel_graph=vg,
+            extra_targets_before=pts, device=device)
+        profiling.collect(False)
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
+        counters = profiling.get_stats()["counters"]
+        log(f"[self-touch-64] device={device}: {len(out[device])} skeletons "
+            f"in {time.perf_counter() - t0:.2f} s, counters {counters}")
+        if counters.get("fallback_jobs", 0) < 1:
+            raise AssertionError("64^3 self-touch volume: no label took the "
+                                 "host trace path")
+    log(f"[self-touch-64] launches: {json.dumps(launches)}")
+    for k in out["cpu"]:
+        if k not in out["cuda"] or \
+                out["cuda"][k].to_swc() != out["cpu"][k].to_swc():
+            raise AssertionError(f"64^3 self-touch: label {k} differs "
+                                 f"between the card and the CPU")
+    if set(out["cuda"]) != set(out["cpu"]):
+        raise AssertionError("64^3 self-touch: different label sets")
+    log(f"[self-touch-64] CUDA skeletons equal CPU skeletons (SWC) on all "
+        f"{len(out['cpu'])} labels")
+    return launches
+
+
+def self_touch_phase(dense, gen):
+    """Phase 10: the dense volume with a quarter of its labels merged into
+    a touching neighbour, under the pre-merge voxel graph: component
+    counts, skeletonize twice (cold, warm) with B1-vg, B4 and B5 recorded,
+    the identity against skeletonize(pre, all-ones graph), the 64^3 volume
+    card against CPU, then the graph-gated kernels against their plain
+    versions. Returns (launches of the main-path runs, B1-vg timing, B5-vg
+    timing, B4's recorded shapes and calls)."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch.utility import compute_cc_labels
+
+    t0 = time.perf_counter()
+    merged, vg, mapping, n_merges = self_touch_volume(dense)
+    log(f"[self-touch] {n_merges} of {len(mapping)} labels relabelled to a "
+        f"touching neighbour: {len(set(mapping.values()))} labels; voxel "
+        f"graph of the pre-merge labels, {vg.nbytes / 2**20:.0f} MiB uint32 "
+        f"(made in {time.perf_counter() - t0:.1f} s, set-up)")
+    t0 = time.perf_counter()
+    cc, _ = compute_cc_labels(merged, voxel_graph=vg, device="cuda")
+    n_graph = int(cc.max())
+    del cc
+    n_pre = device_components(dense)
+    n_plain = device_components(merged)
+    log(f"[self-touch] components: compute_cc_labels(merged, voxel_graph) "
+        f"{n_graph}, pre-merge {n_pre}, plain CCL of merged {n_plain} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if n_graph != n_pre or not n_plain < n_pre:
+        raise AssertionError("self-touch: the graph's components are not the "
+                             "pre-merge volume's")
+
+    gate_spy, b5_spy = GateSpy(), B5Spy()
+    b4_spy = B4Spy("self-touch", keep=4096, per_shape=True)
+    labels_dev = torch.from_numpy(merged.view(np.int32)).cuda()
+    refill_spy = RefillSpy(labels_dev, TEASAR["soma_detection_threshold"])
+    restores = [s.install() for s in (gate_spy, b5_spy, b4_spy, refill_spy)]
+    try:
+        skels, counters, launches, _ = run_main_path(
+            "self-touch", merged, ("gsweep_sweep0_vg",
+                                   "sweep_axis0_batched_vg"),
+            voxel_graph=vg)
+    finally:
+        for restore in reversed(restores[2:]):
+            restore()
+    if counters.get("gengine_iterations", 0):
+        raise AssertionError("self-touch: the global engine traced labels")
+    for k in ("gsweep_sweep0_dual", "crop_argmax"):
+        if launches[k]:
+            raise AssertionError(f"self-touch: {k} ran under a graph")
+    big = {mapping[int(k)] for k in
+           np.flatnonzero(np.bincount(dense.ravel()) > 1000) if k}
+    if not big <= set(skels):
+        raise AssertionError(f"self-touch: labels "
+                             f"{sorted(big - set(skels))[:10]} above the dust "
+                             f"threshold have no skeleton")
+
+    t0 = time.perf_counter()
+    ones = np.full(dense.shape, (1 << 26) - 1, dtype=np.uint32)
+    want = kimimaro_tpu_torch.skeletonize(
+        dense, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+        fix_borders=True, fix_branching=True, voxel_graph=ones,
+        device="cuda")
+    del ones
+    refill = refill_spy.labels()
+    compared, skipped = self_touch_identity(skels, dense, want, mapping,
+                                            refill)
+    log(f"[self-touch] identity: skeletonize(merged, pre-merge graph) equals "
+        f"skeletonize(pre, all-ones graph) merged by the merge map on "
+        f"{compared} labels (SWC); {skipped} left out (a lane refilled: "
+        f"{sorted(refill)[:20]}); {len(want)} pre-merge "
+        f"skeletons ({time.perf_counter() - t0:.1f} s)")
+    del want, labels_dev
+
+    try:
+        small = small_self_touch_path()
+    finally:
+        for restore in reversed(restores[:2]):
+            restore()
+    for k, v in small.items():
+        launches[k] += v
+    b1_vg = check_b1_vg(gate_spy, gen)
+    log(f"[kernels] gsweep_sweep0_vg: {b1_vg[0]:.3f} ms vs plain "
+        f"{b1_vg[1]:.1f} ms (the self-touch CCL's sweep of {b1_vg[3]})")
+    del gate_spy
+    b5_err = check_b5_recorded(b5_spy) if b5_spy.kept else 0.0
+    b5_vg = check_b5_vg(gen)
+    log(f"[kernels] sweep_axis0_vg: {b5_vg[0]:.3f} ms vs plain "
+        f"{b5_vg[1]:.1f} ms (node sweep of a 96^3 crop)")
+    b4_rows = check_b4_recorded(b4_spy)
+    return (launches, b1_vg, (b5_vg[0], b5_vg[1], max(b5_vg[2], b5_err)),
+            b4_rows, dict(b4_spy.calls))
+
+
+
 def profile_dense(top=25):
     """`--profile`: one warm dense 512^3 run under torch.profiler. Prints
     the card's busy share (device time of all kernels and copies over the
@@ -2697,6 +3240,16 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return rc
+    if sys.argv[1:] == ["--self-touch"]:
+        log(device_line())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        log(f"[build] nvcc {kernels.build():.2f} s")
+        self_touch_phase(dense_volume(DENSE_N), gen)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--host-soma"]:
         log(device_line())
         rc = host_soma()
@@ -2706,6 +3259,7 @@ def main() -> int:
         return rc
 
     # 1. device
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -2826,6 +3380,9 @@ def main() -> int:
     if b5_fill.kept:
         b5_err = max(b5_err, check_b5_recorded(b5_fill))
     del b5_fill
+    # 10. self-touch: the dense volume under a voxel graph
+    (touch_launches, b1_vg, b5_vg, b4_touch,
+     b4_touch_calls) = self_touch_phase(dense, gen)
 
     # F1 on the calls of phases 4 to 6, 8 and 9
     f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs, f1_fill))
@@ -2852,7 +3409,8 @@ def main() -> int:
             b4_rows.setdefault(shape, [0, v])
             b4_rows[shape][0] += calls.get(shape, 0)
     for part in (dense_launches, soma_launches, xs_launches, fill_launches,
-                 small_fill_launches, stream_launches, chunk_launches):
+                 small_fill_launches, stream_launches, chunk_launches,
+                 touch_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")
@@ -2978,6 +3536,45 @@ def main() -> int:
                       "plain_ms": round(plain, 4),
                       "bound_ms": round(bms, 4), "bound_by": by,
                       "library_ms": None})
+    # the graph-gated forms (phase 10): B1's at the self-touch CCL's sweep,
+    # B5's at a 96^3 node sweep (B5's row shape), B4's at each shape of the
+    # self-touch runs' most swept voxels
+    table.append({"name": "gsweep_sweep0_vg", "route": "cuda",
+                  "source": "kimimaro_tpu_torch/csrc/gsweep.cu",
+                  "replaces": "kimimaro_tpu/ops/gsweep.py:219",
+                  "launches": launches["gsweep_sweep0_vg"],
+                  "max_abs_err": b1_vg[2], "ms": round(b1_vg[0], 4),
+                  "plain_ms": round(b1_vg[1], 4),
+                  "bound_ms": round(bound(16 * int(np.prod(b1_vg[3])),
+                                         20 * int(np.prod(b1_vg[3])))[0], 4),
+                  "bound_by": bound(16 * int(np.prod(b1_vg[3])),
+                                    20 * int(np.prod(b1_vg[3])))[1],
+                  "library_ms": None})
+    table.append({"name": "sweep_axis0_vg", "route": "cuda",
+                  "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+                  "replaces": "kimimaro_tpu/ops/pallas_sweep.py:117",
+                  "launches": launches["sweep_axis0_vg"],
+                  "max_abs_err": b5_vg[2], "ms": round(b5_vg[0], 4),
+                  "plain_ms": round(b5_vg[1], 4),
+                  "bound_ms": round(bound(17 * 96 ** 3, 12 * 96 ** 3)[0], 4),
+                  "bound_by": bound(17 * 96 ** 3, 12 * 96 ** 3)[1],
+                  "library_ms": None})
+    touch_err = max(v[4] for v in b4_touch.values())
+    ms_all = [v[0] for v in b4_touch.values()]
+    log(f"[kernels] B4 self-touch: {len(b4_touch)} shapes, "
+        f"{sum(b4_touch_calls.values())} calls, {min(ms_all):.4f}-"
+        f"{max(ms_all):.4f} ms a sweep")
+    top = sorted(b4_touch, key=lambda k: b4_touch_calls[k] * int(np.prod(k)))
+    for shape in top[-8:]:
+        ms, plain, bms, by, err = b4_touch[shape]
+        table.append({
+            "name": f"sweep_axis0_batched_vg {shape}", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+            "replaces": "kimimaro_tpu/ops/pallas_sweep.py:308",
+            "launches": b4_touch_calls[shape], "max_abs_err": touch_err,
+            "ms": round(ms, 4), "plain_ms": round(plain, 4),
+            "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
+    log(f"[main] every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

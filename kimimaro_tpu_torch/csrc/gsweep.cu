@@ -44,6 +44,18 @@
 // per-plane form and the plain versions carry -1 there instead; both give
 // the same result, also for occupied raw labels of -1 in minid mode.
 //
+// B1 with a voxel graph (minid mode only: the CCL of kimimaro_tpu/ops/ccl.py
+// `_ccl_stage` with `has_vg`, which the JAX package runs as a lax.scan with
+// no Pallas form): a neighbour u on the previous plane also counts only
+// where the graph lets u's id move into the voxel. The carried-id channel
+// already holds the labels, so the gate sits at the target: a per-voxel
+// word `gate` (ops.stencils.graph_into: bit GRAPH_BITS[o] set where the
+// move from v + o into v is open) is one more operand of the stage, read
+// with the voxel's own operands, and `bits` names the bit of each of the
+// nine (dy, dz) neighbours for this layout and direction. Nothing new
+// crosses a strip's halo. It reads 4 bytes a voxel more (16 in all: ids,
+// labels and gate in, ids out; 0.64 ms at 512^3 on the HBM rate).
+//
 // The f32 operation order is the contract: the step cost is added before
 // the min in euclid mode, the nodecost after the min in node mode. The
 // file is built with --fmad=false and uses __fadd_rn so nothing contracts.
@@ -84,14 +96,15 @@ __device__ __forceinline__ T reduce(T a, T b) {
 // ---------------------------------------------------------------------------
 // B1, per plane: the route of planes too large for the strips.
 
-template <int MODE, bool HAS_OK, bool CLAMP>
+template <int MODE, bool HAS_OK, bool CLAMP, bool VG>
 __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
                              const int32_t* __restrict__ cc,
                              const float* __restrict__ nc,
                              const uint8_t* __restrict__ ok,
+                             const uint32_t* __restrict__ gate,
                              typename Field<MODE>::T* __restrict__ out,
                              int H, int W, int64_t plane, int64_t prev,
-                             kt::Costs9 costs) {
+                             kt::Costs9 costs, kt::Bits9 bits) {
     using T = typename Field<MODE>::T;
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -109,6 +122,7 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
         nv = occ ? cur : fill;
     } else {
         T cand = fill;
+        const uint32_t g = VG ? gate[i] : 0u;
         int k = 0;
         for (int dy = -1; dy <= 1; ++dy) {
             for (int dz = -1; dz <= 1; ++dz, ++k) {
@@ -120,7 +134,8 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
                     const int32_t pc = cc[j];
                     bool pocc = occupied_id<MODE>(pc);
                     if (HAS_OK) pocc = pocc && (ok[j] != 0);
-                    if ((pocc ? pc : -1) == ccc) sv = out[j];
+                    const bool open = !VG || ((g >> bits.b[k]) & 1u) != 0u;
+                    if ((pocc ? pc : -1) == ccc && open) sv = out[j];
                 }
                 if (MODE == kEuclid) sv = __fadd_rn(sv, costs.c[k]);
                 cand = reduce<MODE>(cand, sv);
@@ -135,19 +150,21 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
     out[i] = nv;
 }
 
-template <int MODE, bool HAS_OK, bool CLAMP>
+template <int MODE, bool HAS_OK, bool CLAMP, bool VG>
 int run_sweep0(const void* d, const void* cc, const void* nc, const void* ok,
-               void* out, int n, int H, int W, const kt::Costs9& costs,
-               int descending, cudaStream_t st) {
+               const void* gate, void* out, int n, int H, int W,
+               const kt::Costs9& costs, const kt::Bits9& bits, int descending,
+               cudaStream_t st) {
     using T = typename Field<MODE>::T;
     const dim3 grid = kt::plane_grid(H, W);
     const dim3 block = kt::plane_block();
     for (int s = 0; s < n; ++s) {
         int64_t plane, prev;
         kt::sweep_planes(s, n, descending, &plane, &prev);
-        sweep0_plane<MODE, HAS_OK, CLAMP><<<grid, block, 0, st>>>(
+        sweep0_plane<MODE, HAS_OK, CLAMP, VG><<<grid, block, 0, st>>>(
             (const T*)d, (const int32_t*)cc, (const float*)nc,
-            (const uint8_t*)ok, (T*)out, H, W, plane, prev, costs);
+            (const uint8_t*)ok, (const uint32_t*)gate, (T*)out, H, W, plane,
+            prev, costs, bits);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
@@ -156,15 +173,16 @@ int run_sweep0(const void* d, const void* cc, const void* nc, const void* ok,
 
 // ---------------------------------------------------------------------------
 // B1, persistent strips: the operator of kt::sweep_strips. Operands in
-// this order: d, cc (, nc) words (, ok bytes).
+// this order: d, cc (, nc) (, gate) words (, ok bytes).
 
-template <int MODE, bool HAS_OK, bool CLAMP>
+template <int MODE, bool HAS_OK, bool CLAMP, bool VG = false>
 struct Sweep0Op {
     using T = typename Field<MODE>::T;
     static constexpr int kFields = 1;
     static constexpr bool kIds = true;
     static constexpr bool kNc = MODE == kNode;
-    static constexpr int kWords = kNc ? 3 : 2;
+    static constexpr int kGate = kNc ? 3 : 2;  // gate's operand index
+    static constexpr int kWords = 2 + (kNc ? 1 : 0) + (VG ? 1 : 0);
     static constexpr int kBytes = HAS_OK ? 1 : 0;
 
     const T* d;
@@ -173,13 +191,17 @@ struct Sweep0Op {
     const uint8_t* ok;
     T* out;
     kt::Costs9 costs;
+    const uint32_t* gate;
+    kt::Bits9 bits;
 
     __device__ T fill() const { return Field<MODE>::fill(); }
 
     __device__ const void* operand(int k) const {
         if (k == 0) return d;
         if (k == 1) return cc;
-        return k == 2 && kNc ? (const void*)nc : (const void*)ok;
+        if (kNc && k == 2) return nc;
+        if (VG && k == kGate) return gate;
+        return ok;
     }
 
     __device__ int32_t halo_id(int64_t j) const { return __ldg(cc + j); }
@@ -201,11 +223,15 @@ struct Sweep0Op {
             r = occ ? cur : fill;
         } else {
             T cand = fill;
+            uint32_t g = 0u;
+            if constexpr (VG) g = ((const uint32_t*)in.p[kGate])[i];
 #pragma unroll
             for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
                 for (int dz = 0; dz < 3; ++dz) {
-                    if (nid[rr + dy][dz] == ccc) {
+                    const bool open =
+                        !VG || ((g >> bits.b[3 * dy + dz]) & 1u) != 0u;
+                    if (nid[rr + dy][dz] == ccc && open) {
                         T sv = v[0][rr + dy][dz];
                         if (MODE == kEuclid) {
                             sv = __fadd_rn(sv, costs.c[3 * dy + dz]);
@@ -235,25 +261,30 @@ struct Sweep0Op {
 // and a voxel's operands 8 to 13 bytes a stage, so on 132 SMs with 227 KB
 // the strips hold square planes up to 896 x 896 without an okmask in
 // euclid, maxflood and minid mode, 848 x 848 with one, and 784 x 784 in
-// node mode (B2: 656 x 656).
-template <int MODE, bool HAS_OK>
+// node mode (B2: 656 x 656). The gate word of minid mode with a graph
+// makes a voxel's operands 12 bytes a stage, as node mode's: square planes
+// up to 784 x 784.
+template <int MODE, bool HAS_OK, bool VG = false>
 kt::StripPlan plan_sweep0(int H, int W) {
-    return kt::plan_grid_strips<Sweep0Op<MODE, HAS_OK, false>>(H, W);
+    return kt::plan_grid_strips<Sweep0Op<MODE, HAS_OK, false, VG>>(H, W);
 }
 
-template <int MODE, bool HAS_OK, bool CLAMP>
+template <int MODE, bool HAS_OK, bool CLAMP, bool VG = false>
 int run_sweep0_any(const void* d, const void* cc, const void* nc,
-                   const void* ok, void* mail, void* out, int n, int H, int W,
-                   const kt::Costs9& costs, int descending, cudaStream_t st) {
-    using Op = Sweep0Op<MODE, HAS_OK, CLAMP>;
+                   const void* ok, const void* gate, void* mail, void* out,
+                   int n, int H, int W, const kt::Costs9& costs,
+                   const kt::Bits9& bits, int descending, cudaStream_t st) {
+    using Op = Sweep0Op<MODE, HAS_OK, CLAMP, VG>;
     using T = typename Op::T;
-    const kt::StripPlan plan = plan_sweep0<MODE, HAS_OK>(H, W);
+    const kt::StripPlan plan = plan_sweep0<MODE, HAS_OK, VG>(H, W);
     if (plan.form != kt::kGridStrips) {
-        return run_sweep0<MODE, HAS_OK, CLAMP>(d, cc, nc, ok, out, n, H, W,
-                                               costs, descending, st);
+        return run_sweep0<MODE, HAS_OK, CLAMP, VG>(d, cc, nc, ok, gate, out,
+                                                   n, H, W, costs, bits,
+                                                   descending, st);
     }
     const Op op = {(const T*)d, (const int32_t*)cc, (const float*)nc,
-                   (const uint8_t*)ok, (T*)out, costs};
+                   (const uint8_t*)ok, (T*)out, costs,
+                   (const uint32_t*)gate, bits};
     return kt::run_grid_strips(op, (unsigned long long*)mail, n, H, W,
                                descending, plan, st);
 }
@@ -264,20 +295,21 @@ int dispatch_sweep0(const void* d, const void* cc, const void* nc,
                     int W, const kt::Costs9& costs, int clamp, int descending,
                     cudaStream_t st) {
     if (n <= 0 || H <= 0 || W <= 0) return 0;
+    const kt::Bits9 none = {};
     if (ok != nullptr) {
         return clamp ? run_sweep0_any<MODE, true, true>(
-                           d, cc, nc, ok, mail, out, n, H, W, costs,
-                           descending, st)
+                           d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
+                           none, descending, st)
                      : run_sweep0_any<MODE, true, false>(
-                           d, cc, nc, ok, mail, out, n, H, W, costs,
-                           descending, st);
+                           d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
+                           none, descending, st);
     }
-    return clamp ? run_sweep0_any<MODE, false, true>(d, cc, nc, ok, mail, out,
-                                                     n, H, W, costs,
-                                                     descending, st)
-                 : run_sweep0_any<MODE, false, false>(d, cc, nc, ok, mail,
-                                                      out, n, H, W, costs,
-                                                      descending, st);
+    return clamp ? run_sweep0_any<MODE, false, true>(
+                       d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
+                       none, descending, st)
+                 : run_sweep0_any<MODE, false, false>(
+                       d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
+                       none, descending, st);
 }
 
 template <int MODE>
@@ -494,17 +526,38 @@ int dispatch_dual(const void* da, const void* db, const void* cc,
 extern "C" {
 
 // B1. d/out: float32 (int32 in minid mode); cc: int32; nc: float32 or
-// NULL; ok: uint8 or NULL; all (n, H, W) contiguous. mode: 0 euclid,
-// 1 node, 2 maxflood, 3 minid. mail: int64 (strips * 4 * W,) for the
-// persistent form (kt_gsweep_sweep0_plan), zeroed by the caller before
-// every call: the strips' edge-row mailboxes. Returns a cudaError_t code
-// (0 = success).
+// NULL; ok: uint8 or NULL; gate: uint32 or NULL (minid mode only, with
+// neither ok nor clamp), with bits9 its nine bit indices in (dy, dz) order;
+// all (n, H, W) contiguous. mode: 0 euclid, 1 node, 2 maxflood, 3 minid.
+// mail: int64 (strips * 4 * W,) for the persistent form
+// (kt_gsweep_sweep0_plan), zeroed by the caller before every call: the
+// strips' edge-row mailboxes. Returns a cudaError_t code (0 = success).
 int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
-                     const void* ok, void* mail, void* out, int n, int H,
-                     int W, const float* costs9, int mode, int clamp,
-                     int descending, void* stream) {
+                     const void* ok, const void* gate, void* mail, void* out,
+                     int n, int H, int W, const float* costs9,
+                     const int* bits9, int mode, int clamp, int descending,
+                     void* stream) {
     const kt::Costs9 costs = kt::make_costs9(costs9);
     cudaStream_t st = (cudaStream_t)stream;
+    if ((gate == nullptr) != (bits9 == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (gate != nullptr) {
+        if (mode != kMinid || ok != nullptr || clamp) {
+            return (int)cudaErrorInvalidValue;
+        }
+        kt::Bits9 bits;
+        for (int k = 0; k < 9; ++k) {
+            bits.b[k] = bits9[k];
+            if (bits.b[k] < 0 || bits.b[k] > 31) {
+                return (int)cudaErrorInvalidValue;
+            }
+        }
+        if (n <= 0 || H <= 0 || W <= 0) return 0;
+        return run_sweep0_any<kMinid, false, false, true>(
+            d, cc, nc, nullptr, gate, mail, out, n, H, W, costs, bits,
+            descending, st);
+    }
     switch (mode) {
         case kEuclid:
             return dispatch_sweep0<kEuclid>(d, cc, nc, ok, mail, out, n, H, W,
@@ -524,12 +577,20 @@ int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
     }
 }
 
-// How B1 runs a plane of H x W in `mode` (with an okmask where has_ok) on
-// the current device: returns 1 for the persistent form (and its rows per
-// strip and its strips), 0 for the per-plane form.
-int kt_gsweep_sweep0_plan(int H, int W, int mode, int has_ok, int* rows,
-                          int* strips) {
+// How B1 runs a plane of H x W in `mode` (with an okmask where has_ok, a
+// graph gate where has_gate: minid mode only) on the current device:
+// returns 1 for the persistent form (and its rows per strip and its
+// strips), 0 for the per-plane form, -1 for a combination it does not run.
+int kt_gsweep_sweep0_plan(int H, int W, int mode, int has_ok, int has_gate,
+                          int* rows, int* strips) {
     kt::StripPlan plan = {kt::kPerPlane, {0, 0}, 0, 0};
+    if (has_gate) {
+        if (mode != kMinid || has_ok) return -1;
+        plan = plan_sweep0<kMinid, false, true>(H, W);
+        *rows = plan.strips.rows;
+        *strips = plan.strips.count;
+        return plan.form == kt::kGridStrips ? 1 : 0;
+    }
     switch (mode) {
         case kEuclid: plan = plan_sweep0_mode<kEuclid>(H, W, has_ok); break;
         case kNode: plan = plan_sweep0_mode<kNode>(H, W, has_ok); break;

@@ -61,6 +61,12 @@ inline Costs9 make_costs9(const float* host_costs) {
     return c;
 }
 
+// The nine bit indices of a voxel graph's bitfield, one per (dy, dz) move
+// of a sweep, in the order of Costs9.
+struct Bits9 {
+    int b[9];
+};
+
 constexpr int kBlockZ = 32;
 constexpr int kBlockY = 8;
 

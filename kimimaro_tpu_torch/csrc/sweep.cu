@@ -33,6 +33,14 @@
 //     in device memory) without the cc gating, for larger planes (up to
 //     1184 x 1184 in euclid mode and 1024 x 1024 in node mode on 132 SMs);
 //   * one launch per plane (`axis0_plane`) above that.
+//
+// B5 with a voxel graph (VG): the host trace path of a label under a graph
+// (kimimaro_tpu/ops/geodesic.py `_sweep` with `voxel_graph`, a lax.scan in
+// the JAX package). A candidate from the neighbour u on the previous plane
+// counts only where bit bits.b[k] of vg[u] allows the move, as in B4; in
+// the strips the bitfield rides the carried-id channel (the carried id of a
+// cell is its bitfield, the halo rows' read from the volume), 4 bytes a
+// voxel more in a stage and 4 a carried cell.
 
 #include <map>
 #include <mutex>
@@ -42,10 +50,7 @@
 
 namespace {
 
-// The nine bit indices of a voxel graph's bitfield, one per (dy, dz) move.
-struct Bits9 {
-    int b[9];
-};
+using kt::Bits9;
 
 // One voxel of a directed plane sweep of the volume that starts at `base`
 // in the buffers. With VG, a candidate from the neighbour u on the previous
@@ -86,31 +91,33 @@ __device__ __forceinline__ void sweep_cell(
     out[i] = nv;
 }
 
-template <bool NODE, bool CLAMP>
+template <bool NODE, bool CLAMP, bool VG>
 __global__ void axis0_plane(const float* __restrict__ d,
                             const uint8_t* __restrict__ ok,
                             const float* __restrict__ nc,
+                            const uint32_t* __restrict__ vg,
                             float* __restrict__ out, int H, int W,
-                            int64_t plane, int64_t prev, kt::Costs9 costs) {
+                            int64_t plane, int64_t prev, kt::Costs9 costs,
+                            Bits9 bits) {
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (y >= H || z >= W) return;
-    sweep_cell<NODE, CLAMP, false>(d, ok, nc, nullptr, out, H, W, 0, plane,
-                                   prev, y, z, costs, Bits9{});
+    sweep_cell<NODE, CLAMP, VG>(d, ok, nc, vg, out, H, W, 0, plane, prev, y,
+                                z, costs, bits);
 }
 
-template <bool NODE, bool CLAMP>
-int run_axis0(const void* d, const void* ok, const void* nc, void* out, int n,
-              int H, int W, const kt::Costs9& costs, int descending,
-              cudaStream_t st) {
+template <bool NODE, bool CLAMP, bool VG>
+int run_axis0(const void* d, const void* ok, const void* nc, const void* vg,
+              void* out, int n, int H, int W, const kt::Costs9& costs,
+              const Bits9& bits, int descending, cudaStream_t st) {
     const dim3 grid = kt::plane_grid(H, W);
     const dim3 block = kt::plane_block();
     for (int s = 0; s < n; ++s) {
         int64_t plane, prev;
         kt::sweep_planes(s, n, descending, &plane, &prev);
-        axis0_plane<NODE, CLAMP><<<grid, block, 0, st>>>(
+        axis0_plane<NODE, CLAMP, VG><<<grid, block, 0, st>>>(
             (const float*)d, (const uint8_t*)ok, (const float*)nc,
-            (float*)out, H, W, plane, prev, costs);
+            (const uint32_t*)vg, (float*)out, H, W, plane, prev, costs, bits);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
@@ -118,13 +125,15 @@ int run_axis0(const void* d, const void* ok, const void* nc, void* out, int n,
 }
 
 // B5 in the strips (cluster or grid-wide): the operator of
-// kt::sweep_strips. Operands in this order: d (, nc) words, ok bytes.
-template <bool NODE, bool CLAMP>
+// kt::sweep_strips. Operands in this order: d (, nc) (, vg) words, ok
+// bytes.
+template <bool NODE, bool CLAMP, bool VG = false>
 struct Axis0Op {
     using T = float;
     static constexpr int kFields = 1;
-    static constexpr bool kIds = false;
-    static constexpr int kWords = NODE ? 2 : 1;
+    static constexpr bool kIds = VG;
+    static constexpr int kVg = NODE ? 2 : 1;  // vg's operand index
+    static constexpr int kWords = 1 + (NODE ? 1 : 0) + (VG ? 1 : 0);
     static constexpr int kBytes = 1;
 
     const float* d;
@@ -132,23 +141,31 @@ struct Axis0Op {
     const float* nc;
     float* out;
     kt::Costs9 costs;
+    const uint32_t* vg;
+    Bits9 bits;
 
     __device__ float fill() const { return INFINITY; }
 
     __device__ const void* operand(int k) const {
         if (k == 0) return d;
-        return k == 1 && NODE ? (const void*)nc : (const void*)ok;
+        if (NODE && k == 1) return nc;
+        if (VG && k == kVg) return vg;
+        return ok;
     }
 
-    __device__ int32_t halo_id(int64_t) const { return 0; }
+    __device__ int32_t halo_id(int64_t j) const {
+        return VG ? (int32_t)vg[j] : 0;
+    }
 
-    // the arithmetic of `sweep_cell`, in its order
+    // the arithmetic of `sweep_cell`, in its order; with VG the carried
+    // ids are the neighbours' bitfields
     __device__ __forceinline__ void relax(
         bool first, const kt::StageView<kWords + kBytes>& in, int i,
         const float (&v)[1][kt::kGroup + 2][3],
-        const int32_t (&)[kt::kGroup + 2][3], int rr, float (&nv)[1],
-        int32_t&) const {
+        const int32_t (&nid)[kt::kGroup + 2][3], int rr, float (&nv)[1],
+        int32_t& cid) const {
         const float cur = ((const float*)in.p[0])[i];
+        if constexpr (VG) cid = ((const int32_t*)in.p[kVg])[i];
         if (first) {
             nv[0] = cur;
             return;
@@ -158,7 +175,11 @@ struct Axis0Op {
         for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
             for (int dz = 0; dz < 3; ++dz) {
-                const float sv = v[0][rr + dy][dz];
+                float sv = v[0][rr + dy][dz];
+                if (VG && ((((uint32_t)nid[rr + dy][dz]) >>
+                            bits.b[3 * dy + dz]) & 1u) == 0u) {
+                    sv = INFINITY;
+                }
                 cand = NODE ? fminf(cand, sv)
                             : fminf(cand, __fadd_rn(sv, costs.c[3 * dy + dz]));
             }
@@ -177,8 +198,8 @@ struct Axis0Op {
 // How B5 runs a plane of H x W: one cluster, grid-wide strips or per plane
 // (the form in the order of preference that the shape and the device
 // allow). The answer depends on the shape and the device only, and costs
-// device queries, so it is kept per (device, H, W, mode).
-template <bool NODE>
+// device queries, so it is kept per (device, H, W, mode, vg).
+template <bool NODE, bool VG>
 kt::StripPlan plan_axis0(int H, int W) {
     static std::mutex lock;
     static std::map<std::tuple<int, int, int>, kt::StripPlan> plans;
@@ -188,25 +209,27 @@ kt::StripPlan plan_axis0(int H, int W) {
     std::lock_guard<std::mutex> guard(lock);
     const auto found = plans.find(key);
     if (found != plans.end()) return found->second;
-    using Op = Axis0Op<NODE, false>;
+    using Op = Axis0Op<NODE, false, VG>;
     kt::StripPlan plan = kt::plan_cluster<Op>(H, W);
     if (plan.form != kt::kCluster) plan = kt::plan_grid_strips<Op>(H, W);
     plans[key] = plan;
     return plan;
 }
 
-template <bool NODE, bool CLAMP>
-int dispatch_axis0(const void* d, const void* ok, const void* nc, void* mail,
-                   void* out, int n, int H, int W, const kt::Costs9& costs,
-                   int descending, cudaStream_t st) {
+template <bool NODE, bool CLAMP, bool VG>
+int dispatch_axis0(const void* d, const void* ok, const void* nc,
+                   const void* vg, void* mail, void* out, int n, int H, int W,
+                   const kt::Costs9& costs, const Bits9& bits, int descending,
+                   cudaStream_t st) {
     if (n <= 0 || H <= 0 || W <= 0) return 0;
-    const kt::StripPlan plan = plan_axis0<NODE>(H, W);
+    const kt::StripPlan plan = plan_axis0<NODE, VG>(H, W);
     if (plan.form == kt::kPerPlane) {
-        return run_axis0<NODE, CLAMP>(d, ok, nc, out, n, H, W, costs,
-                                      descending, st);
+        return run_axis0<NODE, CLAMP, VG>(d, ok, nc, vg, out, n, H, W, costs,
+                                          bits, descending, st);
     }
-    const Axis0Op<NODE, CLAMP> op = {(const float*)d, (const uint8_t*)ok,
-                                     (const float*)nc, (float*)out, costs};
+    const Axis0Op<NODE, CLAMP, VG> op = {
+        (const float*)d, (const uint8_t*)ok, (const float*)nc, (float*)out,
+        costs, (const uint32_t*)vg, bits};
     if (plan.form == kt::kCluster) {
         return kt::run_cluster(op, n, H, W, descending, plan, st);
     }
@@ -620,35 +643,72 @@ int kt_sweep_axis0_batched_plan(int B, int H, int W, int node_mode,
     return plan.form;
 }
 
-// B5. d/out/nc: float32, ok: uint8 (bool), all (n, H, W) contiguous; nc
-// may be NULL when node_mode is 0. mail: int64 (strips * 4 * W,) for the
-// grid-wide strips (kt_sweep_axis0_plan form 1), zeroed by the caller
-// before every call, else ignored. Returns a cudaError_t code (0 =
-// success).
-int kt_sweep_axis0(const void* d, const void* ok, const void* nc, void* mail,
-                   void* out, int n, int H, int W, const float* costs9,
-                   int node_mode, int clamp, int descending, void* stream) {
-    const kt::Costs9 costs = kt::make_costs9(costs9);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (node_mode) {
-        if (nc == nullptr) return (int)cudaErrorInvalidValue;
-        return clamp ? dispatch_axis0<true, true>(d, ok, nc, mail, out, n, H,
-                                                  W, costs, descending, st)
-                     : dispatch_axis0<true, false>(d, ok, nc, mail, out, n, H,
-                                                   W, costs, descending, st);
+// B5. d/out/nc: float32, ok: uint8 (bool), vg: uint32, all (n, H, W)
+// contiguous; nc may be NULL when node_mode is 0, vg and bits9 are both
+// NULL or both given (bits9: nine bit indices in (dy, dz) order). mail:
+// int64 (strips * 4 * W,) for the grid-wide strips (kt_sweep_axis0_plan
+// form 1), zeroed by the caller before every call, else ignored. Returns a
+// cudaError_t code (0 = success).
+int kt_sweep_axis0(const void* d, const void* ok, const void* nc,
+                   const void* vg, void* mail, void* out, int n, int H, int W,
+                   const float* costs9, const int* bits9, int node_mode,
+                   int clamp, int descending, void* stream) {
+    if (node_mode && nc == nullptr) return (int)cudaErrorInvalidValue;
+    if ((vg == nullptr) != (bits9 == nullptr)) {
+        return (int)cudaErrorInvalidValue;
     }
-    return clamp ? dispatch_axis0<false, true>(d, ok, nc, mail, out, n, H, W,
-                                               costs, descending, st)
-                 : dispatch_axis0<false, false>(d, ok, nc, mail, out, n, H, W,
-                                                costs, descending, st);
+    const kt::Costs9 costs = kt::make_costs9(costs9);
+    Bits9 bits;
+    for (int k = 0; k < 9; ++k) {
+        bits.b[k] = bits9 ? bits9[k] : 0;
+        if (bits.b[k] < 0 || bits.b[k] > 31) return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    if (vg != nullptr) {
+        if (node_mode) {
+            return clamp ? dispatch_axis0<true, true, true>(
+                               d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                               descending, st)
+                         : dispatch_axis0<true, false, true>(
+                               d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                               descending, st);
+        }
+        return clamp ? dispatch_axis0<false, true, true>(
+                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                           descending, st)
+                     : dispatch_axis0<false, false, true>(
+                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                           descending, st);
+    }
+    if (node_mode) {
+        return clamp ? dispatch_axis0<true, true, false>(
+                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                           descending, st)
+                     : dispatch_axis0<true, false, false>(
+                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                           descending, st);
+    }
+    return clamp ? dispatch_axis0<false, true, false>(
+                       d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                       descending, st)
+                 : dispatch_axis0<false, false, false>(
+                       d, ok, nc, vg, mail, out, n, H, W, costs, bits,
+                       descending, st);
 }
 
-// How B5 runs a plane of H x W on the current device: returns the form
-// (0 per plane, 1 grid-wide strips, 2 one cluster) with its rows per strip
-// and its strips (CTAs).
-int kt_sweep_axis0_plan(int H, int W, int node_mode, int* rows, int* ctas) {
-    const kt::StripPlan plan =
-        node_mode ? plan_axis0<true>(H, W) : plan_axis0<false>(H, W);
+// How B5 runs a plane of H x W on the current device (with a voxel graph
+// where has_vg): returns the form (0 per plane, 1 grid-wide strips, 2 one
+// cluster) with its rows per strip and its strips (CTAs).
+int kt_sweep_axis0_plan(int H, int W, int node_mode, int has_vg, int* rows,
+                        int* ctas) {
+    kt::StripPlan plan;
+    if (node_mode) {
+        plan = has_vg ? plan_axis0<true, true>(H, W)
+                      : plan_axis0<true, false>(H, W);
+    } else {
+        plan = has_vg ? plan_axis0<false, true>(H, W)
+                      : plan_axis0<false, false>(H, W);
+    }
     *rows = plan.strips.rows;
     *ctas = plan.strips.count;
     return plan.form;

@@ -22,6 +22,10 @@ buffer, or a refilled soma thicker than the re-EDT band, which more
 rounds cannot change), goes back to the caller for the host trace path.
 The fallback set equals the JAX engine's; `relax_retries` counts only
 the re-runs made.
+
+Under a voxel graph (self-touch walls) each lane also crops the graph
+with its label: it gates every relaxation (B4's graph-gated form), the
+soma re-EDT's runs and, padded with zeros, the rail chase.
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from .ops.chase import RELAX_ROUNDS, chase_batched
+from .ops.edt import AXIS_UNIT, wall_segments
 from .ops.fma import fma_f32
 from .ops.geodesic import _flood6_stage, relax_rounds_batched
+from .ops.stencils import graph_allows, graph_word
 from .skeleton import Skeleton
 from .trace import _pdrf_kernel, root_distance
 from .utils import profiling
@@ -127,20 +133,21 @@ def _bcast(flags, ndim=4):
 
 
 def _relax_where(sel, d, ok, nc, anisotropy, rounds, clamp_positive=False,
-                 conv="exact"):
-    """relax_rounds_batched on the lanes where `sel` holds. The other
-    lanes keep `d` and report converged: the JAX engine computes them too
-    and selects them away."""
+                 conv="exact", vg=None):
+    """relax_rounds_batched on the lanes where `sel` holds (with the
+    lanes' voxel graphs `vg`, where given). The other lanes keep `d` and
+    report converged: the JAX engine computes them too and selects them
+    away."""
     idx = sel.nonzero()[:, 0]
     if idx.numel() == sel.numel():
         return relax_rounds_batched(d, ok, nc, anisotropy, rounds,
-                                    clamp_positive, conv)
+                                    clamp_positive, conv, vg)
     out = d.clone()
     done = torch.ones_like(sel)
     if idx.numel():
         sub, c = relax_rounds_batched(
             d[idx], ok[idx], None if nc is None else nc[idx], anisotropy,
-            rounds, clamp_positive, conv)
+            rounds, clamp_positive, conv, None if vg is None else vg[idx])
         out[idx] = sub
         done[idx] = c
     return out, done
@@ -167,13 +174,14 @@ def _pad_last(t, band, fill):
     return out
 
 
-def _crop_edtsq_banded(labels, anisotropy, black_border):
+def _crop_edtsq_banded(labels, anisotropy, black_border, vg=None):
     """Squared multi-label EDT of each lane's crop with static bands of
     EDT_BAND_CAP (counterpart of the JAX engine's `_crop_edtsq_banded`).
-    labels: (B, X, Y, Z) uint8; black_border: (B,) bool. Exact when every
-    distance fits the band; the second result flags, per lane, a
-    foreground value above the smallest clipped band's reach (the caller
-    escalates)."""
+    labels: (B, X, Y, Z) uint8; black_border: (B,) bool; vg: the lanes'
+    voxel graphs or None (a blocked +axis edge breaks a line like a label
+    change). Exact when every distance fits the band; the second result
+    flags, per lane, a foreground value above the smallest clipped band's
+    reach (the caller escalates)."""
     band_cap = EDT_BAND_CAP
     shape = tuple(labels.shape[1:])
     dev = labels.device
@@ -191,13 +199,20 @@ def _crop_edtsq_banded(labels, anisotropy, black_border):
         d_t = torch.movedim(d, 1 + axis, -1)
         d_p = _pad_last(d_t, band, _BIG)
         l_p = _pad_last(lab_t, band, 0)
+        wall_t = w_p = None
+        if vg is not None:
+            wall_t = wall_segments(torch.movedim(
+                graph_allows(vg, AXIS_UNIT[axis]), 1 + axis, -1), -1)
+            w_p = _pad_last(wall_t, band, -1)
         pos = torch.arange(n, device=dev)
         best = torch.full_like(d_t, _BIG)
         for o in range(2 * band + 1):
             off = np.float32(o - band)
             inside = (pos + (o - band) >= 0) & (pos + (o - band) < n)
-            g = torch.where(l_p[..., o:o + n] == lab_t,
-                            d_p[..., o:o + n], 0.0)
+            same = l_p[..., o:o + n] == lab_t
+            if w_p is not None:
+                same = same & (w_p[..., o:o + n] == wall_t)
+            g = torch.where(same, d_p[..., o:o + n], 0.0)
             g = torch.where(inside, g, oob_g)
             step = float(np.float32(np.float32(w * w) * off) * off)
             best = torch.minimum(best, g + step)
@@ -240,12 +255,14 @@ def _find_soma_root(dbf, dbf_max):
     return _unravel(torch.argmin(d2.flatten(1), dim=1), shape)
 
 
-def _euclid_field(fg, src, anisotropy, rounds):
-    """Geodesic euclidean field from one source voxel per lane. Returns
-    (dist, converged)."""
+def _euclid_field(fg, src, anisotropy, rounds, vg=None):
+    """Geodesic euclidean field from one source voxel per lane (gated by
+    the lanes' voxel graphs `vg`, where given). Returns (dist,
+    converged)."""
     init = torch.full(fg.shape, INF, dtype=torch.float32, device=fg.device)
     init = _scatter(init, src[:, None, :], 0.0)
-    return relax_rounds_batched(init, fg, None, anisotropy, rounds)
+    return relax_rounds_batched(init, fg, None, anisotropy, rounds,
+                                voxel_graph=vg)
 
 
 # --------------------------------------------------------------------------- #
@@ -257,15 +274,16 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
                  crop_shape: Tuple[int, int, int],
                  anisotropy: Tuple[float, float, float], fix_branching: bool,
                  K: int, L: int, relax_rounds: int = RELAX_ROUNDS,
-                 soma_possible: bool = True):
+                 soma_possible: bool = True, vg_vol=None):
     """The per-label trace of the JAX engine's `_one_label`, for a batch of
     labels. Host arrays: lids (B,), offs (B, 3) crop origins, before and
     after (B, T_CAP, 3) manual targets in crop frame with counts
     n_before / n_after (B,), root_in (B, 3) with has_root (B,),
     max_paths_in (B,) (<= 0: no cap). `prm` holds the float32 TEASAR
-    scalars. Returns device tensors (paths (B, K, L, 3) int64 target-first
-    with -1 padding, lens (B, K), n_paths (B,), overflow (B,), nc_bits
-    (B,), radii (B, K, L)).
+    scalars; `vg_vol` the volume's voxel graph (int32 words) or None.
+    Returns device tensors (paths (B, K, L, 3) int64 target-first with -1
+    padding, lens (B, K), n_paths (B,), overflow (B,), nc_bits (B,),
+    radii (B, K, L)).
 
     nc_bits marks which bounded relaxation did not converge: 1 fill,
     2 probe, 4 DAF, 8 rail, 16 ball, 32 warm rail, 64 re-EDT truncated
@@ -283,12 +301,17 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
 
     lab = torch.zeros((B,) + shape, dtype=cc.dtype, device=dev)
     dbf = torch.zeros((B,) + shape, dtype=torch.float32, device=dev)
+    # each lane's crop of the voxel graph rides with its label
+    vg = (None if vg_vol is None else
+          torch.zeros((B,) + shape, dtype=torch.int32, device=dev))
     for b in range(B):
         if lids[b] > 0:
             sl = tuple(slice(int(o), int(o) + s)
                        for o, s in zip(offs[b], shape))
             lab[b] = cc[sl]
             dbf[b] = dbf_vol[sl]
+            if vg is not None:
+                vg[b] = vg_vol[sl]
     lid = t(lids, cc.dtype)
     fg = (lab == _bcast(lid)) & _bcast(lid > 0)
     del lab
@@ -305,7 +328,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         filled, conv_f = _crop_fill(fg_r, r_main)
         take = filled.flatten(1).sum(dim=1) > fg_r.flatten(1).sum(dim=1)
         dsq, edt_ok = _crop_edtsq_banded(
-            filled.to(torch.uint8), anis, filled.flatten(1).all(dim=1))
+            filled.to(torch.uint8), anis, filled.flatten(1).all(dim=1),
+            None if vg is None else vg[ridx])
         dbf1 = torch.where(filled, torch.sqrt(dsq.double()).float(), 0.0)
         fg[ridx] = torch.where(_bcast(take), filled, fg_r)
         dbf[ridx] = torch.where(_bcast(take), dbf1, dbf[ridx])
@@ -325,7 +349,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     soma_root = _find_soma_root(dbf, dbf_max)
     first_vox = _unravel(torch.argmax(fg.flatten(1).to(torch.uint8), dim=1),
                          shape)
-    d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main)
+    d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main, vg)
     nc_bits |= torch.where(conv_p, 0, 2).int()
     auto_root = _masked_argmax_coords(
         torch.where(torch.isfinite(d_probe), d_probe, -INF), fg)
@@ -337,7 +361,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
 
     # --- DAF + PDRF (reference trace.py:138-148,315-356)
     dbf_inf = torch.where(dbf == 0, INF, dbf)
-    daf, conv_d = _euclid_field(fg, root, anis, r_main)
+    daf, conv_d = _euclid_field(fg, root, anis, r_main, vg)
     nc_bits |= torch.where(conv_d, 0, 4).int()
     daf = torch.where(torch.isfinite(daf), daf, 0.0)
     daf_target = _masked_argmax_coords(daf, fg)
@@ -357,7 +381,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         init = _scatter(init, root[:, None, :], -r)
         ok = _scatter(valid, root[:, None, :], True)
         bd, conv_s = _relax_where(soma_mode, init, ok, None, anis, r_ball,
-                                  clamp_positive=True, conv="negative")
+                                  clamp_positive=True, conv="negative",
+                                  vg=vg)
         valid = torch.where(_bcast(soma_mode), valid & ~(bd <= 0.0), valid)
         nc_bits |= torch.where(conv_s, 0, 16).int()
         del init, ok, bd
@@ -387,7 +412,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     pdrf = _scatter(pdrf, root[:, None, :], 0.0)
     d0 = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
     d_rail, conv_r = relax_rounds_batched(_scatter(d0, root[:, None, :], 0.0),
-                                          fg, pdrf, anis, r_main)
+                                          fg, pdrf, anis, r_main,
+                                          voxel_graph=vg)
     nc_bits |= torch.where(conv_r, 0, 8).int()
     del d0
 
@@ -401,6 +427,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     anis_t = torch.tensor(anis, dtype=torch.float32, device=dev)
     cap = torch.clamp(max_paths, max=K)
     pos = torch.arange(L, device=dev)
+    # the chase's graph: no permission across the crop's edge
+    vg_pad = None if vg is None else F.pad(vg, (1, 1, 1, 1, 1, 1), value=0)
     while True:
         act = (((vc > 0) | (nb > 0) | (na > 0)) & (k < cap) & ~ov
                & (nc == 0) & ~blocked)
@@ -419,7 +447,9 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         na[a] = torch.where(use_after, na_a - 1, na_a)
 
         d_pad = F.pad(d_rail[a], (1, 1, 1, 1, 1, 1), value=INF)
-        path, plen, reached = chase_batched(d_pad, target, L)
+        vg_a = None if vg is None else vg[a]
+        path, plen, reached = chase_batched(
+            d_pad, target, L, None if vg_pad is None else vg_pad[a])
         del d_pad
         ov[a] = ov[a] | ~reached
 
@@ -439,7 +469,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         ok_inv = _scatter(valid_a, path, True)
         inv = vc_a > 0
         bd, conv_b = _relax_where(inv, init, ok_inv, None, anis, r_ball,
-                                  clamp_positive=True, conv="negative")
+                                  clamp_positive=True, conv="negative",
+                                  vg=vg_a)
         ball = (bd <= 0.0) & _bcast(inv)
         valid[a] = valid_a & ~ball
         vc[a] = vc_a - (ball & valid_a).flatten(1).sum(dim=1)
@@ -450,7 +481,8 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         if fix_branching:
             pdrf_a = _scatter(pdrf[a], path, 0.0)
             d_warm, conv_w = relax_rounds_batched(
-                _scatter(d_rail[a], path, 0.0), fg[a], pdrf_a, anis, r_warm)
+                _scatter(d_rail[a], path, 0.0), fg[a], pdrf_a, anis, r_warm,
+                voxel_graph=vg_a)
             pdrf[a] = pdrf_a
             d_rail[a] = d_warm
             nc_a = nc_a | torch.where(conv_w, 0, 32).int()
@@ -478,12 +510,14 @@ def trace_batched(
     teasar_params: dict,
     anisotropy: Sequence[float],
     fix_branching: bool,
+    voxel_graph=None,
 ) -> Tuple[Dict[int, List[Tuple[np.ndarray, np.ndarray]]], List[dict]]:
     """Trace labels in device batches (counterpart of
-    kimimaro_tpu.engine.trace_batched without its multi-chip crop source
-    and voxel graph).
+    kimimaro_tpu.engine.trace_batched without its multi-chip crop source).
 
-    cc_dev / dbf_dev: the component-id and DBF volumes on the device.
+    cc_dev / dbf_dev: the component-id and DBF volumes on the device;
+    voxel_graph: their voxel graph (uint32 or int32, on that device) or
+    None.
     jobs: [{segid, offset (3,), shape (3,), before [(x,y,z)...],
             after [...], root (x,y,z)|None, count, dbfmax}]
     Returns ({segid: [(path_vertices, path_radii), ...]}, fallback_jobs).
@@ -504,6 +538,7 @@ def trace_batched(
     max_paths = p.get("max_paths", None)
     anis = tuple(float(a) for a in anisotropy)
     vol_shape = tuple(int(s) for s in cc_dev.shape)
+    vg_vol = None if voxel_graph is None else graph_word(voxel_graph)
     # labels whose DBF max (host-known) reaches neither threshold run
     # without the soma branches
     soma_cut = min(float(p.get("soma_detection_threshold", 1100)),
@@ -605,7 +640,7 @@ def trace_batched(
                     roots, [j.get("root") is not None for j in chunk],
                     [int(max_paths) if max_paths is not None else -1] * B,
                     prm, bshape, anis, bool(fix_branching), K_CAP, L,
-                    relax_rounds, soma)
+                    relax_rounds, soma, vg_vol)
                 drain(chunk, outs, retry)
         return retry
 

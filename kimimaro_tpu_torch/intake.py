@@ -17,6 +17,12 @@ and boxes on the host. Every label is then soma-possible (no DBF max), so
 the global engine takes none and the crop engine takes all. A
 CompressedLabelVolume streams slab by slab into one device volume.
 
+With a `voxel_graph` (self-touch walls, cc3d convention) the graph goes
+to the device as uint32 beside the labels; the CCL and every EDT take it,
+the global engine is bypassed, and every label goes to the crop engine,
+which gates its relaxations, re-EDT and chase by the graph (the labels it
+hands back take the host trace path with their crop of it).
+
 Stages: upload, ccl, edt, label_info (or fill_holes, avocado_pass_{i},
 avocado_edt), border_targets, gengine, crop_engine, finalize,
 host_fallback, merge.
@@ -190,11 +196,12 @@ def skeletonize(
     The signature of kimimaro_tpu.skeletonize plus `device` ("cuda" or
     "cpu"). Returns {segid: Skeleton} with vertices in physical space.
     `progress`, `parallel` and `parallel_chunk_size` are accepted for API
-    parity (`progress` draws no bar). `voxel_graph` is not ported yet and
-    raises.
+    parity (`progress` draws no bar). `voxel_graph`: an optional
+    cc3d-convention connectivity bitfield of the labels' shape (bit k at a
+    voxel permits leaving it along ops.stencils.GRAPH_BITS' offset k): the
+    components, distances and paths respect its walls, and every label is
+    traced by the crop engine (or the host trace path).
     """
-    if voxel_graph is not None:
-        raise NotImplementedError("voxel_graph is not ported yet")
     device = resolve_device(device)
     anisotropy = np.array(anisotropy, dtype=np.float32)
     host_stages = fill_holes or fix_avocados
@@ -239,9 +246,16 @@ def skeletonize(
     with phase("upload", device):
         labels_dev = (stream_upload(device) if streaming
                       else _upload(all_labels, device))
+        vg_dev = None
+        if voxel_graph is not None:
+            vg_host = np.asarray(voxel_graph)
+            while vg_host.ndim < 3:
+                vg_host = vg_host[..., np.newaxis]
+            vg_dev = torch.from_numpy(
+                np.ascontiguousarray(vg_host, dtype=np.uint32)).to(device)
     with phase("ccl", device):
         cc_dev, n_components, rep_prefix = compact_cc(
-            connected_components(labels_dev))
+            connected_components(labels_dev, voxel_graph=vg_dev))
     if n_components == 0:
         return {}
 
@@ -249,7 +263,8 @@ def skeletonize(
 
     def edtfn_dev(cc):
         return edt_ops.edt(cc, anisotropy=anis_t,
-                           black_border=(minlabel == maxlabel))
+                           black_border=(minlabel == maxlabel),
+                           voxel_graph=vg_dev)
 
     dbfmax_arr = None  # per-label DBF max; only the device preamble has it
     if host_stages:
@@ -361,28 +376,20 @@ def skeletonize(
                        else float(dbfmax_arr[segid])),
         })
 
-    with phase("gengine", device):
-        firstvox_arr = None
-        if not host_stages:
-            # each component's lexicographically first voxel, from the
-            # monotone root prefix (compact ids are first-appearance
-            # ordered); the host stages renumber, so the engine finds them
-            fv_flat = torch.searchsorted(
-                rep_prefix, torch.arange(1, n_components + 1,
-                                         dtype=torch.int32, device=device)
-            ).to("cpu").numpy()
-            fv_flat = np.minimum(fv_flat, n_voxels - 1)
-            firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
-            firstvox_arr[1:] = np.stack(
-                np.unravel_index(fv_flat, tuple(cc_dev.shape)), axis=-1)
-        results, crop_jobs = gengine.trace_global(
-            cc_dev, dbf_dev, jobs, teasar_params, anisotropy, fix_branching,
-            firstvox_arr=firstvox_arr)
+    if vg_dev is not None:
+        # the global engine runs no graph: every label to the crop engine
+        results, crop_jobs = {}, jobs
+    else:
+        with phase("gengine", device):
+            results, crop_jobs = _trace_global(
+                cc_dev, dbf_dev, jobs, teasar_params, anisotropy,
+                fix_branching, None if host_stages else rep_prefix,
+                n_components, n_voxels)
     profiling.count("crop_engine_jobs", len(crop_jobs))
     with phase("crop_engine", device):
         crop_results, fallback_jobs = engine.trace_batched(
             cc_dev, dbf_dev, crop_jobs, teasar_params, anisotropy,
-            fix_branching)
+            fix_branching, voxel_graph=vg_dev)
         results.update(crop_results)
     profiling.count("engine_jobs", len(jobs) - len(fallback_jobs))
     profiling.count("fallback_jobs", len(fallback_jobs))
@@ -412,19 +419,42 @@ def skeletonize(
     # labels neither engine could hold: the host trace path
     with phase("host_fallback", device):
         _run_host_fallback(
-            fallback_jobs, cc_dev, dbf_dev, remapping, skeletons,
+            fallback_jobs, cc_dev, dbf_dev, vg_dev, remapping, skeletons,
             teasar_params, anisotropy, fix_branching)
 
     with phase("merge"):
         return merge(skeletons)
 
 
-def _run_host_fallback(fallback_jobs, cc_dev, dbf_dev, remapping, skeletons,
-                       teasar_params, anisotropy, fix_branching):
+def _trace_global(cc_dev, dbf_dev, jobs, teasar_params, anisotropy,
+                  fix_branching, rep_prefix, n_components, n_voxels):
+    """The global engine on `jobs`: (results, the jobs it hands back).
+    `rep_prefix` (None after the host stages, which renumber) gives each
+    component's first voxel; without it the engine finds them."""
+    device = cc_dev.device
+    firstvox_arr = None
+    if rep_prefix is not None:
+        # each component's lexicographically first voxel, from the
+        # monotone root prefix (compact ids are first-appearance ordered)
+        fv_flat = torch.searchsorted(
+            rep_prefix, torch.arange(1, n_components + 1, dtype=torch.int32,
+                                     device=device)).to("cpu").numpy()
+        fv_flat = np.minimum(fv_flat, n_voxels - 1)
+        firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
+        firstvox_arr[1:] = np.stack(
+            np.unravel_index(fv_flat, tuple(cc_dev.shape)), axis=-1)
+    return gengine.trace_global(
+        cc_dev, dbf_dev, jobs, teasar_params, anisotropy, fix_branching,
+        firstvox_arr=firstvox_arr)
+
+
+def _run_host_fallback(fallback_jobs, cc_dev, dbf_dev, vg_dev, remapping,
+                       skeletons, teasar_params, anisotropy, fix_branching):
     """Per-label host trace loop for the jobs the crop engine could not
     hold: more than T_CAP manual targets, path capacity overflow, or
     relaxations still unconverged after its escalation (kimimaro's plain
-    serial path, intake.py:434-517). The crops stay on the device of
+    serial path, intake.py:434-517), each with its crop of the voxel
+    graph `vg_dev` where there is one. The crops stay on the device of
     `cc_dev`."""
     for job in fallback_jobs:
         segid = job["segid"]
@@ -440,6 +470,7 @@ def _run_host_fallback(fallback_jobs, cc_dev, dbf_dev, remapping, skeletons,
             manual_targets_before=list(job["before"]),
             manual_targets_after=list(job["after"]),
             root=job["root"],
+            voxel_graph=None if vg_dev is None else vg_dev[slc],
             device=cc_dev.device,
             **teasar_params,
         )

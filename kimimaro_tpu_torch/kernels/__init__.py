@@ -37,13 +37,16 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
-# F1)
+# F1); the forms gated by a voxel graph (B1, B4, B5) count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
+    "gsweep_sweep0_vg": 0,
     "gsweep_sweep0_dual": 0,
     "crop_argmax": 0,
     "sweep_axis0_batched": 0,
+    "sweep_axis0_batched_vg": 0,
     "sweep_axis0": 0,
+    "sweep_axis0_vg": 0,
     "fetch_secb": 0,
     "section_flood": 0,
     "fma_f32": 0,
@@ -121,10 +124,10 @@ def lib() -> ctypes.CDLL:
         build()
         so = ctypes.CDLL(str(_library_path()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.kt_gsweep_sweep0.argtypes = [p, p, p, p, p, p, i, i, i, p, i, i,
-                                        i, p]
+        so.kt_gsweep_sweep0.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p,
+                                        i, i, i, p]
         so.kt_gsweep_sweep0.restype = i
-        so.kt_gsweep_sweep0_plan.argtypes = [i, i, i, i, p, p]
+        so.kt_gsweep_sweep0_plan.argtypes = [i, i, i, i, i, p, p]
         so.kt_gsweep_sweep0_plan.restype = i
         so.kt_gsweep_sweep0_dual.argtypes = [p, p, p, p, p, p, p, p,
                                              i, i, i, p, i, i, p]
@@ -134,9 +137,10 @@ def lib() -> ctypes.CDLL:
         so.kt_crop_argmax.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                       p, p, p, p, p]
         so.kt_crop_argmax.restype = i
-        so.kt_sweep_axis0.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, p]
+        so.kt_sweep_axis0.argtypes = [p, p, p, p, p, p, i, i, i, p, p, i, i,
+                                      i, p]
         so.kt_sweep_axis0.restype = i
-        so.kt_sweep_axis0_plan.argtypes = [i, i, i, p, p]
+        so.kt_sweep_axis0_plan.argtypes = [i, i, i, i, p, p]
         so.kt_sweep_axis0_plan.restype = i
         so.kt_sweep_axis0_batched.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                               p, p, i, i, i, p]

@@ -7,6 +7,13 @@ voxel starts as its own 1-based linear index; minid sweep rounds
 unconverged after the first rounds are accelerated by pointer jumps. The
 fixpoint is unique (each component carries its minimum linear index), so
 the schedule does not change the result.
+
+With a voxel graph (cc3d convention, self-touch walls) the sweeps run B1's
+graph-gated form: a neighbour's id moves into a voxel only where the
+neighbour's bit for that move is set (ops.stencils.graph_into holds these
+permissions at the receiving voxel). The fixpoint is still unique: each
+voxel carries the minimum linear index over the voxels that reach it,
+which pointer jumps keep, also for an asymmetric graph.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import gsweep
+from .stencils import graph_into
 
 BIGID = 2**31 - 1
 
@@ -34,21 +42,27 @@ def _jump(ids):
     return torch.minimum(ids, hop)
 
 
-def connected_components(labels: torch.Tensor) -> torch.Tensor:
+def connected_components(labels: torch.Tensor,
+                         voxel_graph=None) -> torch.Tensor:
     """Raw 26-connected multi-label CCL of an int32 label volume (labels
     wider than 32 bits must be renumbered first; unsigned 32-bit labels
     are passed bitcast to int32, which keeps equality and != 0). Returns
     an int32 volume where each component is labeled by the 1-based
-    minimum linear index of its voxels; background is 0."""
+    minimum linear index of its voxels; background is 0. `voxel_graph`:
+    an optional cc3d-convention bitfield of the same shape (uint32 or
+    int32) on the same device."""
     if labels.ndim != 3 or labels.dtype != torch.int32:
         raise ValueError("connected_components takes a 3D int32 volume")
     fg = labels != 0
     ids = torch.where(fg, _lin(labels.shape, labels.device), BIGID)
     cc_v = gsweep.MaskViews(labels)
+    gate_v = (None if voxel_graph is None
+              else gsweep.MaskViews(graph_into(voxel_graph)))
     anis = (1.0, 1.0, 1.0)
 
     def sweep_round(x):
-        return gsweep.one_round(x, cc_v, None, None, anis, "minid", False)
+        return gsweep.one_round(x, cc_v, None, None, anis, "minid", False,
+                                gate_v)
 
     for r in range(_MAX_ROUNDS):
         if r < _PHASE1_ROUNDS:

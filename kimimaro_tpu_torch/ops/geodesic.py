@@ -10,10 +10,16 @@ until one changes nothing, so the result is exactly the Dijkstra distance.
 Two edge-cost modes:
   - euclidean: step cost = anisotropic length of the offset
   - node: cost of entering voxel v = node_cost[v]
+
+`voxel_graph` (optional, cc3d convention, ops.stencils.GRAPH_BITS): a
+candidate reaching v from u = v + o counts only where u permits the move
+along -o; every sweep reads u's bit through the table of its layout
+(`sweep_bits9`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -21,7 +27,8 @@ import torch
 
 from ..utils import profiling
 from .fma import fma_f32
-from .stencils import neighborhood_offsets, shifted
+from .stencils import (GRAPH_BITS, graph_allows, graph_word,
+                       neighborhood_offsets, shifted)
 from .sweep import sweep_axis0, sweep_axis0_batched
 
 INF = float("inf")
@@ -40,20 +47,42 @@ def _off_cost(off, anisotropy) -> float:
         (np.array(off, dtype=np.float64) * w) ** 2))))
 
 
+@functools.lru_cache(maxsize=None)
+def sweep_bits9(axis: int, descending: bool) -> tuple:
+    """The voxel-graph bits that gate a sweep along `axis` laid out with
+    that axis first and the other two in order (the layout of `_sweep`
+    and of relax_rounds_batched): the neighbour at (dy, dz) of the
+    previous plane lies at offset o, o[axis] = -1 (+1 when descending),
+    and moves into the voxel along -o."""
+    h, w = [i for i in range(3) if i != axis]
+    bits = []
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            o = [0, 0, 0]
+            o[axis] = 1 if descending else -1
+            o[h], o[w] = dy, dz
+            bits.append(GRAPH_BITS[tuple(-c for c in o)])
+    return tuple(bits)
+
+
 class _SweptViews:
-    """The static operands of a relax (the ok mask and the node costs)
-    moved to axis 0 of each of the three sweep axes, built once per
-    distance field and reused by every sweep of every stage; only the
-    field itself moves per sweep."""
+    """The static operands of a relax (the ok mask, the node costs and
+    the voxel graph) moved to axis 0 of each of the three sweep axes,
+    built once per distance field and reused by every sweep of every
+    stage; only the field itself moves per sweep."""
 
-    __slots__ = ("ok", "nc")
+    __slots__ = ("ok", "nc", "vg")
 
-    def __init__(self, ok, node_cost):
-        self.ok = tuple(torch.movedim(ok, a, 0).contiguous()
-                        for a in range(3))
-        self.nc = (None if node_cost is None else
-                   tuple(torch.movedim(node_cost, a, 0).contiguous()
-                         for a in range(3)))
+    def __init__(self, ok, node_cost, voxel_graph=None):
+        def moved(t):
+            return (None if t is None else
+                    tuple(torch.movedim(t, a, 0).contiguous()
+                          for a in range(3)))
+
+        self.ok = moved(ok)
+        self.nc = moved(node_cost)
+        self.vg = moved(None if voxel_graph is None
+                        else graph_word(voxel_graph))
 
 
 def _sweep(dist, views: _SweptViews, axis: int, direction: int, anisotropy,
@@ -65,8 +94,11 @@ def _sweep(dist, views: _SweptViews, axis: int, direction: int, anisotropy,
         float(anisotropy[i]) for i in range(3) if i != axis)
     d2 = torch.movedim(dist, axis, 0).contiguous()
     nc2 = None if views.nc is None else views.nc[axis]
+    vg2 = None if views.vg is None else views.vg[axis]
+    bits = None if vg2 is None else sweep_bits9(axis, direction < 0)
     out = sweep_axis0(d2, views.ok[axis], nc2, anis_perm, nc2 is not None,
-                      bool(clamp_positive), descending=direction < 0)
+                      bool(clamp_positive), descending=direction < 0,
+                      vg=vg2, bits9=bits)
     return torch.movedim(out, 0, axis).contiguous()
 
 
@@ -103,17 +135,20 @@ def _relax_stage(d, views: _SweptViews, anisotropy, clamp_positive: bool,
 
 
 def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
-                         clamp_positive: bool = False, conv: str = "exact"):
+                         clamp_positive: bool = False, conv: str = "exact",
+                         voxel_graph=None):
     """`rounds` full 6-sweep rounds plus one checking round over a batch
     of (B, X, Y, Z) lanes (counterpart of geodesic.relax_rounds_batchable
     under vmap). Returns (d, converged): converged[b] when lane b's last
     round changed nothing under `conv` ("exact", "reach" or "negative").
+    `voxel_graph`: (B, X, Y, Z) per-lane bitfields gating every move.
 
-    Axes 1 and 2 are swept through permuted contiguous copies (ok and nc
-    are permuted once per call, d twice per axis and round). The loop
-    stops early after a round that changed no value of any lane: the field
-    is then a fixpoint, so the values and flags equal a full run's."""
+    Axes 1 and 2 are swept through permuted contiguous copies (ok, nc and
+    the graph are permuted once per call, d twice per axis and round). The
+    loop stops early after a round that changed no value of any lane: the
+    field is then a fixpoint, so the values and flags equal a full run's."""
     node_mode = nc is not None
+    vg = None if voxel_graph is None else graph_word(voxel_graph)
     layouts = []
     for a in range(3):
         h, w = [i for i in range(3) if i != a]
@@ -123,16 +158,19 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
                      float(anisotropy[w]))
         okp = ok.permute(perm).contiguous()
         ncp = nc.permute(perm).contiguous() if node_mode else None
-        layouts.append((perm, inv, anis_perm, okp, ncp))
+        vgp = None if vg is None else vg.permute(perm).contiguous()
+        layouts.append((a, perm, inv, anis_perm, okp, ncp, vgp))
 
     changed = torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
     for _ in range(int(rounds) + 1):
         nd = d
-        for perm, inv, anis_perm, okp, ncp in layouts:
+        for a, perm, inv, anis_perm, okp, ncp, vgp in layouts:
             dm = nd.permute(perm).contiguous()
             for desc in (False, True):
+                bits = None if vgp is None else sweep_bits9(a, desc)
                 dm = sweep_axis0_batched(dm, okp, ncp, anis_perm, node_mode,
-                                         bool(clamp_positive), desc)
+                                         bool(clamp_positive), desc,
+                                         vg=vgp, bits9=bits)
             nd = dm.permute(inv).contiguous()
         same = not bool((nd != d).any())
         changed = _lane_changed(nd, d, conv)
@@ -145,7 +183,7 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
 def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
                    node_cost=None, clamp_positive: bool = False,
                    max_rounds: int = _MAX_ROUNDS,
-                   conv: str = "exact") -> torch.Tensor:
+                   conv: str = "exact", voxel_graph=None) -> torch.Tensor:
     """Exact SSSP distance field to fixpoint.
 
     ok_mask: bool volume of traversable voxels. init_dist: float32, +inf
@@ -153,13 +191,14 @@ def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 
     entering v is node_cost[v]; else anisotropic euclidean step costs.
     clamp_positive: values > 0 reset to +inf each sweep (invalidation
     ball). `conv` is the convergence criterion matched to what the caller
-    reads: "exact" or "negative" (the <= 0 part).
+    reads: "exact" or "negative" (the <= 0 part). `voxel_graph`: the
+    cc3d-convention bitfield gating every move.
     Raises if the field still changes after `max_rounds` rounds.
     """
     ok = ok_mask.to(torch.bool)
     d = torch.where(ok, init_dist.to(torch.float32), INF)
     nc = None if node_cost is None else node_cost.to(torch.float32)
-    views = _SweptViews(ok, nc)
+    views = _SweptViews(ok, nc, voxel_graph)
     done = 0
     while done < int(max_rounds):
         d, converged = _relax_stage(d, views, anisotropy,
@@ -171,7 +210,8 @@ def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 
 
 
 def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-                             return_max_location: bool = False):
+                             return_max_location: bool = False,
+                             voxel_graph=None):
     """Geodesic (foreground-constrained) anisotropic euclidean distance
     from source voxel(s); unreachable voxels are +inf. source: (3,) voxel
     coordinate or (k, 3) array."""
@@ -180,7 +220,7 @@ def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0
     src = np.asarray(source, dtype=np.int64).reshape(-1, 3)
     init[tuple(torch.as_tensor(src[:, a], device=ok.device)
                for a in range(3))] = 0.0
-    dist = distance_field(ok, init, anisotropy)
+    dist = distance_field(ok, init, anisotropy, voxel_graph=voxel_graph)
     if not return_max_location:
         return dist
     finite = torch.where(torch.isfinite(dist), dist, -1.0)
@@ -190,16 +230,21 @@ def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0
 
 
 def parent_field(dist, ok_mask, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-                 node_cost=None) -> torch.Tensor:
+                 node_cost=None, voxel_graph=None) -> torch.Tensor:
     """Parent direction codes (int8 index into OFFSETS26; 26 = source or
     none). At the fixpoint dist[v] == min_u (dist[u] + cost(u->v)) exactly,
     so a post-hoc argmin rebuilds a shortest-path tree with a
-    deterministic (offset order) tie break."""
+    deterministic (offset order) tie break. `voxel_graph`: a parent u =
+    v + o counts only where u permits the move along -o."""
     ok = ok_mask.to(torch.bool)
     best = torch.full(dist.shape, INF, dtype=torch.float32, device=dist.device)
     parent = torch.full(dist.shape, 26, dtype=torch.int8, device=dist.device)
     for k, off in enumerate(OFFSETS26):
         s = shifted(dist, off, INF)
+        if voxel_graph is not None:
+            neg = tuple(-c for c in off)
+            s = torch.where(shifted(graph_allows(voxel_graph, neg), off,
+                                    False), s, INF)
         if node_cost is not None:
             cand = s + node_cost
         else:
@@ -212,6 +257,18 @@ def parent_field(dist, ok_mask, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
                        26).to(torch.int8)
 
 
+def jax_index(coords, shape):
+    """JAX's rule for an (L, 3) coordinate array used as indices: a
+    negative coordinate counts from the end once. Returns (the wrapped
+    coordinates, the rows inside the volume). A gather clamps the wrapped
+    coordinates into the volume; a scatter drops the rows outside (as a
+    path that a chase walked out of its crop needs)."""
+    size = np.asarray(shape, dtype=np.int64)
+    c = np.asarray(coords, dtype=np.int64).reshape(-1, 3)
+    c = np.where(c < 0, c + size, c)
+    return c, ((c >= 0) & (c < size)).all(axis=1)
+
+
 def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
                        const: float, fused: bool = False):
     """The sources of a rolling-ball invalidation: (ok, init), `ok` the
@@ -219,26 +276,30 @@ def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
     ball invalidated them), `init` +inf but -(scale*DBF[v] + const) at each
     path voxel v (the largest ball where several share a voxel). fused:
     the radius is one fused multiply-add, as in the JAX package's jitted
-    loops (its eager callers round the product and the sum apart)."""
+    loops (its eager callers round the product and the sum apart). Path
+    voxels follow JAX's index rule (`jax_index`)."""
     ok = ok_mask.to(torch.bool).clone()
-    pv = np.asarray(path_voxels, dtype=np.int64).reshape(-1, 3)
-    idx = tuple(torch.as_tensor(pv[:, a], device=ok.device) for a in range(3))
+    pv, inb = jax_index(path_voxels, ok.shape)
+    near = np.minimum(np.maximum(pv, 0), np.asarray(ok.shape) - 1)
+    idx = tuple(torch.as_tensor(near[:, a], device=ok.device)
+                for a in range(3))
     scale, const = float(np.float32(scale)), float(np.float32(const))
     if fused:
         radii = fma_f32(dbf[idx], scale, const)
     else:
         radii = dbf[idx] * scale + const
     init = torch.full(ok.shape, INF, dtype=torch.float32, device=ok.device)
-    lin = np.ravel_multi_index(tuple(pv.T), tuple(ok.shape))
+    lin = np.ravel_multi_index(tuple(pv[inb].T), tuple(ok.shape))
+    keep = torch.as_tensor(inb, device=ok.device)
     init.view(-1).scatter_reduce_(
-        0, torch.as_tensor(lin, device=ok.device), -radii, "amin")
-    ok[idx] = True
+        0, torch.as_tensor(lin, device=ok.device), -radii[keep], "amin")
+    ok.view(-1)[torch.as_tensor(lin, device=ok.device)] = True
     return ok, init
 
 
 def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
-                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0)
-                      ) -> torch.Tensor:
+                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+                      voxel_graph=None) -> torch.Tensor:
     """Rolling-ball invalidation restricted to the connected component:
     for each path vertex v, every foreground voxel within geodesic
     distance scale*DBF[v] + const (physical units, 26-connected steps) is
@@ -248,7 +309,7 @@ def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
     of invalidated voxels."""
     ok, init = invalidation_seeds(ok_mask, dbf, path_voxels, scale, const)
     dist = distance_field(ok, init, anisotropy, clamp_positive=True,
-                          conv="negative")
+                          conv="negative", voxel_graph=voxel_graph)
     return dist <= 0.0
 
 

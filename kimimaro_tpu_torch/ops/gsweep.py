@@ -14,7 +14,8 @@ Modes:
   maxflood: new = max(cur, max9(prev_same_label))
   minid:    int32 CCL ids, occupancy cc != 0
 clamp_positive resets positives to +inf (rolling-ball invalidation);
-`okmask` additionally restricts occupancy.
+`okmask` additionally restricts occupancy. In minid mode a voxel graph
+may gate the moves too (`gate`, `bits9`: the CCL under a graph).
 
 `sweep0` (B1) and `sweep0_dual` (B2) launch the CUDA kernels of
 csrc/gsweep.cu for CUDA tensors (one persistent launch per sweep, or one
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .stencils import pad_const
+from .stencils import GRAPH_BITS, pad_const
 
 INF = float("inf")
 NEG_INF = float("-inf")
@@ -71,9 +72,13 @@ def _fill(mode: str):
 
 
 def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
-                  clamp_positive: bool, descending: bool):
+                  clamp_positive: bool, descending: bool, gate=None,
+                  bits9=None):
     """Plain torch version of the B1 kernel: a Python loop over planes
-    (the JAX package's `_sweep0_scan`)."""
+    (the JAX package's `_sweep0_scan`). With `gate` (int32 words of
+    ops.stencils.graph_into, the shape of `d`) the neighbour k of the
+    previous plane counts only where bit bits9[k] of the voxel's gate
+    word is set (the JAX package's `_ccl_stage` with a voxel graph)."""
     fill = _fill(mode)
     costs9 = _costs9(anis_perm)
     n, H, W = d.shape
@@ -93,10 +98,13 @@ def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
             pv = pad_const(prev_v, 1, fill)
             pc = pad_const(prev_c, 1, -1)
             cand = torch.full_like(cur, fill)
-            for (dy, dz), c in costs9:
+            for k, ((dy, dz), c) in enumerate(costs9):
                 sv = pv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
                 sc = pc[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                sv = torch.where(sc == ccc, sv, fill)
+                same = sc == ccc
+                if gate is not None:
+                    same = same & (((gate[p] >> bits9[k]) & 1) > 0)
+                sv = torch.where(same, sv, fill)
                 if mode == "euclid":
                     sv = sv + c
                 if mode == "maxflood":
@@ -116,55 +124,80 @@ def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
     return out
 
 
+def _check_gate(mode, okmask, clamp_positive, gate, bits9):
+    """The graph gate's operands, checked: bits9 as nine ints in 0..31."""
+    if (gate is None) != (bits9 is None):
+        raise ValueError("sweep0: give gate and bits9 together")
+    if gate is None:
+        return None
+    if mode != "minid" or okmask is not None or clamp_positive:
+        raise ValueError("sweep0: a graph gate runs in minid mode alone")
+    bits9 = tuple(int(b) for b in bits9)
+    if len(bits9) != 9 or not all(0 <= b < 32 for b in bits9):
+        raise ValueError(f"sweep0: bad bits9 {bits9}")
+    return bits9
+
+
 def sweep0(d, cc, nodecost, okmask, anis_perm, mode: str,
-           clamp_positive: bool, descending: bool):
-    """One directed sweep along axis 0 of an (n, H, W) volume (B1)."""
+           clamp_positive: bool, descending: bool, gate=None, bits9=None):
+    """One directed sweep along axis 0 of an (n, H, W) volume (B1); with
+    `gate`/`bits9` (minid mode) the graph-gated form, counted apart as
+    "gsweep_sweep0_vg"."""
+    bits9 = _check_gate(mode, okmask, clamp_positive, gate, bits9)
     if d.device.type == "cpu":
         return _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode,
-                             clamp_positive, descending)
+                             clamp_positive, descending, gate, bits9)
     if mode not in _MODES:
         raise ValueError(f"unknown sweep mode {mode!r}")
     if (mode == "node") != (nodecost is not None):
         raise ValueError("nodecost is required in node mode and only there")
     vdt = torch.int32 if mode == "minid" else torch.float32
+    name = "gsweep_sweep0" if gate is None else "gsweep_sweep0_vg"
     kernels.require_cuda(
-        "gsweep_sweep0", d, cc, nodecost, okmask,
-        dtypes=((vdt,), (torch.int32,), (torch.float32,), _MASK_DTYPES),
+        name, d, cc, nodecost, okmask, gate,
+        dtypes=((vdt,), (torch.int32,), (torch.float32,), _MASK_DTYPES,
+                (torch.int32,)),
         shape=d.shape)
     n, H, W = d.shape
     out = torch.empty_like(d)
     # the strips' edge-row mailboxes (two edges, two steps, W cells a
     # strip), zero before every sweep
-    plan = _sweep0_plan(H, W, mode, okmask is not None, d.device.index)
+    plan = _sweep0_plan(H, W, mode, okmask is not None, gate is not None,
+                        d.device.index)
     mail = torch.zeros((plan["strips"] * 4 * W,), dtype=torch.int64,
                        device=d.device) if plan["persistent"] else None
+    bits = None if gate is None else (ctypes.c_int * 9)(*bits9)
     rc = kernels.lib().kt_gsweep_sweep0(
         kernels.ptr(d), kernels.ptr(cc), kernels.ptr(nodecost),
-        kernels.ptr(okmask), kernels.ptr(mail), kernels.ptr(out), n, H, W,
-        kernels.costs_arg(_costs9(anis_perm)), _MODES[mode],
-        int(bool(clamp_positive)), int(bool(descending)),
-        kernels.stream_ptr(d.device))
-    kernels.check(rc, "gsweep_sweep0")
-    kernels.LAUNCHES["gsweep_sweep0"] += 1
+        kernels.ptr(okmask), kernels.ptr(gate), kernels.ptr(mail),
+        kernels.ptr(out), n, H, W, kernels.costs_arg(_costs9(anis_perm)),
+        bits, _MODES[mode], int(bool(clamp_positive)),
+        int(bool(descending)), kernels.stream_ptr(d.device))
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
-def sweep0_plan(H: int, W: int, mode: str, has_ok: bool) -> dict:
+def sweep0_plan(H: int, W: int, mode: str, has_ok: bool,
+                has_gate: bool = False) -> dict:
     """How the B1 kernel runs an (H, W) plane in `mode` (with an okmask
-    where `has_ok`) on the current CUDA device: `persistent` (one launch
-    per sweep, `strips` CTAs of `rows` rows each) or the per-plane form
-    for planes too large to hold."""
+    where `has_ok`, a graph gate where `has_gate`) on the current CUDA
+    device: `persistent` (one launch per sweep, `strips` CTAs of `rows`
+    rows each) or the per-plane form for planes too large to hold."""
     return dict(_sweep0_plan(int(H), int(W), mode, bool(has_ok),
-                             torch.cuda.current_device()))
+                             bool(has_gate), torch.cuda.current_device()))
 
 
 @functools.lru_cache(maxsize=None)
-def _sweep0_plan(H: int, W: int, mode: str, has_ok: bool,
+def _sweep0_plan(H: int, W: int, mode: str, has_ok: bool, has_gate: bool,
                  device_index) -> dict:
     rows, strips = ctypes.c_int(), ctypes.c_int()
     persistent = kernels.lib().kt_gsweep_sweep0_plan(
-        int(H), int(W), _MODES[mode], int(has_ok), ctypes.byref(rows),
-        ctypes.byref(strips))
+        int(H), int(W), _MODES[mode], int(has_ok), int(has_gate),
+        ctypes.byref(rows), ctypes.byref(strips))
+    if persistent < 0:
+        raise ValueError(f"sweep0_plan: {mode} with okmask={has_ok}, "
+                         f"gate={has_gate} is not a kernel form")
     return {"persistent": bool(persistent), "rows": rows.value,
             "strips": strips.value}
 
@@ -295,9 +328,14 @@ def _permute(t, perm):
     return t.permute(*perm).contiguous()
 
 
+# the original axis at each axis of the x, y and z layouts
+_LAYOUT_AXES = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
+
+
 class MaskViews:
     """The three layout views of a static per-relax operand (cc ids,
-    nodecost or okmask), built once and reused across relaxations."""
+    nodecost, okmask or a graph gate), built once and reused across
+    relaxations."""
 
     __slots__ = ("x", "y", "z")
 
@@ -311,23 +349,44 @@ def _views(v: Optional[MaskViews]):
     return (None, None, None) if v is None else (v.x, v.y, v.z)
 
 
+@functools.lru_cache(maxsize=None)
+def gate_bits9(layout: int, descending: bool) -> tuple:
+    """The nine bits of a graph_into word that gate a sweep of layout
+    `layout` (0 x, 1 y, 2 z): the neighbour at (dy, dz) of the previous
+    plane lies at offset (-1, dy, dz) of the layout ((+1, dy, dz) when
+    descending), and its move into the voxel is bit GRAPH_BITS[o] of that
+    offset o in the volume's own axes."""
+    axes = _LAYOUT_AXES[layout]
+    bits = []
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            o = [0, 0, 0]
+            for a, c in zip(axes, (1 if descending else -1, dy, dz)):
+                o[a] = c
+            bits.append(GRAPH_BITS[tuple(o)])
+    return tuple(bits)
+
+
 def one_round(d, cc_v: MaskViews, nc_v: Optional[MaskViews],
               ok_v: Optional[MaskViews], anisotropy, mode: str,
-              clamp_positive: bool):
-    """One full round: +-x, +-y, +-z sweeps with layout rotation."""
+              clamp_positive: bool, gate_v: Optional[MaskViews] = None):
+    """One full round: +-x, +-y, +-z sweeps with layout rotation. `gate_v`:
+    the layouts of a graph_into volume (minid mode), gating every sweep."""
     ax, ay, az = (float(a) for a in anisotropy)
-    nc, ok = _views(nc_v), _views(ok_v)
+    nc, ok, gt = _views(nc_v), _views(ok_v), _views(gate_v)
 
-    def pair(dd, ccv, ncv, okv, anis_perm):
-        dd = sweep0(dd, ccv, ncv, okv, anis_perm, mode, clamp_positive, False)
-        return sweep0(dd, ccv, ncv, okv, anis_perm, mode, clamp_positive,
-                      True)
+    def pair(dd, layout, ccv, ncv, okv, anis_perm):
+        for desc in (False, True):
+            bits = None if gate_v is None else gate_bits9(layout, desc)
+            dd = sweep0(dd, ccv, ncv, okv, anis_perm, mode, clamp_positive,
+                        desc, gt[layout], bits)
+        return dd
 
-    d = pair(d, cc_v.x, nc[0], ok[0], (ax, ay, az))
+    d = pair(d, 0, cc_v.x, nc[0], ok[0], (ax, ay, az))
     d = _permute(d, _PERM_TO_Y)
-    d = pair(d, cc_v.y, nc[1], ok[1], (ay, ax, az))
+    d = pair(d, 1, cc_v.y, nc[1], ok[1], (ay, ax, az))
     d = _permute(d, _PERM_Y_TO_Z)
-    d = pair(d, cc_v.z, nc[2], ok[2], (az, ax, ay))
+    d = pair(d, 2, cc_v.z, nc[2], ok[2], (az, ax, ay))
     return _permute(d, _PERM_Z_TO_X)
 
 

@@ -1,5 +1,5 @@
 """Shared stencil utilities for voxel-grid kernels (torch counterpart of
-kimimaro_tpu.ops.stencils, without the voxel_graph bit helpers)."""
+kimimaro_tpu.ops.stencils)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,51 @@ def neighborhood_offsets() -> List[Tuple[int, int, int]]:
     return [(dx, dy, dz)
             for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
             if (dx, dy, dz) != (0, 0, 0)]
+
+
+# cc3d voxel_connectivity_graph bit convention: bit GRAPH_BITS[o] set at
+# voxel v permits movement FROM v along offset o
+GRAPH_BITS = {
+    (1, 0, 0): 0, (-1, 0, 0): 1, (0, 1, 0): 2, (0, -1, 0): 3,
+    (0, 0, 1): 4, (0, 0, -1): 5,
+    (1, 1, 0): 6, (-1, 1, 0): 7, (1, -1, 0): 8, (-1, -1, 0): 9,
+    (1, 0, 1): 10, (-1, 0, 1): 11, (0, 1, 1): 12, (0, -1, 1): 13,
+    (1, 0, -1): 14, (-1, 0, -1): 15, (0, 1, -1): 16, (0, -1, -1): 17,
+    (1, 1, 1): 18, (-1, 1, 1): 19, (1, -1, 1): 20, (-1, -1, 1): 21,
+    (1, 1, -1): 22, (-1, 1, -1): 23, (1, -1, -1): 24, (-1, -1, -1): 25,
+}
+
+
+def graph_word(voxel_graph: torch.Tensor) -> torch.Tensor:
+    """A voxel graph as the int32 words the port computes with: uint32
+    bitfields are reinterpreted (every bit kept), narrower types
+    widened."""
+    if voxel_graph.dtype == torch.uint32:
+        return voxel_graph.view(torch.int32)
+    if voxel_graph.dtype == torch.int32:
+        return voxel_graph
+    return voxel_graph.to(torch.int64).to(torch.int32)
+
+
+def graph_allows(voxel_graph: torch.Tensor, offset: Sequence[int]
+                 ) -> torch.Tensor:
+    """Bool volume: may a walker leave each voxel along `offset`?"""
+    bit = GRAPH_BITS[tuple(int(o) for o in offset)]
+    return ((graph_word(voxel_graph) >> bit) & 1) > 0
+
+
+def graph_into(voxel_graph: torch.Tensor) -> torch.Tensor:
+    """The permissions of the moves INTO each voxel: bit GRAPH_BITS[o] of
+    the result at v is set where the neighbour u = v + o lies in the
+    volume and u's bit for -o (the move u -> v) is set. int32, the shape
+    of `voxel_graph`; a sweep that relaxes v from u reads this word of v
+    instead of u's."""
+    vg = graph_word(voxel_graph)
+    out = torch.zeros_like(vg)
+    for o, bit in GRAPH_BITS.items():
+        back = GRAPH_BITS[tuple(-c for c in o)]
+        out |= ((shifted(vg, o, 0) >> back) & 1) << bit
+    return out
 
 
 def pad_const(vol: torch.Tensor, width: int, fill) -> torch.Tensor:

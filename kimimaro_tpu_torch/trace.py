@@ -12,6 +12,10 @@ Pipeline per label:
   soma detect (hole fill + re-EDT), root selection, DAF (distance from
   root field), PDRF penalty field, then the path loop with rolling-ball
   invalidation and rail zeroing.
+
+A voxel graph (self-touch walls, cc3d convention) gates every field, the
+re-EDT and the chase; like the JAX package, a label under a graph takes
+the eager loop only, never the fused one.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ from .ops import edt as edt_ops
 from .ops import fill as fill_ops
 from .ops.chase import RELAX_ROUNDS, _chase
 from .ops.fma import fma_f32
+from .ops.stencils import graph_word
 from .ops.geodesic import (
     OFFSETS26,
     distance_field,
     euclidean_distance_field,
     invalidation_ball,
     invalidation_seeds,
+    jax_index,
     parent_field,
     relax_rounds_batched,
 )
@@ -106,9 +112,11 @@ def _pdrf_kernel(dbf_inf, daf, dbf_max, pdrf_scale, pdrf_exponent: int,
 
 
 def _zero_at(vol: torch.Tensor, coords) -> torch.Tensor:
-    """A copy of `vol` with zeros at an (L, 3) coordinate array."""
+    """A copy of `vol` with zeros at an (L, 3) coordinate array, by JAX's
+    index rule for a scatter (ops.geodesic.jax_index)."""
     out = vol.clone()
-    c = np.asarray(coords, dtype=np.int64).reshape(-1, 3)
+    c, inb = jax_index(coords, vol.shape)
+    c = c[inb]
     out[tuple(torch.as_tensor(c[:, a], device=vol.device)
               for a in range(3))] = 0.0
     return out
@@ -146,14 +154,15 @@ def _buffer_writes(path: np.ndarray, padded: bool, shape) -> np.ndarray:
     return np.concatenate([path, corner])
 
 
-def _chase_device_path(d_rail: torch.Tensor, target):
-    """Pointer chase on the rail field. Returns the rail-first path, or
-    None when the chase buffer overflowed (the caller then rebuilds the
-    path from parent codes)."""
+def _chase_device_path(d_rail: torch.Tensor, target, vg_pad=None):
+    """Pointer chase on the rail field (gated by `vg_pad`, the voxel graph
+    padded by one zero voxel on the host, where given). Returns the
+    rail-first path, or None when the chase buffer overflowed (the caller
+    then rebuilds the path from parent codes)."""
     L = _chase_len(d_rail.shape)
     d_pad = np.pad(d_rail.detach().to("cpu").numpy(), 1,
                    constant_values=np.float32(np.inf))
-    path, plen, reached = _chase(d_pad, target, L)
+    path, plen, reached = _chase(d_pad, target, L, vg_pad)
     if not reached:
         return None
     return path[:plen][::-1].astype(np.int64)
@@ -172,7 +181,8 @@ def find_soma_root(DBF, dbf_max):
     return tuple(int(c) for c in coords[best])
 
 
-def find_root(fg: torch.Tensor, anisotropy) -> Optional[tuple]:
+def find_root(fg: torch.Tensor, anisotropy,
+              voxel_graph=None) -> Optional[tuple]:
     """Distance field from the first foreground voxel; its maximum is a
     valid root (an extremal point)."""
     nz = torch.nonzero(fg.reshape(-1))
@@ -181,7 +191,7 @@ def find_root(fg: torch.Tensor, anisotropy) -> Optional[tuple]:
     any_voxel = np.unravel_index(int(nz[0, 0]), tuple(fg.shape))
     _, target = euclidean_distance_field(
         fg, tuple(int(c) for c in any_voxel), anisotropy,
-        return_max_location=True)
+        return_max_location=True, voxel_graph=voxel_graph)
     return target
 
 
@@ -206,12 +216,21 @@ def trace(
     manual_targets_after=None,
     root=None,
     max_paths: Optional[int] = None,
+    voxel_graph=None,
     device="cpu",
 ) -> Skeleton:
     """Skeletonize one binary label given its distance-to-boundary field
     (`labels` a binary volume, `DBF` its EDT in physical units; numpy
-    arrays or tensors). The fields are computed on `device`."""
+    arrays or tensors). `voxel_graph` (numpy array or tensor, cc3d
+    convention) masks the moves of a self-touching label and routes the
+    paths through the eager loop. The fields are computed on `device`."""
     device = torch.device(device)
+    vg = None
+    if voxel_graph is not None:
+        if not torch.is_tensor(voxel_graph):
+            voxel_graph = torch.from_numpy(
+                np.ascontiguousarray(voxel_graph, dtype=np.uint32))
+        vg = graph_word(voxel_graph.to(device))
     manual_targets_before = list(manual_targets_before or [])
     manual_targets_after = list(manual_targets_after or [])
     anisotropy = tuple(float(a) for a in anisotropy)
@@ -230,7 +249,8 @@ def trace(
         if n_filled > 0:
             fg = filled
             black_border = bool(fg.all())
-            dbf = edt_ops.edt(fg.to(torch.uint8), anisotropy, black_border)
+            dbf = edt_ops.edt(fg.to(torch.uint8), anisotropy, black_border,
+                              voxel_graph=vg)
             dbf = torch.where(fg, dbf, 0.0)
         dbf_max = float(dbf.max())
         soma_mode = dbf_max > soma_acceptance_threshold
@@ -242,7 +262,7 @@ def trace(
         root = find_soma_root(dbf.to("cpu").numpy(), dbf_max)
         soma_radius = dbf_max * soma_invalidation_scale + soma_invalidation_const
     elif root is None:
-        root = find_root(fg, anisotropy)
+        root = find_root(fg, anisotropy, voxel_graph=vg)
     else:
         root = tuple(int(c) for c in root)
 
@@ -251,7 +271,7 @@ def trace(
 
     dbf_inf = torch.where(dbf == 0, INF, dbf)
     daf, target = euclidean_distance_field(
-        fg, root, anisotropy, return_max_location=True)
+        fg, root, anisotropy, return_max_location=True, voxel_graph=vg)
     daf = torch.where(torch.isfinite(daf), daf, 0.0)
     max_daf = daf[target]
     pdrf = _pdrf_kernel(dbf_inf, daf, np.float32(dbf_max),
@@ -260,16 +280,18 @@ def trace(
     valid = fg
     if soma_mode:
         ball = invalidation_ball(valid, dbf, [root], soma_invalidation_scale,
-                                 soma_invalidation_const, anisotropy)
+                                 soma_invalidation_const, anisotropy,
+                                 voxel_graph=vg)
         valid = valid & ~ball
     elif len(manual_targets_before) == 0:
         manual_targets_before.append(tuple(int(c) for c in target))
 
     # the JAX package runs its fused device loop (multiply-adds fused)
     # when the manual targets fit its buffers, and its eager host loop
-    # (not fused) when they do not or when the fused loop overflows
+    # (not fused) when they do not, when the fused loop overflows, and
+    # always under a voxel graph
     paths = None
-    if (len(manual_targets_before) <= FUSED_T_CAP
+    if (vg is None and len(manual_targets_before) <= FUSED_T_CAP
             and len(manual_targets_after) <= FUSED_T_CAP):
         paths = _compute_paths_fused(
             root, fg, valid, dbf, daf, pdrf,
@@ -283,6 +305,7 @@ def trace(
             scale, const, anisotropy,
             soma_mode, soma_radius, fix_branching,
             manual_targets_before, manual_targets_after, max_paths,
+            voxel_graph=vg,
         )
 
     skel = Skeleton.simple_merge(
@@ -403,9 +426,11 @@ def _compute_paths_host(
     scale, const, anisotropy,
     soma_mode, soma_radius, fix_branching,
     manual_targets_before, manual_targets_after, max_paths,
+    voxel_graph=None,
 ):
     """The JAX package's eager TEASAR path loop, for the labels whose
-    manual targets or paths overflow the fused loop's buffers.
+    manual targets or paths overflow the fused loop's buffers, and for
+    every label under a voxel graph (which gates each field and chase).
 
     fix_branching=True: maintain a distance-from-rails field D over the
     PDRF node costs. Rails start as {root}; each accepted path is zeroed
@@ -427,14 +452,19 @@ def _compute_paths_host(
     pdrf = _zero_at(pdrf, [root])  # the initial rail
     anis = np.asarray(anisotropy, dtype=np.float32)
 
+    vg = voxel_graph
+    vg_pad = None if vg is None else np.pad(vg.to("cpu").numpy(), 1)
     d_init = torch.full(fg.shape, INF, dtype=torch.float32, device=fg.device)
     d_init[root] = 0.0
     if fix_branching:
-        d_rail = distance_field(fg, d_init, anisotropy, node_cost=pdrf)
+        d_rail = distance_field(fg, d_init, anisotropy, node_cost=pdrf,
+                                voxel_graph=vg)
     else:
-        d_root = distance_field(fg, d_init, anisotropy, node_cost=pdrf)
+        d_root = distance_field(fg, d_init, anisotropy, node_cost=pdrf,
+                                voxel_graph=vg)
         parents_host = parent_field(
-            d_root, fg, anisotropy, node_cost=pdrf).to("cpu").numpy()
+            d_root, fg, anisotropy, node_cost=pdrf,
+            voxel_graph=vg).to("cpu").numpy()
 
     while (valid_labels > 0 or manual_targets_before or manual_targets_after) \
             and len(paths) < max_paths:
@@ -446,12 +476,12 @@ def _compute_paths_host(
             target = _masked_argmax(daf, valid)
 
         if fix_branching:
-            path = _chase_device_path(d_rail, target)
+            path = _chase_device_path(d_rail, target, vg_pad)
             if path is None:
                 # chase buffer overflow (pathological field): rebuild the
                 # path from exact parent codes
-                codes = parent_field(d_rail, fg, anisotropy,
-                                     node_cost=pdrf).to("cpu").numpy()
+                codes = parent_field(d_rail, fg, anisotropy, node_cost=pdrf,
+                                     voxel_graph=vg).to("cpu").numpy()
                 path = _chase_parents(codes, target, OFFSETS26)
         else:
             path = _chase_parents(parents_host, target, OFFSETS26)
@@ -462,7 +492,7 @@ def _compute_paths_host(
 
         if valid_labels > 0 and len(path):
             ball = invalidation_ball(valid, dbf, path, scale, const,
-                                     anisotropy)
+                                     anisotropy, voxel_graph=vg)
             n_inv = int((ball & valid).sum())
             valid = valid & ~ball
             valid_labels -= n_inv
@@ -470,7 +500,8 @@ def _compute_paths_host(
         if len(path) and fix_branching:
             pdrf = _zero_at(pdrf, path)
             d_rail = _zero_at(d_rail, path)
-            d_rail = distance_field(fg, d_rail, anisotropy, node_cost=pdrf)
+            d_rail = distance_field(fg, d_rail, anisotropy, node_cost=pdrf,
+                                    voxel_graph=vg)
 
         paths.append(path)
 

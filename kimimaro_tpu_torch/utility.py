@@ -17,16 +17,22 @@ def compute_cc_labels(all_labels, voxel_graph=None, device="cuda"
                       ) -> Tuple[np.ndarray, Dict[int, int]]:
     """26-connected multi-label CCL + cc-id -> original-label mapping
     (kimimaro utility.py:58-83). Output cc ids are contiguous 1..N in
-    first-appearance (scan) order; background is 0. The CCL runs on
+    first-appearance (scan) order; background is 0. `voxel_graph`: an
+    optional cc3d-convention bitfield (self-touch walls). The CCL runs on
     `device`."""
+    import torch
+
     from .intake import _upload, resolve_device
     from .ops.ccl import connected_components
 
-    if voxel_graph is not None:
-        raise NotImplementedError("voxel_graph is not ported yet")
+    device = resolve_device(device)
     all_labels = np.asarray(all_labels)
+    vg = None
+    if voxel_graph is not None:
+        vg = torch.from_numpy(np.ascontiguousarray(
+            voxel_graph, dtype=np.uint32)).to(device)
     cc_raw = connected_components(
-        _upload(all_labels, resolve_device(device))).cpu().numpy()
+        _upload(all_labels, device), voxel_graph=vg).cpu().numpy()
 
     uniq, first_idx, inv = np.unique(cc_raw, return_index=True,
                                      return_inverse=True)

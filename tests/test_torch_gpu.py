@@ -14,8 +14,10 @@ import torch
 import kimimaro_tpu_torch
 from kimimaro_tpu_torch import kernels
 from kimimaro_tpu_torch.ops import crop_argmax as tcrop
+from kimimaro_tpu_torch.ops import geodesic as tgeodesic
 from kimimaro_tpu_torch.ops import gsweep as tgsweep
 from kimimaro_tpu_torch.ops import sweep as tsweep
+from kimimaro_tpu_torch.ops.stencils import GRAPH_BITS
 
 pytestmark = pytest.mark.gpu
 
@@ -302,13 +304,165 @@ def test_sweep_axis0_batched_kernel_matches_plain(gen, node_mode):
     for clamp in (False, True):
         for desc in (False, True):
             for g, b in ((None, None), (vg, bits9)):
-                before = kernels.LAUNCHES["sweep_axis0_batched"]
+                # the graph-gated form counts its launches apart
+                name = "sweep_axis0_batched" + ("" if g is None else "_vg")
+                before = kernels.LAUNCHES[name]
                 got = tsweep.sweep_axis0_batched(d, ok, nc, ANIS, node_mode,
                                                  clamp, desc, vg=g, bits9=b)
-                assert kernels.LAUNCHES["sweep_axis0_batched"] == before + 1
+                assert kernels.LAUNCHES[name] == before + 1
                 want = tsweep._sweep_axis0_batched_plain(
                     d, ok, nc, ANIS, node_mode, clamp, desc, g, b)
                 _assert_bit_equal((got,), (want,))
+
+
+# B1 with a graph gate (minid, the CCL under a voxel graph): the shapes of
+# B1_SHAPES, and the square planes on each side of its shape rule on a
+# 132-SM card with 227 KB a block (the gate word makes a voxel's operands
+# 12 bytes a stage: persistent up to 784 x 784)
+B1_VG_SIDES = ((784, True), (800, False))
+
+
+def _sweep0_vg_inputs(gen, shape):
+    d, cc, _, _ = _sweep0_inputs(gen, shape, "minid")
+    gate = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return d, cc, gate
+
+
+def _check_sweep0_vg(gen, shape):
+    d, cc, gate = _sweep0_vg_inputs(gen, shape)
+    for layout in (0, 1, 2):
+        for desc in (False, True):
+            bits = tgsweep.gate_bits9(layout, desc)
+            before = dict(kernels.LAUNCHES)
+            got = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False,
+                                 desc, gate, bits)
+            assert kernels.LAUNCHES["gsweep_sweep0_vg"] == \
+                before["gsweep_sweep0_vg"] + 1
+            assert kernels.LAUNCHES["gsweep_sweep0"] == \
+                before["gsweep_sweep0"]
+            again = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False,
+                                   desc, gate, bits)
+            want = tgsweep._sweep0_plain(d, cc, None, None, ANIS, "minid",
+                                         False, desc, gate, bits)
+            _assert_bit_equal((got, again), (want, want))
+    # an all-open gate is the ungated sweep
+    full = torch.full_like(gate, (1 << 26) - 1)
+    got = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False, False,
+                         full, tgsweep.gate_bits9(0, False))
+    want = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False, False)
+    _assert_bit_equal((got,), (want,))
+
+
+@pytest.mark.parametrize("shape", B1_SHAPES)
+def test_sweep0_vg_kernel_matches_plain(gen, shape):
+    _check_sweep0_vg(gen, shape)
+
+
+def test_sweep0_vg_plan_follows_the_shape_rule(gen):
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    assert tgsweep.sweep0_plan(512, 512, "minid", False, True) == {
+        "persistent": True, "rows": 4, "strips": 128}
+    for side, persistent in B1_VG_SIDES:
+        plan = tgsweep.sweep0_plan(side, side, "minid", False, True)
+        assert plan["persistent"] == persistent, (side, plan)
+        _check_sweep0_vg(gen, (2, side, side))
+    with pytest.raises(ValueError):
+        tgsweep.sweep0_plan(64, 64, "euclid", False, True)
+
+
+# B5 with a voxel graph: its forms on each side of their rules (the graph
+# rides the carried-id channel: grid strips up to 848 x 848 in euclid mode
+# and 784 x 784 in node mode)
+B5_VG_FORMS = {False: ((170, "cluster"), (171, "strips"), (848, "strips"),
+                       (864, "plane")),
+               True: ((170, "cluster"), (171, "strips"), (784, "strips"),
+                      (800, "plane"))}
+
+
+def _check_axis0_vg(gen, shape, node_mode):
+    vg = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                       dtype=torch.int32)
+    for clamp in (False, True):
+        d, ok, nc = _axis0_inputs(gen, shape, clamp)
+        for axis in (0, 2):
+            for desc in (False, True):
+                bits = tgeodesic.sweep_bits9(axis, desc)
+                before = dict(kernels.LAUNCHES)
+                got = tsweep.sweep_axis0(d, ok, nc, ANIS, node_mode, clamp,
+                                         desc, vg=vg, bits9=bits)
+                assert kernels.LAUNCHES["sweep_axis0_vg"] == \
+                    before["sweep_axis0_vg"] + 1
+                assert kernels.LAUNCHES["sweep_axis0"] == \
+                    before["sweep_axis0"]
+                again = tsweep.sweep_axis0(d, ok, nc, ANIS, node_mode, clamp,
+                                           desc, vg=vg.view(torch.uint32),
+                                           bits9=bits)
+                want = tsweep._sweep_axis0_plain(d, ok, nc, ANIS, node_mode,
+                                                 clamp, desc, vg, bits)
+                _assert_bit_equal((got, again), (want, want))
+                first = -1 if desc else 0
+                assert torch.equal(got[first], d[first])
+
+
+@pytest.mark.parametrize("shape", B5_SHAPES)
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_vg_kernel_matches_plain(gen, node_mode, shape):
+    _check_axis0_vg(gen, shape, node_mode)
+
+
+@pytest.mark.parametrize("node_mode", (False, True))
+def test_sweep_axis0_vg_plan_follows_the_shape_rule(gen, node_mode):
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    for side, form in B5_VG_FORMS[node_mode]:
+        plan = tsweep.sweep_axis0_plan(side, side, node_mode, True)
+        assert plan["form"] == form, (side, plan)
+        _check_axis0_vg(gen, (2, side, side), node_mode)
+
+
+def test_skeletonize_self_touch_cuda_matches_cpu(gen):
+    """skeletonize under a voxel graph (two touching blobs merged, walled
+    apart by their former labels' graph; one label given 17 manual
+    targets, which the host trace path takes) on the card equals the CPU,
+    and the graph-gated kernels ran."""
+    rng = np.random.RandomState(2)
+    pre = np.zeros((40, 36, 30), dtype=np.uint32)
+    x, y, z = np.ogrid[:40, :36, :30]
+    for lab in range(1, 7):
+        c = rng.randint(4, np.array(pre.shape) - 4)
+        r = rng.randint(3, 7, size=3)
+        e = (((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / (r[1] * 1.3)) ** 2
+             + ((z - c[2]) / r[2]) ** 2)
+        pre[((e + rng.rand(*pre.shape) * 0.4) < 1.0) & (pre == 0)] = lab
+    vg = np.zeros(pre.shape, dtype=np.uint32)
+    for o, bit in GRAPH_BITS.items():
+        dst = tuple(slice(max(-c, 0), n + min(-c, 0))
+                    for c, n in zip(o, pre.shape))
+        src = tuple(slice(max(c, 0), n + min(c, 0))
+                    for c, n in zip(o, pre.shape))
+        vg[dst] |= (pre[dst] == pre[src]).astype(np.uint32) << np.uint32(bit)
+    merged = np.where(pre == 2, 1, pre)
+    big = np.bincount(pre.ravel())[1:].argmax() + 1
+    pts = [tuple(int(c) for c in p)
+           for p in np.argwhere(pre == big)[::11][:17]]
+    kw = dict(teasar_params={"scale": 1.5, "const": 30, "pdrf_exponent": 4,
+                             "pdrf_scale": 100000},
+              anisotropy=(16, 16, 40), dust_threshold=10, voxel_graph=vg,
+              extra_targets_before=pts)
+    before = dict(kernels.LAUNCHES)
+    a = kimimaro_tpu_torch.skeletonize(merged, device="cuda", **kw)
+    for k in ("gsweep_sweep0_vg", "sweep_axis0_batched_vg", "sweep_axis0_vg"):
+        assert kernels.LAUNCHES[k] > before[k], k
+    # the global engine takes no label under a graph (the ungated B1
+    # still runs the border faces' CCL)
+    for k in ("gsweep_sweep0_dual", "crop_argmax"):
+        assert kernels.LAUNCHES[k] == before[k], k
+    b = kimimaro_tpu_torch.skeletonize(merged, device="cpu", **kw)
+    assert set(a) == set(b) and len(a) >= 3
+    for k in a:
+        assert a[k].to_swc() == b[k].to_swc(), k
 
 
 def test_crop_engine_cuda_matches_cpu(gen):
@@ -517,10 +671,12 @@ def test_sweep_axis0_batched_plan_follows_the_shape_rule(gen, shape, form,
     bits9 = (25, 21, 19, 23, 1, 19, 24, 20, 18)
     for node_mode in (False, True):
         for g, b in ((None, None), (vg, bits9)):
-            before = kernels.LAUNCHES["sweep_axis0_batched"]
+            # the graph-gated form counts its launches apart
+            name = "sweep_axis0_batched" + ("" if g is None else "_vg")
+            before = kernels.LAUNCHES[name]
             got = tsweep.sweep_axis0_batched(d, ok, nc, ANIS, node_mode,
                                              False, True, vg=g, bits9=b)
-            assert kernels.LAUNCHES["sweep_axis0_batched"] == before + 1
+            assert kernels.LAUNCHES[name] == before + 1
             want = tsweep._sweep_axis0_batched_plain(
                 d, ok, nc, ANIS, node_mode, False, True, g, b)
             _assert_bit_equal((got,), (want,))
