@@ -81,12 +81,27 @@ Phases (any failure exits non-zero):
      bit-equal to their plain versions at strip-stressing shapes, on
      each side of their shape rules and on the recorded calls, and B4 on
      the self-touch runs' calls, with kernel-table rows for B1-vg, B5-vg
-     and B4's graph-gated shapes.
+     and B4's graph-gated shapes;
+ 11. the analysis extras: V1 (the joint Voronoi sweep) against its plain
+     version at small, odd and strip-stressing shapes, on each side of its
+     form rule and at 512^3 with ties, its distance against B5's euclid
+     sweep; oversegment of the dense volume with phase 5's skeletons
+     (downsample 0 and 5, each a first and a warm run, with phases): a
+     uint64 composite, every voxel of a skeletonized label in a segment,
+     as many segments as distinct seed voxels, a segment per vertex, card
+     = CPU on the crops of 16 labels; V1 on the warm run's six most swept
+     shapes (a kernel-table row each); connect_points on one winding
+     neurite (a persistent random walk of 2,000 steps, radius 3) in an
+     empty 512^3 volume: a chain of 26-adjacent voxels in the mask from
+     end to start, radii = the EDT, card = CPU on a cut of at most 96^3;
+     synapses_to_targets for 2 centroids on each of 256 dense labels (the
+     host pass timed), then skeletonize(extra_targets_after=) on the card:
+     each target a vertex of its label.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. Launch counts are reset just before each main-path run of
-phases 4 to 6 and 8 to 10 and read just after it; the table's launches are
+phases 4 to 6 and 8 to 11 and read just after it; the table's launches are
 their sum, so neither the kernel comparisons nor the cross-checks count.
 
     python3 chip_smoke.py --profile
@@ -104,6 +119,11 @@ volume's and the dense cross sections' warm walls with either.
     python3 chip_smoke.py --self-touch
 
 runs phase 10 alone (after the build).
+
+    python3 chip_smoke.py --analysis
+
+runs phase 11 alone (after the build, with the dense volume's skeletons
+made first, not timed).
 
     python3 chip_smoke.py --host-soma
 
@@ -626,14 +646,17 @@ def check_b5(shapes, gen):
 
 
 class B5Spy:
-    """While installed, keeps the arguments of the first host trace path
-    B5 call of every (shape, mode, clamp, direction, graph bits), up to
-    `keep` of them, and counts the calls by the form their plane takes."""
+    """While installed, keeps the arguments of the host trace path's B5
+    call number `nth` (from 0) of every (shape, mode, clamp, direction,
+    graph bits), up to `keep` of them, and counts the calls by the form
+    their plane takes (`calls`) and by key (`seen`)."""
 
-    def __init__(self, keep=64):
+    def __init__(self, keep=64, nth=0):
         self.keep = keep
+        self.nth = nth
         self.kept = {}
         self.calls = {}
+        self.seen = {}
 
     def install(self):
         from kimimaro_tpu_torch.ops import geodesic, sweep
@@ -646,7 +669,9 @@ class B5Spy:
                 key = (tuple(d.shape), bool(node_mode), bool(clamp_positive),
                        bool(descending), None if bits9 is None
                        else tuple(bits9))
-                if key not in self.kept and len(self.kept) < self.keep:
+                seen = self.seen.get(key, 0)
+                self.seen[key] = seen + 1
+                if seen == self.nth and len(self.kept) < self.keep:
                     self.kept[key] = (d.clone(), ok, nc, tuple(anis), vg)
                 form = sweep.sweep_axis0_plan(d.shape[1], d.shape[2],
                                               node_mode, vg is not None)
@@ -663,10 +688,11 @@ class B5Spy:
         return restore
 
 
-def check_b5_recorded(spy):
+def check_b5_recorded(spy, rows=None):
     """B5 against its plain version on the calls the host trace path made
     (phases 4 and 5), each made twice, with the kernel's time. Returns the
-    max abs error."""
+    max abs error; with `rows` (a dict), puts (ms, plain ms, err) of each
+    key there."""
     from kimimaro_tpu_torch.ops import sweep
 
     err = 0.0
@@ -681,10 +707,13 @@ def check_b5_recorded(spy):
                                   bits9=bits)
         want, plain = timed_once(lambda: sweep._sweep_axis0_plain(
             d, ok, nc, anis, node, clamp, desc, vg, bits))
-        err = max(err, require_equal(f"B5 host call {key}", got, want))
+        e = require_equal(f"B5 host call {key}", got, want)
+        err = max(err, e)
         require_equal(f"B5 host call {key} run twice", again, got)
         ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, node, clamp,
                                                desc, vg=vg, bits9=bits), 3)
+        if rows is not None:
+            rows[key] = (ms, plain, e)
         form = sweep.sweep_axis0_plan(shape[1], shape[2], node,
                                       vg is not None)["form"]
         forms[form] = forms.get(form, 0) + 1
@@ -2893,6 +2922,630 @@ def self_touch_phase(dense, gen):
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the analysis extras (oversegment on V1, connect_points,
+# synapses_to_targets)
+
+# V1's forms on each side of its shape rule: one cluster up to 170 x 170,
+# grid-wide strips up to about 850 x 850 (two carried fields), per plane
+# beyond
+V1_RULE = ((170, "cluster"), (171, "strips"), (840, "strips"),
+           (880, "plane"))
+# one V1 sweep a voxel: d, f and ok read, d and f written; nine adds,
+# nine compares and nine selects
+V1_BYTES, V1_OPS = 17, 27
+
+
+def v1_bound(shape):
+    """Least time of one V1 sweep of `shape`. Returns (ms, by)."""
+    vox = int(np.prod(shape))
+    t_b, t_o = V1_BYTES * vox / HBM_BYTES_PER_S, V1_OPS * vox / ALU_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def v1_inputs(shape, gen, ties):
+    """A field with a quarter of its voxels finite (small integers where
+    `ties`, so that isotropic steps tie), their features, an ok mask;
+    voxels outside it +inf, as the relaxation keeps them."""
+    import torch
+
+    r = lambda: torch.rand(shape, generator=gen, device="cuda")
+    ok = r() < 0.85
+    seeded = r() < 0.25
+    vals = torch.floor(r() * 4) if ties else r() * 10
+    d = torch.where(seeded & ok, vals, float("inf"))
+    f = torch.where(seeded, torch.randint(
+        1, 1 << 30, shape, generator=gen, device="cuda", dtype=torch.int32),
+        0).to(torch.int32)
+    return d.contiguous(), f.contiguous(), ok.contiguous()
+
+
+def v1_case(shape, gen, anis, ties):
+    """V1 against its plain version in both directions, each call made
+    twice, its change flag against the plain one's, its distance against
+    B5's euclid sweep of the same field, its first plane passed through.
+    Returns the max abs error."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import geodesic, sweep, voronoi
+
+    d, f, ok = v1_inputs(shape, gen, ties)
+    err = 0.0
+    for desc in (False, True):
+        costs = geodesic.plane_costs(0, desc, anis)
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        want_flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = voronoi.voronoi_sweep(d, f, ok, costs, desc, flag)
+        again = voronoi.voronoi_sweep(d, f, ok, costs, desc,
+                                      torch.zeros_like(flag))
+        want = voronoi._voronoi_sweep_plain(d, f, ok, costs, desc, want_flag)
+        name = f"V1 ties={ties} desc={desc} {shape}"
+        err = max(err, require_equal(name, got, want))
+        require_equal(name + " run twice", again, got)
+        require_equal(name + " change flag", flag, want_flag)
+        # a second sweep of the output changes nothing and leaves the flag 0
+        still = torch.zeros_like(flag)
+        require_equal(name + " swept again", voronoi.voronoi_sweep(
+            got[0], got[1], ok, costs, desc, still), got)
+        if int(still) != 0:
+            raise AssertionError(f"{name}: the change flag is set by a sweep "
+                                 f"that changes nothing")
+        require_equal(name + " distance against B5", got[0],
+                      sweep.sweep_axis0(d, ok, None, anis, False, False,
+                                        desc))
+        first = -1 if desc else 0
+        require_equal(name + " first plane", (got[0][first], got[1][first]),
+                      (d[first], f[first]))
+    return err
+
+
+def check_v1(gen):
+    """V1 against its plain version at small and odd shapes, B5's stress
+    shapes, each side of its form rule and a 512^3 volume with ties.
+    Returns (ms, plain ms, err) of an ascending 512^3 sweep."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import geodesic, voronoi
+
+    anis = (40.0, 16.0, 16.0)
+    err = 0.0
+    for shape in ((11, 9, 8), *B5_STRESS_SHAPES, (96, 96, 96)):
+        for ties in (False, True):
+            err = max(err, v1_case(shape, gen, (1.0, 1.0, 1.0) if ties
+                                   else anis, ties))
+        log(f"[kernels] V1 bit-equal on {shape} (form "
+            f"{voronoi.voronoi_plan(shape[1], shape[2])['form']}): both "
+            f"directions, with and without ties, twice; distance = B5's")
+    for side, form in V1_RULE:
+        plan = voronoi.voronoi_plan(side, side)
+        if plan["form"] != form:
+            raise AssertionError(f"V1 {side}^2: plan {plan}, expected {form}")
+        err = max(err, v1_case((2, side, side), gen, anis, False))
+    log(f"[kernels] V1 bit-equal on each side of its form rule: "
+        f"{json.dumps(V1_RULE)}")
+    n = DENSE_N
+    iso = (1.0, 1.0, 1.0)
+    err = max(err, v1_case((n, n, n), gen, iso, True))
+    d, f, ok = v1_inputs((n, n, n), gen, True)
+    costs = geodesic.plane_costs(0, False, iso)
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: voronoi.voronoi_sweep(d, f, ok, costs, False, flag),
+                 5)
+    _, plain = timed_once(lambda: voronoi._voronoi_sweep_plain(
+        d, f, ok, costs, False, flag))
+    bms, by = v1_bound((n, n, n))
+    plan = voronoi.voronoi_plan(n, n)
+    log(f"[kernels] V1 at {n}^3 with ties (form {plan['form']}, "
+        f"{plan['ctas']} CTAs of {plan['rows']} rows): bit-equal; "
+        f"{ms:.3f} ms vs plain {plain:.1f} ms, bound {bms:.3f} ms ({by})")
+    del d, f, ok
+    return ms, plain, err
+
+
+class V1Spy:
+    """While installed, counts the V1 calls per shape; with `want` (a set
+    of shapes), keeps the arguments of the first call of each."""
+
+    def __init__(self, want=()):
+        self.want = set(want)
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import geodesic
+
+        inner = geodesic.voronoi_sweep
+
+        def spy(d, f, ok, costs9, descending, changed):
+            if d.device.type == "cuda":
+                shape = tuple(d.shape)
+                self.calls[shape] = self.calls.get(shape, 0) + 1
+                if shape in self.want and shape not in self.kept:
+                    self.kept[shape] = (d.clone(), f.clone(), ok.clone(),
+                                        tuple(costs9), bool(descending))
+            return inner(d, f, ok, costs9, descending, changed)
+
+        geodesic.voronoi_sweep = spy
+
+        def restore():
+            geodesic.voronoi_sweep = inner
+
+        return restore
+
+
+def check_v1_recorded(spy):
+    """V1 against its plain version on the calls a run made, each twice.
+    Returns {shape: (ms, plain ms, bound ms, bound by, err)}."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import voronoi
+
+    out = {}
+    for shape, (d, f, ok, costs, desc) in sorted(spy.kept.items()):
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        want_flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = voronoi.voronoi_sweep(d, f, ok, costs, desc, flag)
+        again = voronoi.voronoi_sweep(d, f, ok, costs, desc,
+                                      torch.zeros_like(flag))
+        want, plain = timed_once(lambda: voronoi._voronoi_sweep_plain(
+            d, f, ok, costs, desc, want_flag))
+        err = require_equal(f"V1 oversegment call {shape}", got, want)
+        require_equal(f"V1 oversegment call {shape} run twice", again, got)
+        require_equal(f"V1 oversegment call {shape} flag", flag, want_flag)
+        ms = cuda_ms(lambda: voronoi.voronoi_sweep(d, f, ok, costs, desc,
+                                                   flag), 5)
+        out[shape] = (ms, plain) + v1_bound(shape) + (err,)
+        plan = voronoi.voronoi_plan(shape[1], shape[2])
+        log(f"[kernels] V1 {shape} ({spy.calls.get(shape, 0)} calls, form "
+            f"{plan['form']}, {plan['ctas']} CTAs): {ms:.4f} ms vs plain "
+            f"{plain:.2f} ms, bound {out[shape][2]:.4f} ms")
+    return out
+
+
+def first_appearance(a):
+    """The values of a 1-D array renumbered 0, 1, ... by first appearance."""
+    _, first, inv = np.unique(a, return_index=True, return_inverse=True)
+    rank = np.empty_like(first)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv.ravel()]
+
+
+def oversegment_run(tag, vol, skels, downsample, spy=None):
+    """oversegment on the card once, the launch counts reset just before
+    it and read just after. Returns (labels, skeletons, launches)."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    restore = spy.install() if spy is not None else None
+    profiling.reset_stats()
+    profiling.collect(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        labels, out = kimimaro_tpu_torch.oversegment(
+            vol, skels, anisotropy=ANIS, downsample=downsample,
+            device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        profiling.collect(False)
+        if restore is not None:
+            restore()
+    launches = dict(kernels.LAUNCHES)
+    stats = profiling.get_stats()
+    phases = {k: round(v, 3) for k, v in stats["phases"].items()}
+    log(f"[oversegment] {tag} (downsample={downsample}): {secs:.2f} s for "
+        f"{len(out)} skeletons; phases (s) {json.dumps(phases)}; counters "
+        f"{json.dumps(stats['counters'])}; V1 launches "
+        f"{launches['voronoi_sweep']}")
+    if launches["voronoi_sweep"] <= 0:
+        raise AssertionError("oversegment launched no V1 sweep")
+    # a change flag stuck at 1 would run every crop to the cap of 4096
+    # rounds with the same fields; the crops converge in about two
+    rounds = stats["counters"].get("voronoi_rounds", 0)
+    if not 0 < rounds <= 4 * len(out):
+        raise AssertionError(f"oversegment: {rounds} V1 rounds for "
+                             f"{len(out)} skeletons")
+    return labels, out, launches
+
+
+def check_oversegment(vol, slcs, skels, labels, out, downsample, n_cpu=16):
+    """The composite: uint64 of the volume's shape, background 0, every
+    voxel of a skeletonized label in a segment, as many segments as
+    distinct seed voxels, a segment per vertex; and on the crops of
+    `n_cpu` labels (their boxes of `slcs` grown by one, the volume's other
+    labels in them) equal to the port's CPU run, up to the ids."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch.utils.bbox import Bbox
+
+    if labels.shape != vol.shape or labels.dtype != np.uint64:
+        raise AssertionError(f"oversegment: {labels.shape} {labels.dtype}")
+    if (labels[vol == 0] != 0).any():
+        raise AssertionError("oversegment: background got a segment")
+    lut = np.zeros(int(vol.max()) + 1, dtype=bool)
+    lut[np.array(sorted(skels))] = True
+    lost = int((labels[lut[vol]] == 0).sum())
+    if lost:
+        raise AssertionError(f"oversegment: {lost} voxels of skeletonized "
+                             f"labels without a segment")
+    anis = np.asarray(ANIS, dtype=np.float32)
+    seeds = 0
+    for s in skels.values():
+        seg = s.downsample(downsample) if downsample > 0 else s
+        v = (seg.vertices / anis).round().astype(int)
+        seeds += len(np.unique(v, axis=0))
+    segs = torch.unique(torch.from_numpy(labels.view(np.int64)).cuda())
+    n_segs = int(segs.numel()) - int(bool((segs == 0).any()))
+    if n_segs != seeds:
+        raise AssertionError(f"oversegment: {n_segs} segments, {seeds} "
+                             f"distinct seed voxels")
+    bad = [k for k, s in out.items() if len(s.segments) != len(s.vertices)]
+    if bad:
+        raise AssertionError(f"oversegment: labels {bad[:10]} lack segments")
+    # the CPU on the crops of n_cpu labels, spread over the smaller half
+    by_size = sorted(skels, key=lambda k: int(np.prod(
+        np.ptp(skels[k].vertices, axis=0) + 1)))
+    pick = by_size[:len(by_size) // 2][::max(1, len(by_size) // 2 // n_cpu)]
+    t0 = time.perf_counter()
+    for k in pick[:n_cpu]:
+        roi = Bbox.from_slices(slcs[k - 1])
+        roi.grow(1)
+        roi.minpt = np.clip(roi.minpt, 0, None)
+        roi.maxpt = np.minimum(roi.maxpt, np.array(vol.shape))
+        slc = roi.to_slices()
+        cut = vol[slc]
+        skel = skels[k].clone()
+        skel.vertices = skel.vertices - roi.minpt.astype(np.float32) * anis
+        cl, cs = kimimaro_tpu_torch.oversegment(
+            cut, {k: skel}, anisotropy=ANIS, downsample=downsample,
+            device="cpu")
+        mine = cut == k
+        card, cpu = labels[slc][mine], cl[mine]
+        if not np.array_equal(first_appearance(card), first_appearance(cpu)):
+            raise AssertionError(f"oversegment: label {k} card != CPU")
+        to_cpu = dict(zip(card.tolist(), cpu.tolist()))
+        if [to_cpu.get(int(s)) for s in out[k].segments] != \
+                cs[k].segments.tolist():
+            raise AssertionError(f"oversegment: label {k} segments card != "
+                                 f"CPU")
+    log(f"[oversegment] downsample={downsample}: uint64 composite, every "
+        f"voxel of the {len(skels)} skeletonized labels in one of {n_segs} "
+        f"segments (= distinct seed voxels), a segment per vertex; card = "
+        f"CPU on the crops of {len(pick[:n_cpu])} labels "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def neurite_walk(n=DENSE_N, steps=2000, radius=3.0, seed=0):
+    """One winding neurite alone in an n^3 volume, in the manner of
+    bench.py's synthetic_volume_neurite: a persistent random walk of
+    `steps` steps of 2 voxels in x and y (0.8 in z) from the centre,
+    stamped with a ball of `radius` voxels (squashed in z by the
+    anisotropy). Returns (volume, centres, start, end): start and end are
+    the walk's two ends."""
+    rng = np.random.RandomState(seed)
+    aniso = np.asarray(ANIS, dtype=np.float32)
+    pos = np.full(3, n / 2, dtype=np.float32)
+    d = rng.randn(3).astype(np.float32)
+    d /= np.linalg.norm(d)
+    step = 2.0 / (aniso / aniso[0])
+    pts = np.empty((steps, 3), dtype=np.float32)
+    for i in range(steps):
+        pts[i] = pos
+        d = d + rng.randn(3).astype(np.float32) * 0.18
+        d /= max(float(np.linalg.norm(d)), 1e-6)
+        pos = np.clip(pos + d * step, 0, n - 1)
+    r = int(round(radius))
+    w = np.arange(-r, r + 1)
+    ox, oy, oz = np.meshgrid(w, w, w, indexing="ij")
+    keep = ox ** 2 + oy ** 2 + (oz * (aniso[2] / aniso[0])) ** 2 <= radius ** 2
+    offs = np.stack([ox[keep], oy[keep], oz[keep]], axis=-1)
+    vox = (pts[:, None, :].astype(np.int64) + offs[None]).reshape(-1, 3)
+    np.clip(vox, 0, n - 1, out=vox)
+    vol = np.zeros((n, n, n), dtype=bool)
+    vol[vox[:, 0], vox[:, 1], vox[:, 2]] = True
+    ends = [tuple(int(c) for c in pts[i].astype(np.int64)) for i in (0, -1)]
+    return vol, pts, ends[0], ends[1]
+
+
+def check_path(skel, vol, start, end, what):
+    """The skeleton of connect_points is one path from `end` (the source
+    of the field) to `start`, of 26-adjacent voxels inside the mask, its
+    radii the EDT at its vertices. Returns its voxels."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import edt as edt_ops
+
+    anis = np.asarray(ANIS, dtype=np.float32)
+    vox = np.rint(skel.vertices / anis).astype(np.int64)
+    if tuple(vox[0]) != tuple(end) or tuple(vox[-1]) != tuple(start):
+        raise AssertionError(f"{what}: the path runs {tuple(vox[0])} -> "
+                             f"{tuple(vox[-1])}, not {end} -> {start}")
+    steps = np.abs(np.diff(vox, axis=0))
+    if len(vox) > 1 and (steps.max() > 1 or (steps.sum(axis=1) == 0).any()):
+        raise AssertionError(f"{what}: a step of the path is not a "
+                             f"26-neighbour move")
+    if not vol[tuple(vox.T)].all():
+        raise AssertionError(f"{what}: the path leaves the mask")
+    edges = np.stack([np.arange(len(vox) - 1), np.arange(1, len(vox))], 1)
+    if not np.array_equal(skel.edges, edges.astype(skel.edges.dtype)):
+        raise AssertionError(f"{what}: the edges are not one chain")
+    dbf = edt_ops.edt(torch.from_numpy(vol.view(np.uint8)).cuda(), ANIS,
+                      black_border=True)
+    at = dbf[tuple(torch.from_numpy(vox[:, a]).cuda() for a in range(3))]
+    if not np.array_equal(skel.radii, at.cpu().numpy()):
+        raise AssertionError(f"{what}: radii differ from the EDT")
+    return vox
+
+
+def connect_points_phase():
+    """connect_points on one winding neurite in an empty 512^3 volume on the
+    card, once, its launches reset just before it and read just after, with
+    B5's calls of each mode and direction in its second round recorded and
+    held bit-equal to the plain sweep; then the same call on a cut of the
+    volume, card against CPU. Returns (launches, B5's table rows)."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    vol, pts, start, end = neurite_walk()
+    log(f"[connect] neurite of {len(pts)} steps, {int(vol.sum())} voxels in "
+        f"{vol.shape}, from {start} to {end} (made in "
+        f"{time.perf_counter() - t0:.1f} s, set-up)")
+    # each key's calls run three to a round (one per axis): call 3 is the
+    # second round's first
+    spy = B5Spy(nth=3)
+    restore = spy.install()
+    profiling.reset_stats()
+    profiling.collect(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        skel = kimimaro_tpu_torch.connect_points(vol, start, end,
+                                                 anisotropy=ANIS,
+                                                 device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        profiling.collect(False)
+        restore()
+    launches = dict(kernels.LAUNCHES)
+    phases = {k: round(v, 3) for k, v in profiling.get_stats()["phases"]
+              .items()}
+    vox = check_path(skel, vol, start, end, "connect_points")
+    log(f"[connect] {secs:.2f} s: a path of {len(vox)} vertices, "
+        f"{skel.cable_length():.0f} nm; phases (s) {json.dumps(phases)}; "
+        f"B5 sweeps {launches['sweep_axis0']} (rounds of six: "
+        f"{launches['sweep_axis0'] / 6:.0f}, both fields), B1 sweeps "
+        f"{launches['gsweep_sweep0']}, F1 {launches['fma_f32']}")
+    for k in ("sweep_axis0", "gsweep_sweep0", "fma_f32"):
+        if launches[k] <= 0:
+            raise AssertionError(f"connect_points launched no {k}")
+    # B5 at the shapes of this run: the recorded calls against the plain
+    # sweep, a table row for each mode at the most timed direction
+    recorded = {}
+    b5_err = check_b5_recorded(spy, recorded)
+    modes = {m for _, m, _, _, _ in recorded}
+    if modes != {False, True}:
+        raise AssertionError(f"connect_points: B5 recorded in modes {modes}")
+    b5_rows = []
+    for node in (False, True):
+        keys = [k for k in recorded if k[1] == node]
+        key = max(keys, key=lambda k: recorded[k][0])
+        ms, plain, err = recorded[key]
+        calls = sum(v for k, v in spy.seen.items() if k[1] == node)
+        bms, by = b4_bound(key[0], node)
+        mode = "node" if node else "euclid"
+        log(f"[kernels] B5 connect_points {key[0]} {mode}: {len(keys)} "
+            f"recorded calls bit-equal to the plain sweep; {ms:.3f} ms vs "
+            f"plain {plain:.1f} ms, bound {bms:.3f} ms ({by}); {calls} calls "
+            f"in the run")
+        b5_rows.append({
+            "name": f"sweep_axis0 {key[0]} {mode}", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+            "replaces": "kimimaro_tpu/ops/pallas_sweep.py:117",
+            "launches": calls, "max_abs_err": max(err, b5_err),
+            "ms": round(ms, 4), "plain_ms": round(plain, 4),
+            "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
+    del spy, recorded
+    # a cut of at most 160 voxels a side around the walk's first steps
+    k = len(pts)
+    while k > 2:
+        lo = np.maximum(np.floor(pts[:k].min(axis=0)).astype(int) - 4, 0)
+        hi = np.minimum(np.ceil(pts[:k].max(axis=0)).astype(int) + 5,
+                        DENSE_N)
+        if (hi - lo).max() <= 160:
+            break
+        k = k * 15 // 16
+    cut = vol[tuple(slice(a, b) for a, b in zip(lo, hi))]
+    s_cut = tuple(int(c) for c in np.asarray(start) - lo)
+    e_cut = tuple(int(c) for c in pts[k - 1].astype(np.int64) - lo)
+    t0 = time.perf_counter()
+    got = kimimaro_tpu_torch.connect_points(cut, s_cut, e_cut,
+                                            anisotropy=ANIS, device="cuda")
+    want = kimimaro_tpu_torch.connect_points(cut, s_cut, e_cut,
+                                             anisotropy=ANIS, device="cpu")
+    for name in ("vertices", "edges", "radii"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"connect_points on the cut {cut.shape}: "
+                                 f"{name} card != CPU")
+    check_path(got, cut, s_cut, e_cut, "connect_points on the cut")
+    log(f"[connect] cut {cut.shape} over the walk's first {k} steps: card = "
+        f"CPU, a path of {len(got.vertices)} vertices "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, b5_rows
+
+
+def synapse_targets_plain(labels, synapses):
+    """synapses_to_targets by the plain loop: each label's voxels by one
+    whole-volume compare, the nearest voxel of each centroid by cdist."""
+    import scipy.spatial
+
+    targets = {}
+    for label, pairs in synapses.items():
+        cloud = np.vstack((labels == label).nonzero()).T
+        if len(cloud) == 0:
+            continue
+        by_swc = {}
+        for centroid, swc in pairs:
+            by_swc.setdefault(swc, []).append(centroid)
+        for swc, centroids in by_swc.items():
+            near = np.argmin(scipy.spatial.distance.cdist(cloud, centroids),
+                             axis=0)
+            for i in np.unique(near):
+                targets[tuple(int(c) for c in cloud[i])] = swc
+    return targets
+
+
+def synapse_phase(dense, slcs):
+    """synapses_to_targets for 2 seeded centroids on each of 256 labels of
+    the dense volume above the dust threshold (the host pass timed; the
+    same targets by the plain whole-volume loop on 8 of them), then
+    skeletonize(extra_targets_after=) on the card once, launches reset
+    just before it and read just after: every target is a vertex of its
+    label's skeleton."""
+    import torch
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    rng = np.random.RandomState(11)
+    big = np.flatnonzero(np.bincount(dense.ravel()) > 1000)
+    big = big[big > 0]
+    labs = rng.choice(big, size=min(256, len(big)), replace=False)
+    syn = {}
+    for lab in labs:
+        s = slcs[lab - 1]
+        syn[int(lab)] = [(tuple(float(rng.uniform(x.start, x.stop - 1))
+                                for x in s), j + 1) for j in range(2)]
+    t0 = time.perf_counter()
+    targets = kimimaro_tpu_torch.synapses_to_targets(dense, syn)
+    host = time.perf_counter() - t0
+    few = {k: syn[k] for k in list(syn)[:8]}
+    t0 = time.perf_counter()
+    scan = synapse_targets_plain(dense, few)
+    scan_s = time.perf_counter() - t0
+    if scan != kimimaro_tpu_torch.synapses_to_targets(dense, few):
+        raise AssertionError("synapses_to_targets != the plain loop")
+    log(f"[synapses] {len(targets)} targets of {len(syn)} labels in "
+        f"{host:.3f} s on the host (one pass over the volume); the plain "
+        f"whole-volume loop {scan_s:.2f} s for 8 labels, the same targets")
+    profiling.reset_stats()
+    profiling.collect(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        skels = kimimaro_tpu_torch.skeletonize(
+            dense, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True,
+            extra_targets_after=list(targets), device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        profiling.collect(False)
+    launches = dict(kernels.LAUNCHES)
+    stats = profiling.get_stats()
+    counters = {k: stats["counters"].get(k, 0) for k in
+                ("engine_jobs", "crop_engine_jobs", "fallback_jobs")}
+    anis = np.asarray(ANIS, dtype=np.float32)
+    missing = []
+    for t in targets:
+        lab = int(dense[t])
+        verts = {tuple(v) for v in skels[lab].vertices.tolist()}
+        if tuple((np.asarray(t, np.float32) * anis).tolist()) not in verts:
+            missing.append((lab, t))
+    if missing:
+        raise AssertionError(f"synapse targets not among their label's "
+                             f"vertices: {missing[:5]} ({len(missing)})")
+    log(f"[synapses] skeletonize(extra_targets_after) {secs:.2f} s, "
+        f"{len(skels)} skeletons; each of the {len(targets)} targets is a "
+        f"vertex of its label; jobs {json.dumps(counters)}; phases (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in stats['phases'].items()})}")
+    return launches
+
+
+def analysis_phase(dense, dense_skels, gen):
+    """Phase 11: V1 against its plain version; oversegment of the dense
+    volume with its skeletons (downsample 0 and 5, each a first and a warm
+    run) with its checks and V1 on the warm runs' most swept shapes;
+    connect_points on a 512^3 neurite; synapses_to_targets through
+    skeletonize. Returns (launches of those runs, V1 at 512^3, V1's rows
+    by shape with their calls, B5's table rows of connect_points)."""
+    import scipy.ndimage
+
+    v1 = check_v1(gen)
+    slcs = scipy.ndimage.find_objects(dense)
+    total = {}
+
+    def add(part):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+
+    counting = V1Spy()
+    labels, out, launches = oversegment_run("first run", dense, dense_skels,
+                                            0, counting)
+    add(launches)
+    check_oversegment(dense, slcs, dense_skels, labels, out, 0)
+    del labels, out
+    top = sorted(counting.calls, key=lambda k: counting.calls[k]
+                 * int(np.prod(k)))[-6:]
+    keeping = V1Spy(want=top)
+    _, _, launches = oversegment_run("warm run", dense, dense_skels, 0,
+                                     keeping)
+    add(launches)
+    for run in ("first run", "warm run"):
+        labels, out, launches = oversegment_run(run, dense, dense_skels, 5)
+        add(launches)
+        if run == "first run":
+            check_oversegment(dense, slcs, dense_skels, labels, out, 5)
+        del labels, out
+    rows = check_v1_recorded(keeping)
+    log(f"[kernels] V1 on the dense oversegment's {len(counting.calls)} "
+        f"sweep shapes, {sum(counting.calls.values())} calls a run; the six "
+        f"of the most swept voxels bit-equal, twice")
+    launches, b5_rows = connect_points_phase()
+    add(launches)
+    add(synapse_phase(dense, slcs))
+    return (total, v1, {k: (counting.calls[k], v) for k, v in rows.items()},
+            b5_rows)
+
+
+def v1_table(launches, v1, rows):
+    """The kernel table's V1 rows: a 512^3 sweep with all of the main
+    path's V1 launches, and each recorded oversegment shape with its calls
+    of a run."""
+    n = DENSE_N
+    ms, plain, err = v1
+    err = max([err] + [v[4] for _, v in rows.values()])
+    bms, by = v1_bound((n, n, n))
+    table = [{"name": "voronoi_sweep", "route": "cuda",
+              "source": "kimimaro_tpu_torch/csrc/voronoi.cu",
+              "replaces": "kimimaro_tpu/ops/geodesic.py:727",
+              "launches": launches["voronoi_sweep"], "max_abs_err": err,
+              "ms": round(ms, 4), "plain_ms": round(plain, 4),
+              "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None}]
+    for shape, (calls, (ms, plain, bms, by, _)) in sorted(rows.items()):
+        table.append({"name": f"voronoi_sweep {shape}", "route": "cuda",
+                      "source": "kimimaro_tpu_torch/csrc/voronoi.cu",
+                      "replaces": "kimimaro_tpu/ops/geodesic.py:727",
+                      "launches": calls, "max_abs_err": err,
+                      "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                      "bound_ms": round(bms, 4), "bound_by": by,
+                      "library_ms": None})
+    return table
+
+
 def profile_dense(top=25):
     """`--profile`: one warm dense 512^3 run under torch.profiler. Prints
     the card's busy share (device time of all kernels and copies over the
@@ -3250,6 +3903,28 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--analysis"]:
+        import kimimaro_tpu_torch
+
+        log(device_line())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        log(f"[build] nvcc {kernels.build():.2f} s")
+        dense = dense_volume(DENSE_N)
+        t0 = time.perf_counter()
+        skels = kimimaro_tpu_torch.skeletonize(
+            dense, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, device="cuda")
+        log(f"[analysis] {len(skels)} dense skeletons "
+            f"({time.perf_counter() - t0:.1f} s, set-up)")
+        launches, v1, rows, b5_rows = analysis_phase(dense, skels, gen)
+        log(f"[analysis] launches: {json.dumps(launches)}")
+        print(json.dumps({"kernels": v1_table(launches, v1, rows)
+                          + b5_rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--host-soma"]:
         log(device_line())
         rc = host_soma()
@@ -3383,6 +4058,9 @@ def main() -> int:
     # 10. self-touch: the dense volume under a voxel graph
     (touch_launches, b1_vg, b5_vg, b4_touch,
      b4_touch_calls) = self_touch_phase(dense, gen)
+    # 11. the analysis extras on the dense run's skeletons
+    (analysis_launches, v1, v1_rows,
+     b5_connect) = analysis_phase(dense, dense_skels, gen)
 
     # F1 on the calls of phases 4 to 6, 8 and 9
     f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs, f1_fill))
@@ -3410,7 +4088,7 @@ def main() -> int:
             b4_rows[shape][0] += calls.get(shape, 0)
     for part in (dense_launches, soma_launches, xs_launches, fill_launches,
                  small_fill_launches, stream_launches, chunk_launches,
-                 touch_launches):
+                 touch_launches, analysis_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")
@@ -3574,6 +4252,9 @@ def main() -> int:
             "launches": b4_touch_calls[shape], "max_abs_err": touch_err,
             "ms": round(ms, 4), "plain_ms": round(plain, 4),
             "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
+    table.extend(v1_table(launches, v1, v1_rows))
+    # B5 at phase 11's connect_points shape (512^3), each mode
+    table.extend(b5_connect)
     log(f"[main] every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Shared pieces of the plane-sweep kernels (gsweep.cu, sweep.cu).
+// Shared pieces of the plane-sweep kernels (gsweep.cu, sweep.cu, voronoi.cu).
 //
 // A directed sweep along axis 0 of an (n, H, W) volume relaxes plane i from
 // the already relaxed plane i-1 through the nine (dy, dz) offsets, so the
@@ -28,7 +28,8 @@
 //     CTA spins on its own shared memory and the cluster meets at a barrier
 //     only at the start and the end of the sweep.
 //
-// A sweep's own arithmetic is an operator `Op` (gsweep.cu, sweep.cu):
+// A sweep's own arithmetic is an operator `Op` (gsweep.cu, sweep.cu,
+// voronoi.cu):
 //   T, kFields      the carried value type and the number of fields;
 //   kIds            whether neighbours count only at an equal carried id;
 //   kWords, kBytes  4-byte and 1-byte operands of a voxel in a stage;
@@ -39,6 +40,13 @@
 //                   the strip (in.p[k]: operand k of the strip in the
 //                   stage) from the carried 3 x 3 cells around it;
 //   store(j, nv)    write them to the output.
+// and, optionally, shared memory of its own (`StripHooks`):
+//   kExtraBytes     bytes after the strip's shared memory (in the cluster
+//                   form, after the mailboxes);
+//   begin(extra)    called by every thread before the sweep, with the CTA
+//                   not yet synchronised;
+//   finish()        called by every thread after the sweep, once the CTA
+//                   is synchronised.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -47,6 +55,8 @@
 #include <stdint.h>
 #include <stdio.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace kt {
 
@@ -576,6 +586,35 @@ __device__ __forceinline__ void sweep_strips(const Op& op, Halo& halo, int g,
     }
 }
 
+// An operator's own shared memory: `kExtraBytes` where it names them, else
+// none (and no hooks are called).
+template <class Op, class = void>
+struct StripHooks {
+    static constexpr size_t kBytes = 0;
+};
+
+template <class Op>
+struct StripHooks<Op, std::void_t<decltype(Op::kExtraBytes)>> {
+    static constexpr size_t kBytes = Op::kExtraBytes;
+};
+
+// sweep_strips between the operator's hooks, `extra` its shared memory
+template <class Op, class Halo>
+__device__ __forceinline__ void hooked_strips(const Op& op, Halo& halo,
+                                              unsigned char* extra, int g,
+                                              int n, int H, int W, int R,
+                                              int descending) {
+    if constexpr (StripHooks<Op>::kBytes == 0) {
+        sweep_strips<Op>(op, halo, g, n, H, W, R, descending);
+    } else {
+        Op o = op;
+        o.begin(extra);
+        sweep_strips<Op>(o, halo, g, n, H, W, R, descending);
+        __syncthreads();
+        o.finish();
+    }
+}
+
 // The two kernels of the strip loop: a co-resident grid whose strips
 // exchange edge rows through `mail` in device memory, and a grid of one
 // cluster whose CTAs keep their mailboxes after the strip's shared memory.
@@ -583,6 +622,7 @@ template <class Op>
 __global__ void __launch_bounds__(kStripThreads, 1)
 grid_strips(Op op, unsigned long long* mail, int n, int H, int W, int R,
             int descending) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int g = blockIdx.x, G = gridDim.x;
     const int64_t FW = (int64_t)Op::kFields * W;
     auto box = [&](int strip, int bottom) {
@@ -591,7 +631,8 @@ grid_strips(Op op, unsigned long long* mail, int n, int H, int W, int R,
     MailHalo<typename Op::T, Op::kFields, false> halo{
         g > 0 ? box(g - 1, 1) : nullptr, g + 1 < G ? box(g + 1, 0) : nullptr,
         box(g, 0), box(g, 1), g, G, W, n, nullptr, nullptr};
-    sweep_strips<Op>(op, halo, g, n, H, W, R, descending);
+    hooked_strips<Op>(op, halo, smem + op_layout<Op>(R, W).total, g, n, H, W,
+                      R, descending);
 }
 
 // Zeroing the boxes and a cluster barrier come before any CTA posts; a last
@@ -617,7 +658,8 @@ cluster_strips(Op op, int n, int H, int W, int R, int descending) {
         g, G, W, n, nullptr, nullptr};
     cluster_arrive();
     cluster_wait();
-    sweep_strips<Op>(op, halo, g, n, H, W, R, descending);
+    hooked_strips<Op>(op, halo, (unsigned char*)(boxes + 4 * FW), g, n, H, W,
+                      R, descending);
     cluster_arrive();
     cluster_wait();
 }
@@ -636,7 +678,7 @@ struct StripPlan {
 // The grid-wide strips of an operator: possible where the device holds one
 // CTA per strip at once and the strip of the fewest rows (ceil(H / SMs))
 // fits in a block's shared memory (the carried plane twice and two
-// operand stages).
+// operand stages, and the operator's own bytes).
 template <class Op>
 StripPlan plan_grid_strips(int H, int W) {
     StripPlan plan = {kPerPlane, {0, 0}, 0, 0};
@@ -644,7 +686,8 @@ StripPlan plan_grid_strips(int H, int W) {
     if (ctas <= 0 || H <= 0 || W <= 0) return plan;
     plan.strips = make_strips(H, ctas);
     plan.threads = strip_threads(plan.strips.rows, W);
-    plan.smem = op_layout<Op>(plan.strips.rows, W).total;
+    plan.smem =
+        op_layout<Op>(plan.strips.rows, W).total + StripHooks<Op>::kBytes;
     if (plan.smem <= (size_t)optin_smem()) plan.form = kGridStrips;
     return plan;
 }
@@ -663,8 +706,8 @@ StripPlan plan_cluster(int H, int W) {
     const void* kern = (const void*)cluster_strips<Op>;
     for (int c = H < 16 ? H : 16; c >= 1; --c) {
         const Strips strips = make_strips(H, c);
-        const size_t smem =
-            op_layout<Op>(strips.rows, W).total + cluster_box_bytes<Op>(W);
+        const size_t smem = op_layout<Op>(strips.rows, W).total +
+                            cluster_box_bytes<Op>(W) + StripHooks<Op>::kBytes;
         // fewer CTAs only make the strips longer
         if (smem > optin ||
             (int64_t)((strips.rows + kGroup - 1) / kGroup) * W >

@@ -34,6 +34,7 @@ from collections import defaultdict
 from typing import Dict, List, Sequence
 
 import numpy as np
+import scipy.spatial
 import torch
 
 from . import engine, gengine
@@ -958,6 +959,109 @@ def compute_border_targets(cc_labels: torch.Tensor, anisotropy) -> Dict[int, np.
     for label, pts in target_list.items():
         out[label] = np.array(sorted(pts), dtype=np.uint32)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Point utilities (kimimaro intake.py:268-313,706-745)
+
+
+def connect_points(labels, start, end, anisotropy=(1, 1, 1),
+                   fill_holes: bool = False, in_place: bool = False,
+                   pdrf_scale: float = 100000, pdrf_exponent: int = 4,
+                   device="cuda") -> Skeleton:
+    """Extract one centerline between two points of a binary image
+    (kimimaro_tpu.connect_points plus `device`). 2-D points are padded to
+    3-D; points in different components (or in the background) raise
+    ValueError. `fill_holes` is accepted and, as in the JAX package, does
+    nothing. Vertices are in physical units."""
+    device = resolve_device(device)
+    anisotropy = np.array(anisotropy, dtype=np.float32)
+    start = tuple(int(c) for c in start)
+    end = tuple(int(c) for c in end)
+
+    labels = np.asarray(labels).astype(bool)
+    labels = format_labels(labels, in_place=in_place)
+
+    # the raw component ids (kernel B1) at the two points: equal raw ids
+    # are equal compact ids, and 0 is the background
+    start3 = (start + (0, 0, 0))[:3]
+    end3 = (end + (0, 0, 0))[:3]
+    with phase("connect_ccl", device):
+        cc = connected_components(_upload(labels, device))
+        cs, ce = int(cc[start3]), int(cc[end3])
+        del cc
+    if cs == 0 or cs != ce:
+        raise ValueError(
+            "Cannot extract centerline from disconnected components.")
+
+    with phase("point_to_point", device):
+        skel = trace_mod.point_to_point(
+            labels, start3, end3,
+            anisotropy=tuple(float(a) for a in anisotropy),
+            pdrf_scale=pdrf_scale, pdrf_exponent=pdrf_exponent,
+            device=device)
+    skel.vertices *= anisotropy
+    skel.space = "physical"
+    return skel
+
+
+def _point_clouds(labels: np.ndarray, ids) -> Dict[object, np.ndarray]:
+    """{id: the coordinates of its voxels, in C order} for each of `ids`
+    that the volume holds, from one pass: the voxels whose value is one of
+    the ids, sorted stably by value. An id counts where it equals its own
+    cast to the volume's dtype, as `labels == id` compares."""
+    keys = {}
+    for label in ids:
+        try:
+            v = np.asarray(label).astype(labels.dtype)
+        except (OverflowError, TypeError, ValueError):
+            continue
+        if v == label:
+            keys[label] = v
+    if not keys:
+        return {}
+    flat = labels.reshape(-1)
+    idx = np.flatnonzero(np.isin(
+        flat, np.array(list(keys.values()), dtype=labels.dtype)))
+    vals = flat[idx]
+    order = np.argsort(vals, kind="stable")
+    idx, vals = idx[order], vals[order]
+    out = {}
+    for label, v in keys.items():
+        lo = np.searchsorted(vals, v, "left")
+        hi = np.searchsorted(vals, v, "right")
+        if hi > lo:
+            out[label] = np.stack(np.unravel_index(idx[lo:hi], labels.shape),
+                                  axis=1)
+    return out
+
+
+def synapses_to_targets(labels, synapses, progress: bool = False
+                        ) -> Dict[tuple, int]:
+    """Convert synapse centroids into in-label target voxels keyed by SWC
+    label (kimimaro intake.py:706-745): for each label and SWC label, the
+    label's voxels nearest to each centroid (the first in C order on a
+    tie). The labels' voxels come from one pass over the volume
+    (`_point_clouds`), in its C order."""
+    labels = np.asarray(labels)
+    while labels.ndim > 3:
+        labels = labels[..., 0]
+
+    clouds = _point_clouds(labels, synapses.keys())
+    targets = {}
+    for label, pairs in synapses.items():
+        point_cloud = clouds.get(label)
+        if point_cloud is None:
+            continue
+        swc_labels = defaultdict(list)
+        for centroid, swc_label in pairs:
+            swc_labels[swc_label].append(centroid)
+        for swc_label, centroids in swc_labels.items():
+            distances = scipy.spatial.distance.cdist(point_cloud, centroids)
+            minima = np.unique(np.argmin(distances, axis=0))
+            for idx in minima:
+                targets[tuple(int(c) for c in point_cloud[idx])] = swc_label
+    return targets
 
 
 def print_quotes(parallel: int) -> None:

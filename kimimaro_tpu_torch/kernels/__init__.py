@@ -7,8 +7,8 @@ library at import time, so the package imports on machines without a GPU;
 the CPU code paths never call `lib()`.
 
 Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep, ops.xsfetch,
-ops.xsslab, ops.fma) adds one to its entry in `LAUNCHES` where it launches
-its kernel, and nowhere else.
+ops.xsslab, ops.fma, ops.voronoi) adds one to its entry in `LAUNCHES` where
+it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Dict, Optional
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu",
-            "fma.cu")
+            "fma.cu", "voronoi.cu")
 _HEADERS = ("plane.cuh",)
 
 NVCC_FLAGS = (
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
-# F1); the forms gated by a voxel graph (B1, B4, B5) count apart
+# F1, V1); the forms gated by a voxel graph (B1, B4, B5) count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_vg": 0,
@@ -50,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "fetch_secb": 0,
     "section_flood": 0,
     "fma_f32": 0,
+    "voronoi_sweep": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -161,6 +162,11 @@ def lib() -> ctypes.CDLL:
         so.kt_fma_f32_strided.argtypes = [p, f, p, p, f, p, p, f, p, i, p,
                                           ll, p, p]
         so.kt_fma_f32_strided.restype = i
+        so.kt_voronoi_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, p, i,
+                                        p]
+        so.kt_voronoi_sweep.restype = i
+        so.kt_voronoi_plan.argtypes = [i, i, p, p]
+        so.kt_voronoi_plan.restype = i
         _LIB = so
     return _LIB
 

@@ -18,6 +18,9 @@ which pointer jumps keep, also for an asymmetric graph.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
+import numpy as np
 import torch
 
 from . import gsweep
@@ -163,3 +166,24 @@ def label_info(cc, orig_labels, n_max: int, rep_prefix, dbf):
     orig = orig_labels.reshape(-1)[rep_lin]
     orig[0] = 0
     return counts, bbox_min, bbox_max, orig, dbfmax
+
+
+def renumber_cc(cc_raw: np.ndarray, orig_labels: np.ndarray
+                ) -> Tuple[np.ndarray, Dict[int, int]]:
+    """Host compaction of raw CCL output to contiguous ids in the order of
+    the raw ids (background 0 stays 0; without background the ids start at
+    1), plus the cc-id -> original-label mapping, each component's label
+    taken at its first voxel (kimimaro_tpu.ops.ccl.renumber_cc)."""
+    cc_raw = np.asarray(cc_raw)
+    orig_labels = np.asarray(orig_labels)
+    uniq, first_idx, inv = np.unique(cc_raw, return_index=True,
+                                     return_inverse=True)
+    new_ids = np.arange(len(uniq), dtype=np.int64)
+    if not (len(uniq) and uniq[0] == 0):
+        new_ids = new_ids + 1
+    cc = new_ids[inv].reshape(cc_raw.shape)
+    cc = cc.astype(np.uint32 if len(uniq) < 2**32 else np.uint64)
+    flat_orig = orig_labels.reshape(-1)
+    remapping = {int(uid): int(flat_orig[fidx])
+                 for uid, fidx in zip(new_ids, first_idx) if uid != 0}
+    return cc, remapping

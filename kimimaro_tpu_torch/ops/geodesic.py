@@ -11,6 +11,10 @@ Two edge-cost modes:
   - euclidean: step cost = anisotropic length of the offset
   - node: cost of entering voxel v = node_cost[v]
 
+`voronoi_feature_field` relaxes a distance and the id of the nearest seed
+together (kernel V1, `ops.voronoi.voronoi_sweep`); `invalidation_cube` is
+the legacy box-shaped invalidation, slice fills on `device`.
+
 `voxel_graph` (optional, cc3d convention, ops.stencils.GRAPH_BITS): a
 candidate reaching v from u = v + o counts only where u permits the move
 along -o; every sweep reads u's bit through the table of its layout
@@ -30,6 +34,7 @@ from .fma import fma_f32
 from .stencils import (GRAPH_BITS, graph_allows, graph_word,
                        neighborhood_offsets, shifted)
 from .sweep import sweep_axis0, sweep_axis0_batched
+from .voronoi import voronoi_sweep
 
 INF = float("inf")
 
@@ -311,6 +316,119 @@ def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
     dist = distance_field(ok, init, anisotropy, clamp_positive=True,
                           conv="negative", voxel_graph=voxel_graph)
     return dist <= 0.0
+
+
+def invalidation_cube(labels, dbf, path_voxels, scale: float, const: float,
+                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0)):
+    """Cube-shaped TEASAR invalidation: zero every voxel within the
+    axis-aligned box of physical half-extent scale*DBF[v] + const around
+    each path vertex v, crossing label gaps (the legacy
+    skeletontricks.roll_invalidation_cube semantics, as
+    kimimaro_tpu.ops.geodesic.invalidation_cube). Vertices with v[0] < 0
+    are skipped; DBF is read by JAX's index rule (`jax_index`, clamped).
+    The radius is one fused multiply-add, as XLA computes it in the JAX
+    package's jitted cube. Voxel c lies in the box where |c_a - v_a| <=
+    r / w_a in float32 on every axis a; for integer offsets below 2^24 that
+    is |c_a - v_a| <= floor(r / w_a), so each box is one slice fill.
+    `labels` and `dbf` may be arrays: an array is taken as a CPU tensor
+    (`labels`' device holds the work). Returns (n_invalidated, labels)."""
+    labels = torch.as_tensor(labels)
+    dbf = torch.as_tensor(dbf).to(device=labels.device, dtype=torch.float32)
+    shape = np.asarray(dbf.shape, dtype=np.int64)
+    pv = np.asarray(path_voxels, dtype=np.int32).reshape(-1, 3)
+    pv = pv[pv[:, 0] >= 0].astype(np.int64)
+    mask = torch.zeros(tuple(shape), dtype=torch.bool, device=labels.device)
+    if len(pv):
+        near, _ = jax_index(pv, shape)
+        near = np.clip(near, 0, shape - 1)
+        at = dbf[tuple(torch.as_tensor(near[:, a], device=dbf.device)
+                       for a in range(3))]
+        radii = fma_f32(at, float(np.float32(scale)),
+                        float(np.float32(const))).cpu().numpy()
+        half = radii[:, None] / np.asarray(anisotropy, dtype=np.float32)
+        for v, h in zip(pv, half):
+            if np.isnan(h).any():
+                continue
+            reach = np.floor(np.minimum(h, 2.0**30)).astype(np.int64)
+            lo = np.maximum(v - reach, 0)
+            hi = np.minimum(v + reach, shape - 1)
+            if (lo <= hi).all():
+                mask[lo[0]:hi[0] + 1, lo[1]:hi[1] + 1, lo[2]:hi[2] + 1] = True
+    n_inv = (mask & (labels != 0)).sum()
+    return n_inv, torch.where(mask, torch.zeros_like(labels), labels)
+
+
+@functools.lru_cache(maxsize=None)
+def plane_costs(axis: int, descending: bool, anisotropy: tuple) -> tuple:
+    """The nine step costs of a sweep along `axis` in the (dy, dz) order
+    of its layout (the other two axes in order): the length of the offset
+    from the neighbour on the previous plane, rounded as the JAX package's
+    `_off_cost` rounds it."""
+    h, w = [i for i in range(3) if i != axis]
+    costs = []
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            o = [0, 0, 0]
+            o[axis] = 1 if descending else -1
+            o[h], o[w] = dy, dz
+            costs.append(_off_cost(o, anisotropy))
+    return tuple(costs)
+
+
+def voronoi_feature_field(ok_mask, seeds,
+                          anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+                          max_rounds: int = _MAX_ROUNDS):
+    """Multi-source geodesic distance field and nearest-seed feature map
+    (kimimaro_tpu.ops.geodesic.voronoi_feature_field). `seeds`: (k, 3)
+    voxel coordinates (JAX's index rule: a negative coordinate counts from
+    the end, rows outside are dropped); a repeated voxel keeps the later
+    seed. Features are 1-based seed indices (0 = unreached). Rounds of six
+    directed sweeps (kernel V1, `ops.voronoi.voronoi_sweep`) run until one
+    changes nothing; where none does, the fields after as many rounds as
+    the JAX package's stages of seven run for `max_rounds` are returned,
+    as JAX returns them. `ok_mask` may be an array, taken as a CPU tensor
+    (a CUDA tensor runs V1 on the card). Returns (dist float32, features
+    int32)."""
+    ok = torch.as_tensor(ok_mask).to(torch.bool)
+    dev, shape = ok.device, tuple(ok.shape)
+    seeds = np.asarray(seeds, dtype=np.int64).reshape(-1, 3)
+    c, inb = jax_index(seeds, shape)
+    lin = np.ravel_multi_index(tuple(c[inb].T), shape)
+    ids = np.arange(1, len(seeds) + 1, dtype=np.int32)[inb]
+    # the last occurrence of each voxel (index_put_ with repeated indices
+    # is unordered on CUDA)
+    _, last = np.unique(lin[::-1], return_index=True)
+    keep = len(lin) - 1 - last
+    at = torch.as_tensor(lin[keep], device=dev)
+    d = torch.full(shape, INF, dtype=torch.float32, device=dev)
+    f = torch.zeros(shape, dtype=torch.int32, device=dev)
+    d.view(-1)[at] = 0.0
+    f.view(-1)[at] = torch.as_tensor(ids[keep], device=dev)
+    stage = _STAGE_ROUNDS + 1
+    rounds = stage * -(-int(max_rounds) // stage)
+    if rounds <= 0:
+        return d, f
+    d = torch.where(ok, d, INF)
+    oks = tuple(torch.movedim(ok, a, 0).contiguous() for a in range(3))
+    anis = tuple(float(a) for a in anisotropy)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        changed.zero_()
+        for axis in range(3):
+            if shape[axis] <= 1:
+                continue
+            dm = torch.movedim(d, axis, 0).contiguous()
+            fm = torch.movedim(f, axis, 0).contiguous()
+            for desc in (False, True):
+                dm, fm = voronoi_sweep(dm, fm, oks[axis],
+                                       plane_costs(axis, desc, anis), desc,
+                                       changed)
+            d = torch.movedim(dm, 0, axis).contiguous()
+            f = torch.movedim(fm, 0, axis).contiguous()
+        profiling.count("voronoi_rounds")
+        if not bool(changed.item()):
+            break
+    return d, f
 
 
 def _reach_scan(reached, ok, axis: int, descending: bool):

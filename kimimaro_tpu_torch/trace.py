@@ -506,3 +506,49 @@ def _compute_paths_host(
         paths.append(path)
 
     return paths
+
+
+# --------------------------------------------------------------------------- #
+# point-to-point centerline (kimimaro_tpu.trace.point_to_point)
+
+
+def point_to_point(binary_img, start, end,
+                   anisotropy: Sequence[float] = (1, 1, 1),
+                   pdrf_scale: float = 100000, pdrf_exponent: int = 4,
+                   device="cpu") -> Skeleton:
+    """Trace one centerline from `start` to `end` through a binary image
+    (numpy array or tensor): the EDT (black border), the distance from
+    `start` and its farthest voxel, the PDRF over them, the node-cost
+    distance field from `end`, then parents chased from `start`. Radii are
+    the EDT at the vertices. The fields are computed on `device`."""
+    device = torch.device(device)
+    if not torch.is_tensor(binary_img):
+        binary_img = torch.from_numpy(np.asarray(binary_img) != 0)
+    fg = binary_img.to(device) != 0
+    anisotropy = tuple(float(a) for a in anisotropy)
+    dbf = edt_ops.edt(fg.to(torch.uint8), anisotropy, black_border=True)
+    dbf = torch.where(fg, dbf, 0.0)
+    dbf_max = float(dbf.max())
+    dbf_inf = torch.where(dbf == 0, INF, dbf)
+    start = tuple(int(c) for c in start)
+    end = tuple(int(c) for c in end)
+
+    daf, target = euclidean_distance_field(fg, start, anisotropy,
+                                           return_max_location=True)
+    daf = torch.where(torch.isfinite(daf), daf, 0.0)
+    pdrf = _pdrf_kernel(dbf_inf, daf, np.float32(dbf_max),
+                        np.float32(pdrf_scale), int(pdrf_exponent),
+                        daf[target])
+
+    # the node-cost field from `end`, the path chased from `start` (the
+    # reference runs dijkstra(PDRF, end, start))
+    d_init = torch.full(fg.shape, INF, dtype=torch.float32, device=device)
+    d_init[end] = 0.0
+    d = distance_field(fg, d_init, anisotropy, node_cost=pdrf)
+    codes = parent_field(d, fg, anisotropy, node_cost=pdrf).cpu().numpy()
+    skel = Skeleton.from_path(_chase_parents(codes, start, OFFSETS26))
+    if not skel.empty():
+        verts = skel.vertices.astype(np.int64)
+        skel.radii = dbf_inf[tuple(torch.as_tensor(verts[:, a], device=device)
+                                   for a in range(3))].cpu().numpy()
+    return skel

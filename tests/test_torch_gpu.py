@@ -936,3 +936,148 @@ def test_streamed_upload_cuda_matches_plain(gen, dtype):
             labels != 0)
     want = intake._upload(host, torch.device("cuda"))
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# V1: the joint Voronoi sweep. Its forms: one cluster up to 170 x 170,
+# grid-wide strips up to about 850 x 850 (two carried fields), per plane
+# beyond
+V1_FORMS = ((170, "cluster"), (171, "strips"), (840, "strips"),
+            (880, "plane"))
+
+
+def _voronoi_inputs(gen, shape, ties):
+    """A distance field with a quarter finite (small integers where `ties`,
+    so that isotropic costs tie), features of those voxels, an ok mask;
+    non-ok voxels +inf, as the relaxation keeps them."""
+    ok = _rand(gen, shape) < 0.85
+    seeded = _rand(gen, shape) < 0.25
+    vals = (torch.floor(_rand(gen, shape) * 4) if ties
+            else _rand(gen, shape) * 10)
+    d = torch.where(seeded & ok, vals, float("inf"))
+    f = torch.where(seeded, torch.randint(1, 1 << 30, shape, generator=gen,
+                                          device="cuda", dtype=torch.int32),
+                    0).to(torch.int32)
+    return d.contiguous(), f.contiguous(), ok.contiguous()
+
+
+def _check_voronoi(gen, shape, anis, ties=False):
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    d, f, ok = _voronoi_inputs(gen, shape, ties)
+    for desc in (False, True):
+        costs = tgeodesic.plane_costs(0, desc, anis)
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        want_flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        before = kernels.LAUNCHES["voronoi_sweep"]
+        got = tvoronoi.voronoi_sweep(d, f, ok, costs, desc, flag)
+        assert kernels.LAUNCHES["voronoi_sweep"] == before + 1
+        again = tvoronoi.voronoi_sweep(d, f, ok, costs, desc,
+                                       torch.zeros_like(flag))
+        want = tvoronoi._voronoi_sweep_plain(d, f, ok, costs, desc, want_flag)
+        _assert_bit_equal(got, want)
+        _assert_bit_equal(again, got)
+        assert int(flag) == int(want_flag)
+        # the sweep's output is its own fixpoint: a second sweep in the same
+        # direction changes nothing and leaves the flag 0
+        still = torch.zeros_like(flag)
+        _assert_bit_equal(
+            tvoronoi.voronoi_sweep(got[0], got[1], ok, costs, desc, still), got)
+        assert int(still) == 0
+        # its distance is B5's euclid sweep of the same field
+        b5 = tsweep.sweep_axis0(d, ok, None, anis, False, False, desc)
+        _assert_bit_equal((got[0],), (b5,))
+        # the first plane passes through
+        first = -1 if desc else 0
+        assert torch.equal(got[0][first], d[first])
+
+
+@pytest.mark.parametrize("shape", B5_SHAPES)
+@pytest.mark.parametrize("ties", (False, True))
+def test_voronoi_sweep_kernel_matches_plain(gen, shape, ties):
+    _check_voronoi(gen, shape, (1.0, 1.0, 1.0) if ties else ANIS, ties)
+
+
+def test_voronoi_plan_follows_the_shape_rule(gen):
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    for side, form in V1_FORMS:
+        plan = tvoronoi.voronoi_plan(side, side)
+        assert plan["form"] == form, (side, plan)
+        _check_voronoi(gen, (2, side, side), ANIS, ties=True)
+
+
+def test_voronoi_feature_field_cuda_matches_cpu(gen):
+    rng = np.random.RandomState(3)
+    ok = rng.rand(40, 33, 21) < 0.8
+    seeds = np.argwhere(ok)[rng.choice(int(ok.sum()), 12, replace=False)]
+    seeds = np.concatenate([seeds, seeds[:3]])
+    out = {}
+    for device in ("cuda", "cpu"):
+        d, f = tgeodesic.voronoi_feature_field(
+            torch.from_numpy(ok).to(device), seeds, ANIS)
+        out[device] = (d.cpu(), f.cpu())
+    _assert_bit_equal(out["cuda"], out["cpu"])
+
+
+def _tube64():
+    """A winding tube of radius 2 in 64^3 and its two ends."""
+    rng = np.random.RandomState(5)
+    p, h = np.array([32.0, 32.0, 32.0]), rng.randn(3)
+    pts = []
+    for _ in range(160):
+        h = h / np.linalg.norm(h) + 0.5 * rng.randn(3)
+        p = np.clip(p + h / np.linalg.norm(h), 4, 59)
+        pts.append(p.copy())
+    g = np.indices((64, 64, 64)).transpose(1, 2, 3, 0)
+    vol = np.zeros((64, 64, 64), dtype=bool)
+    for q in pts:
+        vol |= ((g - q) ** 2).sum(-1) <= 4.0
+    return vol, (tuple(int(round(c)) for c in pts[0]),
+                 tuple(int(round(c)) for c in pts[-1]))
+
+
+def test_connect_points_cuda_matches_cpu(gen):
+    vol, (start, end) = _tube64()
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = kernels.LAUNCHES["sweep_axis0"]
+        out[device] = kimimaro_tpu_torch.connect_points(
+            vol, start, end, anisotropy=(16, 16, 40), device=device)
+        if device == "cuda":
+            assert kernels.LAUNCHES["sweep_axis0"] > before
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a.vertices, b.vertices)
+    np.testing.assert_array_equal(a.edges, b.edges)
+    np.testing.assert_array_equal(a.radii, b.radii)
+
+
+def test_oversegment_cuda_matches_cpu(gen):
+    rng = np.random.RandomState(2)
+    seeds = rng.randint(0, 64, size=(6, 3)).astype(np.float32)
+    g = np.indices((64, 64, 64)).reshape(3, -1).T.astype(np.float32)
+    w = np.array([16.0, 16.0, 40.0], np.float32)
+    d2 = (((g[:, None, :] - seeds[None]) * w) ** 2).sum(-1)
+    vol = (np.argmin(d2, axis=1) + 1).astype(np.uint32).reshape(64, 64, 64)
+    vol[rng.rand(64, 64, 64) < 0.02] = 0
+    tp = {"scale": 1.5, "const": 300, "pdrf_exponent": 4,
+          "pdrf_scale": 100000, "soma_detection_threshold": 1e9,
+          "soma_acceptance_threshold": 1e9}
+    skels = kimimaro_tpu_torch.skeletonize(vol, teasar_params=tp,
+                                           anisotropy=(16, 16, 40),
+                                           dust_threshold=100, device="cpu")
+    assert len(skels) >= 4
+    for ds in (0, 5):
+        out = {}
+        for device in ("cuda", "cpu"):
+            before = kernels.LAUNCHES["voronoi_sweep"]
+            out[device] = kimimaro_tpu_torch.oversegment(
+                vol, skels, anisotropy=(16, 16, 40), downsample=ds,
+                device=device)
+            if device == "cuda":
+                assert kernels.LAUNCHES["voronoi_sweep"] > before
+        (la, sa), (lb, sb) = out["cuda"], out["cpu"]
+        np.testing.assert_array_equal(la, lb)
+        for k in sa:
+            np.testing.assert_array_equal(sa[k].segments, sb[k].segments)
