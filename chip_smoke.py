@@ -96,12 +96,30 @@ Phases (any failure exits non-zero):
      end to start, radii = the EDT, card = CPU on a cut of at most 96^3;
      synapses_to_targets for 2 centroids on each of 256 dense labels (the
      host pass timed), then skeletonize(extra_targets_after=) on the card:
-     each target a vertex of its label.
+     each target a vertex of its label;
+ 12. the multi-device path: make_mesh(4, "cuda") (every shard on the one
+     card); the sharded CCL and EDT of the dense and soma volumes against
+     the single-device ones (compacted ids equal, the DBF within rtol
+     1e-5, the differing voxels counted); the sharded EDT of a 128^3 cut
+     and the preamble step of a 64^3 cut card = CPU; skeletonize_sharded
+     of the dense volume twice (first, warm) and of the soma volume, with
+     phases, launches, exchanges and peak memory, every label's SWC
+     against phases 5 and 6 (a label may differ only where its DBF
+     differs or where the runs traced one of its components with
+     different engines, both counted); a 64^3 blob volume at 3 shards and
+     the 64^3 self-touch volume at 4 shards, card = CPU; then B1, B3, B4,
+     B5 and F1 bit-equal to their plain versions on the calls the sharded
+     runs made, with kernel-table rows at those shapes;
+ 13. the command line: `python -m kimimaro_tpu_torch.cli forge` of the
+     dense volume (bench.py's parameters as options, --device cuda)
+     writes phase 5's skeletons as SWC; `forge --cross-section 1` of a
+     128^3 cut writes the areas cross_sectional_area computes on the
+     card; `swc to` and `swc from` round-trip one label.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. Launch counts are reset just before each main-path run of
-phases 4 to 6 and 8 to 11 and read just after it; the table's launches are
+phases 4 to 6 and 8 to 12 and read just after it; the table's launches are
 their sum, so neither the kernel comparisons nor the cross-checks count.
 
     python3 chip_smoke.py --profile
@@ -124,6 +142,16 @@ runs phase 10 alone (after the build).
 
 runs phase 11 alone (after the build, with the dense volume's skeletons
 made first, not timed).
+
+    python3 chip_smoke.py --sharded
+
+runs phase 12 alone (after the build, with phases 5 and 6's single-device
+runs made first).
+
+    python3 chip_smoke.py --cli
+
+runs phase 13 alone (after the build, with the dense volume's skeletons
+made first).
 
     python3 chip_smoke.py --host-soma
 
@@ -1007,8 +1035,8 @@ class F1Spy:
     that the runs' peak device memory stays the port's own; `inputs`
     hands them back on the card."""
 
-    SITES = ("gengine", "trace", "engine", "ops.geodesic", "ops.xsbatch",
-             "ops.xsarea")
+    SITES = ("gengine", "parallel.gengine", "trace", "engine",
+             "ops.geodesic", "ops.xsbatch", "ops.xsarea")
 
     def __init__(self, tag, keep=48):
         self.tag = tag
@@ -3866,6 +3894,671 @@ def host_soma():
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the multi-device path
+
+SHARDS = 4
+
+
+def hbm_bound(nbytes, ops):
+    """The larger of bytes over the HBM rate and operations over the
+    float32 peak, in ms, with which one bounds it."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+class B1Spy:
+    """While installed, counts B1's CUDA calls by (shape, mode, node costs,
+    graph gate, clamp) and keeps the operands of the first call of each
+    key, up to `keep`, in host memory."""
+
+    def __init__(self, keep=16):
+        self.keep = keep
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import gsweep
+
+        inner = gsweep.sweep0
+
+        def spy(d, cc, nodecost, okmask, anis_perm, mode, clamp_positive,
+                descending, gate=None, bits9=None):
+            if d.device.type == "cuda":
+                key = (tuple(d.shape), mode, nodecost is not None,
+                       gate is not None, bool(clamp_positive))
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if key not in self.kept and len(self.kept) < self.keep:
+                    self.kept[key] = tuple(
+                        None if t is None else t.to("cpu", copy=True)
+                        for t in (d, cc, nodecost, okmask, gate)) + (
+                        tuple(anis_perm), bool(descending),
+                        None if bits9 is None else tuple(bits9))
+            return inner(d, cc, nodecost, okmask, anis_perm, mode,
+                         clamp_positive, descending, gate, bits9)
+
+        gsweep.sweep0 = spy
+
+        def restore():
+            gsweep.sweep0 = inner
+
+        return restore
+
+
+def check_b1_recorded(spy):
+    """B1 against its plain version on the calls a sharded run made (slabs
+    with their halo planes, and their rotated layouts), each made twice.
+    Returns {shape: (calls, ms, plain_ms, bound_ms, bound_by, err,
+    what)}, timed on the shape's first kept call."""
+    from kimimaro_tpu_torch.ops import gsweep
+
+    rows = {}
+    for key, ops in spy.kept.items():
+        shape, mode, has_nc, has_gate, clamp = key
+        d, cc, nc, ok, gate = (None if t is None else t.cuda()
+                               for t in ops[:5])
+        anis, desc, bits = ops[5:]
+        got = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp, desc, gate,
+                            bits)
+        again = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp, desc, gate,
+                              bits)
+        want, plain = timed_once(lambda: gsweep._sweep0_plain(
+            d, cc, nc, ok, anis, mode, clamp, desc, gate, bits))
+        err = require_equal(f"B1 sharded call {key}", got, want)
+        require_equal(f"B1 sharded call {key} run twice", again, got)
+        del want, again
+        if shape in rows:
+            rows[shape] = rows[shape][:5] + (max(rows[shape][5], err),
+                                             rows[shape][6])
+            continue
+        ms = cuda_ms(lambda: gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp,
+                                           desc, gate, bits), 3)
+        vox = int(np.prod(shape))
+        per = 12 + 4 * has_nc + 4 * has_gate + (ok is not None)
+        bms, by = hbm_bound(per * vox, 20 * vox)
+        what = f"{mode}{' clamp' if clamp else ''}{' gated' if has_gate else ''}"
+        rows[shape] = (0, ms, plain, bms, by, err, what)
+    for key, n in spy.calls.items():
+        if key[0] in rows:
+            r = rows[key[0]]
+            rows[key[0]] = (r[0] + n,) + r[1:]
+    for shape, (calls, ms, plain, bms, by, err, what) in sorted(rows.items()):
+        log(f"[kernels] B1 sharded {shape} ({calls} calls; timed a {what} "
+            f"sweep): {ms:.3f} ms vs plain {plain:.1f} ms, bound {bms:.3f} "
+            f"ms ({by}), bit-equal on every kept call, twice")
+    return rows
+
+
+class ShardB3Spy:
+    """While installed, keeps the arguments of the sharded engine's first
+    `keep` B3 calls (one per slab per argmax) in host memory."""
+
+    def __init__(self, keep=8):
+        self.keep = keep
+        self.calls = 0
+        self.kept = {}
+
+    def install(self):
+        from kimimaro_tpu_torch.parallel import gengine as tg
+
+        inner = tg.crop_argmax
+
+        def spy(field, cc, offs, lids, crop, boxes=None):
+            if field.device.type == "cuda":
+                if self.calls < self.keep:
+                    self.kept[self.calls] = (
+                        field.to("cpu", copy=True), cc.to("cpu", copy=True),
+                        offs.clone(), lids.clone(), crop.clone(),
+                        tuple(b.clone() for b in boxes))
+                self.calls += 1
+            return inner(field, cc, offs, lids, crop, boxes)
+
+        tg.crop_argmax = spy
+
+        def restore():
+            tg.crop_argmax = inner
+
+        return restore
+
+
+def check_b3_sharded(spy):
+    """B3 against its plain version on the sharded engine's calls (each
+    lane's window cut into a slab, its box cut to the slab's rows), each
+    made twice. Returns (ms, plain_ms, err, bound_ms, shape) of the first
+    path iteration's call on slab 0."""
+    from kimimaro_tpu_torch.ops import crop_argmax as ca
+
+    err, row = 0.0, None
+    for k, args in sorted(spy.kept.items()):
+        field, cc = args[0].cuda(), args[1].cuda()
+        offs, lids, crops, boxes = args[2:]
+        got = ca.crop_argmax(field, cc, offs, lids, crops, boxes)
+        again = ca.crop_argmax(field, cc, offs, lids, crops, boxes)
+        want, plain = timed_once(lambda: ca._crop_argmax_plain(
+            field, cc, offs, lids, crops, boxes))
+        err = max(err, require_equal(f"B3 sharded call {k}", got, want))
+        require_equal(f"B3 sharded call {k} run twice", again, got)
+        if k == SHARDS or row is None:
+            ms = cuda_ms(lambda: ca.crop_argmax(field, cc, offs, lids, crops,
+                                                boxes), 5)
+            row = (ms, plain, err, b3_bound_ms(field, *boxes),
+                   tuple(field.shape))
+    log(f"[kernels] B3 bit-equal on {len(spy.kept)} sharded-engine calls "
+        f"({spy.calls} in the run), twice; the first iteration's slab-0 "
+        f"call {row[4]}: {row[0]:.3f} ms vs plain {row[1]:.1f} ms, bound "
+        f"{row[3]:.3f} ms")
+    return row[0], row[1], err, row[3], row[4]
+
+
+def labels_of(cc, labels, ids):
+    """The original labels of the component ids `ids`, read off a compact
+    cc volume and its label volume (both on the card)."""
+    import torch
+
+    n = int(cc.max()) + 1
+    lab = torch.zeros(n, dtype=torch.int64, device=cc.device)
+    lab.scatter_(0, cc.reshape(-1).long(), labels.reshape(-1).long()
+                 & 0xFFFFFFFF)
+    lab = lab.cpu().numpy()
+    return {int(lab[i]) for i in ids if 0 < i < n}
+
+
+def sharded_preamble(tag, vol, mesh):
+    """The sharded CCL and EDT of `vol` against the single-device ones:
+    compacted ids equal, the DBF within rtol 1e-5 (the differing voxels
+    counted). Returns (the single-device cc on the card, the labels on
+    the card, the labels whose DBF differs somewhere)."""
+    import torch
+
+    from kimimaro_tpu_torch.intake import _upload
+    from kimimaro_tpu_torch.ops import edt as edt_ops
+    from kimimaro_tpu_torch.ops.ccl import compact_cc, connected_components
+    from kimimaro_tpu_torch.parallel import sharded as ts
+    from kimimaro_tpu_torch.parallel import skeletonize as tsk
+
+    dev = torch.device("cuda")
+    labels_dev = _upload(vol, dev)
+    cc1, n1, _ = compact_cc(connected_components(labels_dev))
+    dbf1 = edt_ops.edt(cc1, anisotropy=tuple(float(a) for a in ANIS),
+                       black_border=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab = ts.shard_volume(labels_dev, mesh)
+    cc2, n2, _ = tsk._compact_cc_sharded(ts.sharded_ccl_rounds(lab, mesh))
+    torch.cuda.synchronize()
+    t_ccl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsq = ts.sharded_edtsq(lab, mesh, ANIS, black_border=False)
+    dbf2 = [ts.sqrt_f32(x) for x in dsq.slabs]
+    torch.cuda.synchronize()
+    t_edt = time.perf_counter() - t0
+    del dsq
+    h = lab.h
+    if n1 != n2:
+        raise AssertionError(f"{tag}: {n2} sharded components vs {n1}")
+    n_diff, worst, diff_ids = 0, 0.0, set()
+    for i in range(mesh.size):
+        rows = slice(i * h, (i + 1) * h)
+        if not torch.equal(cc2.slabs[i], cc1[rows]):
+            raise AssertionError(f"{tag}: compacted ids of shard {i} differ "
+                                 f"from the single-device CCL's")
+        a, b = dbf1[rows], dbf2[i]
+        neq = a != b
+        n_diff += int(neq.sum())
+        if bool(neq.any()):
+            rel = ((a - b).abs() / a.abs().clamp(min=1e-30))[neq]
+            worst = max(worst, float(rel.max()))
+            diff_ids |= set(torch.unique(cc1[rows][neq]).tolist())
+    if worst > 1e-5:
+        raise AssertionError(f"{tag}: sharded DBF off by rtol {worst}")
+    diff_labels = labels_of(cc1, labels_dev, diff_ids)
+    log(f"[sharded] {tag} preamble on {mesh}: compacted CCL ids equal the "
+        f"single-device CCL's ({n1} components; sharded CCL + compaction "
+        f"{t_ccl:.2f} s); DBF (ring EDT, {t_edt:.2f} s) within rtol "
+        f"{worst:.2e} of the single-device EDT, {n_diff} voxels differ, in "
+        f"{len(diff_ids)} components of {len(diff_labels)} labels")
+    return cc1, labels_dev, diff_labels
+
+
+def run_sharded(tag, vol, mesh, runs=("first",), **kw):
+    """skeletonize_sharded(vol) on the card, the launch and exchange
+    counts reset just before each run and read just after it. Returns the
+    last run's skeletons and counters and the launches summed over the
+    runs."""
+    import torch
+
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.parallel import comm
+    from kimimaro_tpu_torch.parallel import skeletonize as tsk
+    from kimimaro_tpu_torch.utils import profiling
+
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for run in runs:
+        profiling.reset_stats()
+        profiling.collect(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        comm.reset_exchanges()
+        t0 = time.perf_counter()
+        skels = tsk.skeletonize_sharded(
+            vol, mesh=mesh, teasar_params=TEASAR, anisotropy=ANIS,
+            dust_threshold=1000, fix_borders=True, fix_branching=True,
+            **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        profiling.collect(False)
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        stats = profiling.get_stats()
+        phases = {k: round(v, 3) for k, v in stats["phases"].items()}
+        log(f"[{tag}] {run} run: {secs:.2f} s, {len(skels)} skeletons, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[{tag}] {run} run phases (s): {json.dumps(phases)}")
+        log(f"[{tag}] {run} run counters: "
+            f"{json.dumps(stats['counters'])}")
+        log(f"[{tag}] {run} run launches: {json.dumps(launches)}")
+        log(f"[{tag}] {run} run exchanges: {json.dumps(comm.EXCHANGES)}")
+    return skels, stats["counters"], total
+
+
+def compare_sharded(tag, single, sharded, dbf_labels):
+    """Every label's SWC of the sharded run against the single-device
+    run's: a label may differ only where its DBF differs (the ring EDT's
+    last bits); a label that differs under a bit-equal DBF fails."""
+    if set(single) != set(sharded):
+        raise AssertionError(f"{tag}: labels {sorted(set(single) ^ set(sharded))[:10]} "
+                             f"are in one run only")
+    by_dbf = []
+    for k in single:
+        if single[k].to_swc() == sharded[k].to_swc():
+            continue
+        if k not in dbf_labels:
+            raise AssertionError(f"{tag}: label {k} differs from the "
+                                 f"single-device skeleton under a bit-equal "
+                                 f"DBF")
+        by_dbf.append(k)
+    log(f"[sharded] {tag}: {len(single) - len(by_dbf)} of {len(single)} "
+        f"labels SWC-equal to the single-device run; {len(by_dbf)} differ "
+        f"where their DBF differs ({sorted(by_dbf)[:12]}); "
+        f"{len(dbf_labels)} labels have a DBF that differs")
+    return len(by_dbf)
+
+
+def sharded_small_paths():
+    """Card = CPU on small volumes: a 64^3 blob volume at 3 shards (64 % 3
+    != 0: the padding path; its largest blob with 17 manual targets, more
+    than the crop engine holds: the host trace path) and the 64^3
+    self-touch volume under its graph at 4 shards (a label to the host
+    trace path). Returns the card runs' launches."""
+    import kimimaro_tpu_torch  # noqa: F401
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.parallel import make_mesh, skeletonize_sharded
+
+    blobs = blob_volume(seed=0, shape=(64, 64, 64), n_seeds=12)
+    big = int(np.argmax(np.bincount(blobs.ravel())[1:])) + 1
+    pts = np.argwhere(blobs == big)
+    blob_pts = [tuple(int(c) for c in p) for p in pts[::len(pts) // 17][:17]]
+    touch, vg, pts = small_self_touch_volume()
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for name, vol, n, kw in (
+            ("blobs-64", blobs, 3, dict(dust_threshold=100,
+                                        extra_targets_before=blob_pts)),
+            ("self-touch-64", touch, SHARDS,
+             dict(dust_threshold=1000, voxel_graph=vg,
+                  extra_targets_before=pts))):
+        out = {}
+        for device in ("cuda", "cpu"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out[device] = skeletonize_sharded(
+                vol, mesh=make_mesh(n, device), teasar_params=TEASAR,
+                anisotropy=ANIS, fix_borders=True, fix_branching=True, **kw)
+            if device == "cuda":
+                for k, v in kernels.LAUNCHES.items():
+                    total[k] += v
+            log(f"[sharded-64] {name} at {n} shards on {device}: "
+                f"{len(out[device])} skeletons in "
+                f"{time.perf_counter() - t0:.2f} s")
+        if set(out["cuda"]) != set(out["cpu"]) or not out["cpu"] or any(
+                out["cuda"][k].to_swc() != out["cpu"][k].to_swc()
+                for k in out["cpu"]):
+            raise AssertionError(f"sharded {name}: the card's skeletons "
+                                 f"differ from the CPU's")
+        log(f"[sharded-64] {name}: card = CPU on all {len(out['cpu'])} "
+            f"labels (SWC)")
+    return total
+
+
+def sharded_cuts(dense):
+    """The same sharded code on the card and on the CPU at small cuts of
+    the dense volume: the EDT of a 128^3 cut and the preamble step (EDT,
+    PDRF, CCL, distance rounds with halos on B5) of a 64^3 cut, bit for
+    bit."""
+    import torch
+
+    from kimimaro_tpu_torch.parallel import make_mesh
+    from kimimaro_tpu_torch.parallel import sharded as ts
+
+    cut = np.ascontiguousarray(dense[:128, :128, :128])
+    got = ts.sharded_edtsq(cut, make_mesh(SHARDS, "cuda"), ANIS)
+    want = ts.sharded_edtsq(cut, make_mesh(SHARDS, "cpu"), ANIS)
+    for g, w in zip(got.slabs, want.slabs):
+        require_equal("sharded EDT 128^3 card vs CPU", g.cpu(), w)
+    small = np.ascontiguousarray(dense[:64, :64, :64])
+    got = ts.preamble_step(small, make_mesh(SHARDS, "cuda"), ANIS)
+    want = ts.preamble_step(small, make_mesh(SHARDS, "cpu"), ANIS)
+    for k in ("dbf", "pdrf", "cc", "daf"):
+        for g, w in zip(got[k].slabs, want[k].slabs):
+            require_equal(f"preamble_step {k} 64^3 card vs CPU", g.cpu(), w)
+    torch.cuda.synchronize()
+    log(f"[sharded] the sharded EDT of a 128^3 cut and the preamble step "
+        f"(DBF, PDRF, CCL, DAF) of a 64^3 cut: card = CPU, bit for bit")
+
+
+def sharded_phase(dense, dense_skels, hollow, soma_skels):
+    """Phase 12: the multi-device path over make_mesh(4, "cuda") (every
+    shard on the one card): the preamble at 512^3 against the
+    single-device CCL and EDT; skeletonize_sharded on the dense volume
+    twice and the soma volume once, every label against phases 5 and 6;
+    card = CPU on small volumes; B1, B3, B4, B5 and F1 bit-equal to their
+    plain versions on the calls the sharded runs made. Returns (launches
+    of the sharded runs, kernel-table rows)."""
+    import torch
+
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(SHARDS, "cuda")
+    log(f"[sharded] mesh {mesh}")
+    cc1, labels_dev, dbf_labels = sharded_preamble("dense", dense, mesh)
+
+    b1_spy, b3_spy = B1Spy(), ShardB3Spy()
+    f1_spy = F1Spy("sharded")
+    restores = [s.install() for s in (b1_spy, b3_spy, f1_spy)]
+    try:
+        skels, counters, launches = run_sharded(
+            "sharded-dense", dense, mesh, ("first",))
+    finally:
+        for restore in reversed(restores[:2]):
+            restore()
+    restore_f1 = restores[2]
+    skels2, _, more = run_sharded("sharded-dense", dense, mesh, ("warm",))
+    for k, v in more.items():
+        launches[k] += v
+    if any(skels[k].to_swc() != skels2[k].to_swc() for k in skels):
+        raise AssertionError("sharded dense: the warm run differs from the "
+                             "first")
+    del skels2
+    compare_sharded("dense", dense_skels, skels, dbf_labels)
+    del skels, cc1, labels_dev
+
+    cc1, labels_dev, dbf_labels = sharded_preamble("soma", hollow, mesh)
+    b4_spy, b5_spy = B4Spy("sharded soma"), B5Spy()
+    restores = [b4_spy.install(), b5_spy.install()]
+    try:
+        soma, soma_counters, soma_launches = run_sharded(
+            "sharded-soma", hollow, mesh, ("first",))
+    finally:
+        for restore in reversed(restores):
+            restore()
+        restore_f1()
+    for k, v in soma_launches.items():
+        launches[k] += v
+    compare_sharded("soma", soma_skels, soma, dbf_labels)
+    if soma_counters.get("crop_engine_jobs", 0) < 2:
+        raise AssertionError("sharded soma: the crop engine took fewer than "
+                             "2 jobs")
+    del soma, cc1, labels_dev
+    torch.cuda.empty_cache()
+
+    # the small volumes' card runs (a label each to the host trace path;
+    # the self-touch volume under its graph) and the 64^3 preamble step,
+    # with B1 (and its graph-gated form), B4 and B5 recorded
+    b5_cut = B5Spy()
+    restore = b5_cut.install()
+    try:
+        sharded_cuts(dense)
+    finally:
+        restore()
+    b5_cut_err = check_b5_recorded(b5_cut)
+    log(f"[kernels] B5 on the 64^3 preamble step's halo sweeps: bit-equal "
+        f"(max abs err {b5_cut_err})")
+    del b5_cut
+    b1_small, b4_small = B1Spy(keep=64), B4Spy("sharded 64^3", keep=64)
+    restores = [b1_small.install(), b4_small.install(), b5_spy.install()]
+    try:
+        small = sharded_small_paths()
+    finally:
+        for restore in reversed(restores):
+            restore()
+    log(f"[sharded-64] launches of the card runs: {json.dumps(small)}")
+    for k, v in small.items():
+        launches[k] += v
+    log(f"[sharded] launches over the sharded runs: {json.dumps(launches)}")
+    for k in ("gsweep_sweep0", "gsweep_sweep0_vg", "crop_argmax",
+              "sweep_axis0_batched", "sweep_axis0_batched_vg", "sweep_axis0",
+              "sweep_axis0_vg", "fma_f32"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was never launched on the sharded "
+                                 f"path")
+
+    # the kernels on the calls the sharded runs made
+    rows = []
+    b1 = check_b1_recorded(b1_spy)
+    del b1_spy
+    gated = {k: v for k, v in check_b1_recorded(b1_small).items()
+             if v[6].endswith("gated")}
+    if not gated:
+        raise AssertionError("the sharded self-touch run made no "
+                             "graph-gated B1 call")
+    for shape, (calls, ms, plain, bms, by, err, what) in sorted(
+            gated.items()):
+        rows.append({"name": f"gsweep_sweep0_vg sharded {shape}",
+                     "route": "cuda",
+                     "source": "kimimaro_tpu_torch/csrc/gsweep.cu",
+                     "replaces": "kimimaro_tpu/ops/gsweep.py:219",
+                     "launches": calls, "max_abs_err": err,
+                     "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                     "bound_ms": round(bms, 4), "bound_by": by,
+                     "library_ms": None})
+    del b1_small
+    b4_64 = check_b4_recorded(b4_small)
+    top = sorted(b4_64, key=lambda k: b4_small.calls.get(k, 0)
+                 * int(np.prod(k)))[-4:]
+    for shape in sorted(top):
+        ms, plain, bms, by, err = b4_64[shape]
+        if shape in b4_small.calls:
+            rows.append({"name": f"sweep_axis0_batched sharded 64^3 {shape}",
+                         "route": "cuda",
+                         "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+                         "replaces": "kimimaro_tpu/ops/pallas_sweep.py:308",
+                         "launches": b4_small.calls[shape],
+                         "max_abs_err": err, "ms": round(ms, 4),
+                         "plain_ms": round(plain, 4),
+                         "bound_ms": round(bms, 4), "bound_by": by,
+                         "library_ms": None})
+    top = sorted(b1, key=lambda k: b1[k][0] * int(np.prod(k)))[-6:]
+    for shape in sorted(top):
+        calls, ms, plain, bms, by, err, what = b1[shape]
+        rows.append({"name": f"gsweep_sweep0 sharded {shape} ({what})",
+                     "route": "cuda",
+                     "source": "kimimaro_tpu_torch/csrc/gsweep.cu",
+                     "replaces": "kimimaro_tpu/ops/gsweep.py:219",
+                     "launches": calls, "max_abs_err": err,
+                     "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                     "bound_ms": round(bms, 4), "bound_by": by,
+                     "library_ms": None})
+    ms, plain, err, bms, shape = check_b3_sharded(b3_spy)
+    rows.append({"name": f"crop_argmax sharded {shape}", "route": "cuda",
+                 "source": "kimimaro_tpu_torch/csrc/argmax.cu",
+                 "replaces": "kimimaro_tpu/ops/pallas_argmax.py:205",
+                 "launches": b3_spy.calls, "max_abs_err": err,
+                 "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                 "bound_ms": round(bms, 4), "bound_by": "bytes",
+                 "library_ms": None})
+    del b3_spy
+    b4 = check_b4_recorded(b4_spy)
+    top = sorted(b4, key=lambda k: b4_spy.calls.get(k, 0) * int(np.prod(k)))
+    for shape in top[-4:]:
+        ms, plain, bms, by, err = b4[shape]
+        rows.append({"name": f"sweep_axis0_batched sharded {shape}",
+                     "route": "cuda",
+                     "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+                     "replaces": "kimimaro_tpu/ops/pallas_sweep.py:308",
+                     "launches": b4_spy.calls.get(shape, 0),
+                     "max_abs_err": err, "ms": round(ms, 4),
+                     "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+                     "bound_by": by, "library_ms": None})
+    # B5 on the host trace path's and the halo sweeps' recorded calls: a
+    # row for each form's call of the most voxels
+    b5_rows = {}
+    b5_err = check_b5_recorded(b5_spy, b5_rows)
+    for gated in (False, True):
+        keys = [k for k in b5_rows if (k[4] is not None) == gated]
+        key = max(keys, key=lambda k: int(np.prod(k[0])))
+        ms, plain, _ = b5_rows[key]
+        vox = int(np.prod(key[0]))
+        bms, by = hbm_bound(((13 if key[1] else 9) + 4 * gated) * vox,
+                            (12 if key[1] else 18) * vox)
+        name = "sweep_axis0_vg" if gated else "sweep_axis0"
+        rows.append({"name": f"{name} sharded {key[0]}", "route": "cuda",
+                     "source": "kimimaro_tpu_torch/csrc/sweep.cu",
+                     "replaces": "kimimaro_tpu/ops/pallas_sweep.py:117",
+                     "launches": small[name], "max_abs_err": b5_err,
+                     "ms": round(ms, 4), "plain_ms": round(plain, 4),
+                     "bound_ms": round(bms, 4), "bound_by": by,
+                     "library_ms": None})
+    f1_rows, f1_err = check_f1_recorded((f1_spy,))
+    for route in ("flat", "strided"):
+        keys = [k for k in f1_rows if k[1] == route]
+        if not keys:
+            continue
+        key = max(keys, key=lambda k: int(np.prod(k[0])))
+        ms, plain, bms, lib, _ = f1_rows[key]
+        rows.append({
+            "name": f"fma_f32 sharded {route} {key[0]}", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/fma.cu",
+            "replaces": "kimimaro_tpu/parallel/gengine.py:409",
+            "launches": sum(v[4] for k, v in f1_rows.items()
+                            if k[1] == route),
+            "max_abs_err": f1_err, "ms": round(ms, 4),
+            "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+            "bound_by": "bytes",
+            "library_ms": None if lib is None else round(lib, 4)})
+    return launches, rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the command line
+
+
+def cli_phase(dense, dense_skels):
+    """Phase 13: `python -m kimimaro_tpu_torch.cli forge` on the dense
+    volume (bench.py's parameters as options) writes phase 5's skeletons;
+    `forge --cross-section` on a 128^3 cut writes the areas the library
+    call computes on the card; `swc to` / `swc from` round-trip one
+    label."""
+    import shutil
+    import tempfile
+
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch.skeleton import Skeleton
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    forge = [sys.executable, "-m", "kimimaro_tpu_torch.cli", "forge"]
+    opts = ["--scale", str(TEASAR["scale"]), "--const", str(TEASAR["const"]),
+            "--pdrf-scale", str(TEASAR["pdrf_scale"]),
+            "--pdrf-exponent", str(TEASAR["pdrf_exponent"]),
+            "--soma-detect", str(TEASAR["soma_detection_threshold"]),
+            "--soma-accept", str(TEASAR["soma_acceptance_threshold"]),
+            "--anisotropy", ",".join(str(a) for a in ANIS),
+            "--dust", "1000", "--fix-borders", "--no-fill-holes",
+            "--device", "cuda"]
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:5])} exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        return time.perf_counter() - t0
+
+    try:
+        np.save(os.path.join(tmp, "dense.npy"), dense)
+        secs = run(forge + ["dense.npy", "-o", "out"] + opts)
+        files = sorted(os.listdir(os.path.join(tmp, "out")))
+        want = sorted(f"{k}.swc" for k in dense_skels)
+        if files != want:
+            raise AssertionError(f"cli forge: {len(files)} files, expected "
+                                 f"{len(want)}")
+        for k, skel in dense_skels.items():
+            with open(os.path.join(tmp, "out", f"{k}.swc")) as f:
+                if f.read() != skel.to_swc():
+                    raise AssertionError(f"cli forge: label {k}'s SWC "
+                                         f"differs from phase 5's")
+        log(f"[cli] python -m kimimaro_tpu_torch.cli forge dense.npy "
+            f"--device cuda: {len(files)} SWC files, each equal to phase 5's "
+            f"skeleton ({secs:.1f} s with the interpreter's start)")
+
+        cut = np.ascontiguousarray(dense[:128, :128, :128])
+        np.save(os.path.join(tmp, "cut.npy"), cut)
+        secs = run(forge + ["cut.npy", "-o", "xs", "--cross-section", "1"]
+                   + opts)
+        params = dict(TEASAR, soma_invalidation_scale=2.0,
+                      soma_invalidation_const=300.0, max_paths=None)
+        skels = kimimaro_tpu_torch.skeletonize(
+            cut, teasar_params=params, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fill_holes=False, device="cuda")
+        skels = kimimaro_tpu_torch.cross_sectional_area(
+            cut, skels, anisotropy=ANIS, smoothing_window=1,
+            fill_holes=False, device="cuda")
+        n_vert = 0
+        for k, skel in skels.items():
+            for suffix, want in (("xs_area", skel.cross_sectional_area),
+                                 ("xs_area_contacts",
+                                  skel.cross_sectional_area_contacts)):
+                got = np.load(os.path.join(tmp, "xs", f"{k}_{suffix}.npy"))
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    raise AssertionError(f"cli forge --cross-section: label "
+                                         f"{k}'s {suffix} differs from the "
+                                         f"library call's")
+            n_vert += len(skel.vertices)
+        log(f"[cli] forge --cross-section 1 on a 128^3 cut: {len(skels)} "
+            f"labels, areas and contacts of {n_vert} vertices equal to "
+            f"cross_sectional_area on the card ({secs:.1f} s)")
+
+        label = max(dense_skels, key=lambda k: len(dense_skels[k].vertices))
+        skel = dense_skels[label]
+        vox = np.round(skel.vertices / np.asarray(ANIS, np.float32))
+        rt = Skeleton(vox, edges=skel.edges, radii=skel.radii)
+        os.makedirs(os.path.join(tmp, "rt"))
+        with open(os.path.join(tmp, "rt", "s.swc"), "w") as f:
+            f.write(rt.to_swc())
+        cli = [sys.executable, "-m", "kimimaro_tpu_torch.cli", "swc"]
+        run(cli + ["to", os.path.join("rt", "s.swc")])
+        image = np.load(os.path.join(tmp, "rt", "s.npy"))
+        run(cli + ["from", os.path.join("rt", "s.npy")])
+        with open(os.path.join(tmp, "rt", "s.swc")) as f:
+            back = Skeleton.from_swc(f.read())
+        minpt = np.floor(vox.min(axis=0)).astype(int)
+        want = set(map(tuple, vox.astype(int).tolist()))
+        got = set(map(tuple, (back.vertices.astype(int) + minpt).tolist()))
+        if got != want or int(image.sum()) != len(want):
+            raise AssertionError("cli swc to/from: the round trip lost "
+                                 "vertices")
+        log(f"[cli] swc to / swc from on label {label} ({len(want)} "
+            f"vertices): the image and the skeleton read back hold every "
+            f"vertex")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def device_line():
     """The card's name and power limit as nvidia-smi prints them."""
     return subprocess.run(
@@ -3921,6 +4614,32 @@ def main() -> int:
         log(f"[analysis] launches: {json.dumps(launches)}")
         print(json.dumps({"kernels": v1_table(launches, v1, rows)
                           + b5_rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] in (["--sharded"], ["--cli"]):
+        import kimimaro_tpu_torch
+
+        log(device_line())
+        log(f"[build] nvcc {kernels.build():.2f} s")
+        dense = dense_volume(DENSE_N)
+        if sys.argv[1] == "--cli":
+            t0 = time.perf_counter()
+            skels = kimimaro_tpu_torch.skeletonize(
+                dense, teasar_params=TEASAR, anisotropy=ANIS,
+                dust_threshold=1000, fix_borders=True, fix_branching=True,
+                device="cuda")
+            log(f"[cli] {len(skels)} dense skeletons "
+                f"({time.perf_counter() - t0:.1f} s, set-up)")
+            cli_phase(dense, skels)
+        else:
+            skels, captured, _, _ = dense_main_path(dense)
+            del captured
+            hollow = hollow_volume(dense)
+            soma_skels, _ = hollow_main_path(hollow)
+            launches, rows = sharded_phase(dense, skels, hollow, soma_skels)
+            print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4062,6 +4781,12 @@ def main() -> int:
     (analysis_launches, v1, v1_rows,
      b5_connect) = analysis_phase(dense, dense_skels, gen)
 
+    # 12. the multi-device path over four shards of the card
+    sharded_launches, sharded_rows = sharded_phase(
+        dense, dense_skels, hollow, soma_skels)
+    # 13. the command line
+    cli_phase(dense, dense_skels)
+
     # F1 on the calls of phases 4 to 6, 8 and 9
     f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs, f1_fill))
     del f1_main, f1_xs, f1_fill
@@ -4088,7 +4813,7 @@ def main() -> int:
             b4_rows[shape][0] += calls.get(shape, 0)
     for part in (dense_launches, soma_launches, xs_launches, fill_launches,
                  small_fill_launches, stream_launches, chunk_launches,
-                 touch_launches, analysis_launches):
+                 touch_launches, analysis_launches, sharded_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")
@@ -4255,6 +4980,8 @@ def main() -> int:
     table.extend(v1_table(launches, v1, v1_rows))
     # B5 at phase 11's connect_points shape (512^3), each mode
     table.extend(b5_connect)
+    # phase 12: B1, B3, B4, B5 and F1 at the sharded path's shapes
+    table.extend(sharded_rows)
     log(f"[main] every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

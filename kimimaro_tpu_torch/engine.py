@@ -274,13 +274,17 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
                  crop_shape: Tuple[int, int, int],
                  anisotropy: Tuple[float, float, float], fix_branching: bool,
                  K: int, L: int, relax_rounds: int = RELAX_ROUNDS,
-                 soma_possible: bool = True, vg_vol=None):
+                 soma_possible: bool = True, vg_vol=None, crop_source=None,
+                 has_vg: bool = False):
     """The per-label trace of the JAX engine's `_one_label`, for a batch of
     labels. Host arrays: lids (B,), offs (B, 3) crop origins, before and
     after (B, T_CAP, 3) manual targets in crop frame with counts
     n_before / n_after (B,), root_in (B, 3) with has_root (B,),
     max_paths_in (B,) (<= 0: no cap). `prm` holds the float32 TEASAR
     scalars; `vg_vol` the volume's voxel graph (int32 words) or None.
+    `crop_source(offs, n_real, crop_shape)`, where given, supplies the
+    lanes' crops instead of slicing `cc`/`dbf_vol`: (cc, dbf) or, with
+    `has_vg`, (cc, dbf, vg), each (B,) + crop_shape.
     Returns device tensors (paths (B, K, L, 3) int64 target-first with -1
     padding, lens (B, K), n_paths (B,), overflow (B,), nc_bits (B,),
     radii (B, K, L)).
@@ -299,19 +303,28 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    lab = torch.zeros((B,) + shape, dtype=cc.dtype, device=dev)
-    dbf = torch.zeros((B,) + shape, dtype=torch.float32, device=dev)
-    # each lane's crop of the voxel graph rides with its label
-    vg = (None if vg_vol is None else
-          torch.zeros((B,) + shape, dtype=torch.int32, device=dev))
-    for b in range(B):
-        if lids[b] > 0:
-            sl = tuple(slice(int(o), int(o) + s)
-                       for o, s in zip(offs[b], shape))
-            lab[b] = cc[sl]
-            dbf[b] = dbf_vol[sl]
-            if vg is not None:
-                vg[b] = vg_vol[sl]
+    if crop_source is not None:
+        got = crop_source(np.asarray(offs, dtype=np.int64), B, shape)
+        if has_vg and len(got) < 3:
+            raise ValueError("trace_batched: a voxel graph with a "
+                             "crop_source needs (cc, dbf, vg) lane crops")
+        lab = got[0].to(dev)
+        dbf = got[1].to(device=dev, dtype=torch.float32)
+        vg = graph_word(got[2].to(dev)) if has_vg else None
+    else:
+        lab = torch.zeros((B,) + shape, dtype=cc.dtype, device=dev)
+        dbf = torch.zeros((B,) + shape, dtype=torch.float32, device=dev)
+        # each lane's crop of the voxel graph rides with its label
+        vg = (None if vg_vol is None else
+              torch.zeros((B,) + shape, dtype=torch.int32, device=dev))
+        for b in range(B):
+            if lids[b] > 0:
+                sl = tuple(slice(int(o), int(o) + s)
+                           for o, s in zip(offs[b], shape))
+                lab[b] = cc[sl]
+                dbf[b] = dbf_vol[sl]
+                if vg is not None:
+                    vg[b] = vg_vol[sl]
     lid = t(lids, cc.dtype)
     fg = (lab == _bcast(lid)) & _bcast(lid > 0)
     del lab
@@ -511,13 +524,18 @@ def trace_batched(
     anisotropy: Sequence[float],
     fix_branching: bool,
     voxel_graph=None,
+    crop_source=None,
 ) -> Tuple[Dict[int, List[Tuple[np.ndarray, np.ndarray]]], List[dict]]:
     """Trace labels in device batches (counterpart of
-    kimimaro_tpu.engine.trace_batched without its multi-chip crop source).
+    kimimaro_tpu.engine.trace_batched).
 
     cc_dev / dbf_dev: the component-id and DBF volumes on the device;
     voxel_graph: their voxel graph (uint32 or int32, on that device) or
-    None.
+    None. `crop_source(crop_offs (B, 3) int64, n_real, bshape)`, where
+    given, returns each batch's lane crops instead of slicing the volumes
+    ((cc, dbf), or (cc, dbf, vg) under a voxel graph, each (B,) +
+    bshape): the multi-device path gathers them off its slabs, so
+    cc_dev/dbf_dev/voxel_graph need only a `shape` and a `device`.
     jobs: [{segid, offset (3,), shape (3,), before [(x,y,z)...],
             after [...], root (x,y,z)|None, count, dbfmax}]
     Returns ({segid: [(path_vertices, path_radii), ...]}, fallback_jobs).
@@ -538,7 +556,8 @@ def trace_batched(
     max_paths = p.get("max_paths", None)
     anis = tuple(float(a) for a in anisotropy)
     vol_shape = tuple(int(s) for s in cc_dev.shape)
-    vg_vol = None if voxel_graph is None else graph_word(voxel_graph)
+    vg_vol = (None if voxel_graph is None or crop_source is not None
+              else graph_word(voxel_graph))
     # labels whose DBF max (host-known) reaches neither threshold run
     # without the soma branches
     soma_cut = min(float(p.get("soma_detection_threshold", 1100)),
@@ -640,7 +659,8 @@ def trace_batched(
                     roots, [j.get("root") is not None for j in chunk],
                     [int(max_paths) if max_paths is not None else -1] * B,
                     prm, bshape, anis, bool(fix_branching), K_CAP, L,
-                    relax_rounds, soma, vg_vol)
+                    relax_rounds, soma, vg_vol, crop_source,
+                    voxel_graph is not None)
                 drain(chunk, outs, retry)
         return retry
 

@@ -343,39 +343,8 @@ def skeletonize(
 
     print_quotes(parallel)  # easter egg (kimimaro intake.py:796-803)
 
-    # --- per-label jobs
-    jobs = []
-    for segid in segid_iter:
-        mn, mx = bb[segid]
-        mn = np.asarray(mn, dtype=np.int64)
-        shape = np.asarray(mx, dtype=np.int64) - mn + 1
-        if int(np.prod(shape)) <= 1:
-            continue
-
-        manual_before, manual_after, root = [], [], None
-
-        def translate(targets):
-            return [tuple(int(c) - int(m) for c, m in zip(t, mn)) for t in targets]
-
-        if len(border_targets[segid]) > 0:
-            manual_before = translate(border_targets[segid])
-            root = manual_before.pop()
-        if segid in extra_targets_before and len(extra_targets_before[segid]) > 0:
-            manual_before.extend(translate(extra_targets_before[segid]))
-        if segid in extra_targets_after and len(extra_targets_after[segid]) > 0:
-            manual_after.extend(translate(extra_targets_after[segid]))
-
-        jobs.append({
-            "segid": segid,
-            "offset": mn,
-            "shape": shape,
-            "before": manual_before,
-            "after": manual_after,
-            "root": root,
-            "count": counts_map.get(segid, 0),
-            "dbfmax": (None if dbfmax_arr is None
-                       else float(dbfmax_arr[segid])),
-        })
+    jobs = make_jobs(segid_iter, bb, border_targets, extra_targets_before,
+                     extra_targets_after, counts=counts_map, dbfmax=dbfmax_arr)
 
     if vg_dev is not None:
         # the global engine runs no graph: every label to the crop engine
@@ -395,6 +364,62 @@ def skeletonize(
     profiling.count("engine_jobs", len(jobs) - len(fallback_jobs))
     profiling.count("fallback_jobs", len(fallback_jobs))
 
+    return finish_skeletons(results, jobs, fallback_jobs, cc_dev, dbf_dev,
+                            vg_dev, remapping, teasar_params, anisotropy,
+                            fix_branching, device)
+
+
+def make_jobs(segids, bb, border_targets, extra_targets_before,
+              extra_targets_after, counts=None, dbfmax=None) -> List[dict]:
+    """One trace job per label in `segids` whose box `bb[segid]` = (min,
+    max corner) holds more than one voxel: its offset and shape, its
+    manual targets (border targets, the last of them the root, then the
+    extra targets) in the box's frame, and, where given, its voxel count
+    and DBF maximum (`counts` a mapping, `dbfmax` an array by segid)."""
+    jobs = []
+    for segid in segids:
+        mn, mx = bb[segid]
+        mn = np.asarray(mn, dtype=np.int64)
+        shape = np.asarray(mx, dtype=np.int64) - mn + 1
+        if int(np.prod(shape)) <= 1:
+            continue
+
+        manual_before, manual_after, root = [], [], None
+
+        def translate(targets):
+            return [tuple(int(c) - int(m) for c, m in zip(t, mn)) for t in targets]
+
+        if len(border_targets[segid]) > 0:
+            manual_before = translate(border_targets[segid])
+            root = manual_before.pop()
+        if segid in extra_targets_before and len(extra_targets_before[segid]) > 0:
+            manual_before.extend(translate(extra_targets_before[segid]))
+        if segid in extra_targets_after and len(extra_targets_after[segid]) > 0:
+            manual_after.extend(translate(extra_targets_after[segid]))
+
+        job = {
+            "segid": segid,
+            "offset": mn,
+            "shape": shape,
+            "before": manual_before,
+            "after": manual_after,
+            "root": root,
+            "dbfmax": None if dbfmax is None else float(dbfmax[segid]),
+        }
+        if counts is not None:
+            job["count"] = counts.get(segid, 0)
+        jobs.append(job)
+    return jobs
+
+
+def finish_skeletons(results, jobs, fallback_jobs, cc_dev, dbf_dev, vg_dev,
+                     remapping, teasar_params, anisotropy, fix_branching,
+                     device) -> Dict[int, Skeleton]:
+    """The engines' paths -> {original label: Skeleton} in physical space:
+    every label's paths in `results` assembled at its job's offset (`jobs`:
+    every job, whichever engine traced it), the host trace path for
+    `fallback_jobs`, then the merge of each label's pieces. `cc_dev`,
+    `dbf_dev` and `vg_dev` may be sharded volumes."""
     offsets_by_segid = {j["segid"]: j["offset"] for j in jobs}
     skeletons = defaultdict(list)
     with phase("finalize"):
@@ -456,7 +481,8 @@ def _run_host_fallback(fallback_jobs, cc_dev, dbf_dev, vg_dev, remapping,
     relaxations still unconverged after its escalation (kimimaro's plain
     serial path, intake.py:434-517), each with its crop of the voxel
     graph `vg_dev` where there is one. The crops stay on the device of
-    `cc_dev`."""
+    `cc_dev`; each is read through `cc_dev[slices]`, so the volumes may be
+    sharded volumes whose crops are gathered off their slabs."""
     for job in fallback_jobs:
         segid = job["segid"]
         mn = np.asarray(job["offset"], dtype=np.int64)
@@ -877,10 +903,11 @@ def find_border_targets(dt_plane: np.ndarray, cc_plane: np.ndarray, wx: float, w
         int(labs[w]): (int(xs[w]), int(ys[w])) for w in winners
     }
 
-def _face_stack(cc: torch.Tensor) -> torch.Tensor:
+def _face_stack(cc) -> torch.Tensor:
     """The six border faces of a volume packed into one (11, P0, P1)
-    zero-padded stack with zero separator planes between faces (26-conn
-    CCL cannot merge across a zero plane)."""
+    zero-padded int32 stack with zero separator planes between faces
+    (26-conn CCL cannot merge across a zero plane). `cc` is a tensor or a
+    sharded volume: only the faces are read (each through `cc[index]`)."""
     sx, sy, sz = cc.shape
     P0, P1 = max(sx, sy), max(sy, sz)
     faces = [
@@ -888,18 +915,20 @@ def _face_stack(cc: torch.Tensor) -> torch.Tensor:
         cc[:, 0, :], cc[:, -1, :],
         cc[0, :, :], cc[-1, :, :],
     ]
-    stack = torch.zeros((11, P0, P1), dtype=cc.dtype, device=cc.device)
+    stack = torch.zeros((11, P0, P1), dtype=torch.int32,
+                        device=faces[0].device)
     for i, f in enumerate(faces):
-        stack[2 * i, : f.shape[0], : f.shape[1]] = f
+        stack[2 * i, : f.shape[0], : f.shape[1]] = f.to(torch.int32)
     return stack
 
 
-def compute_border_targets(cc_labels: torch.Tensor, anisotropy) -> Dict[int, np.ndarray]:
+def compute_border_targets(cc_labels, anisotropy) -> Dict[int, np.ndarray]:
     """For each of the six faces: 2D CCL + 2D EDT + deterministic per-label
     max picks (kimimaro intake.py:544-585). All six faces ride one batched
     CCL call and three batched EDT calls (one per anisotropy pair);
     padding with background is exact because a zero-label neighbour
-    raises the same distance wall as `black_border`."""
+    raises the same distance wall as `black_border`. `cc_labels`: a
+    tensor, or a sharded volume whose faces are read off its slabs."""
     sx, sy, sz = cc_labels.shape
 
     face_meta = (
@@ -911,7 +940,7 @@ def compute_border_targets(cc_labels: torch.Tensor, anisotropy) -> Dict[int, np.
         ((sy, sz), (1, 2), lambda y, z: (sx - 1, y, z)),
     )
 
-    stack_dev = _face_stack(cc_labels.to(torch.int32))
+    stack_dev = _face_stack(cc_labels)
     cc_stack_dev = connected_components(stack_dev)
     stack_np = stack_dev[0::2].to("cpu").numpy()
     cc_stack = cc_stack_dev[0::2].to("cpu").numpy()

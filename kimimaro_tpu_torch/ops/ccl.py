@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import gsweep
-from .stencils import graph_into
+from .stencils import as_tensor, graph_into
 
 BIGID = 2**31 - 1
 
@@ -45,17 +45,38 @@ def _jump(ids):
     return torch.minimum(ids, hop)
 
 
-def connected_components(labels: torch.Tensor,
-                         voxel_graph=None) -> torch.Tensor:
-    """Raw 26-connected multi-label CCL of an int32 label volume (labels
-    wider than 32 bits must be renumbered first; unsigned 32-bit labels
-    are passed bitcast to int32, which keeps equality and != 0). Returns
-    an int32 volume where each component is labeled by the 1-based
-    minimum linear index of its voxels; background is 0. `voxel_graph`:
-    an optional cc3d-convention bitfield of the same shape (uint32 or
-    int32) on the same device."""
-    if labels.ndim != 3 or labels.dtype != torch.int32:
-        raise ValueError("connected_components takes a 3D int32 volume")
+def label_words(labels) -> torch.Tensor:
+    """Labels as the int32 words the minid sweeps compare: int32 as it
+    is, unsigned 32-bit bitcast and narrower types widened (each keeps
+    equality and != 0), 64-bit labels renumbered by their sorted unique
+    values (0 stays 0). An array-like is taken as a CPU tensor."""
+    labels = as_tensor(labels)
+    if labels.dtype == torch.int32:
+        return labels
+    if labels.dtype == torch.uint32:
+        return labels.view(torch.int32)
+    if labels.element_size() < 4 or labels.dtype == torch.bool:
+        return labels.to(torch.int32)
+    uniq, inv = torch.unique(labels, return_inverse=True)
+    zero = torch.nonzero(uniq == 0)
+    rank = inv.to(torch.int32) + 1
+    if zero.numel():
+        rank = torch.where(inv == zero[0, 0], 0, rank)
+    return rank
+
+
+def connected_components(labels, voxel_graph=None) -> torch.Tensor:
+    """Raw 26-connected multi-label CCL of a 3D label volume (any integer
+    type, as `label_words` takes it; an array-like as a CPU tensor).
+    Returns an int32 volume where each component is labeled by the
+    1-based minimum linear index of its voxels; background is 0.
+    `voxel_graph`: an optional cc3d-convention bitfield of the same shape
+    (uint32 or int32) on the same device."""
+    labels = label_words(labels)
+    if labels.ndim != 3:
+        raise ValueError("connected_components takes a 3D volume")
+    if voxel_graph is not None:
+        voxel_graph = as_tensor(voxel_graph)
     fg = labels != 0
     ids = torch.where(fg, _lin(labels.shape, labels.device), BIGID)
     cc_v = gsweep.MaskViews(labels)

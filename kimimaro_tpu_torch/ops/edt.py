@@ -29,7 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .stencils import graph_allows
+from .stencils import as_tensor, graph_allows
 
 BIG = float(np.float32(3.4e37))  # stand-in for +inf that survives arithmetic
 
@@ -161,7 +161,13 @@ def edtsq(labels: torch.Tensor, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
     Returns float32, BIG where the distance is unbounded (single label, no
     black border). `voxel_graph`: a cc3d-convention bitfield of the same
     shape; a blocked axis edge acts as a label boundary in that axis's
-    pass (self-touch walls)."""
+    pass (self-touch walls). Array-likes are taken as CPU tensors;
+    unsigned 32-bit labels are compared through their int32 bits."""
+    labels = as_tensor(labels)
+    if labels.dtype == torch.uint32:
+        labels = labels.view(torch.int32)
+    if voxel_graph is not None:
+        voxel_graph = as_tensor(voxel_graph)
     squeeze_2d = labels.ndim == 2
     if squeeze_2d:
         # a borderless singleton z axis

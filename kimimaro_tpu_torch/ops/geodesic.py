@@ -24,14 +24,14 @@ along -o; every sweep reads u's bit through the table of its layout
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..utils import profiling
 from .fma import fma_f32
-from .stencils import (GRAPH_BITS, graph_allows, graph_word,
+from .stencils import (GRAPH_BITS, as_tensor, graph_allows, graph_word,
                        neighborhood_offsets, shifted)
 from .sweep import sweep_axis0, sweep_axis0_batched
 from .voronoi import voronoi_sweep
@@ -185,33 +185,52 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
     return d, ~changed
 
 
-def distance_field(ok_mask, init_dist, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+def _bool_volume(x) -> torch.Tensor:
+    return as_tensor(x).to(torch.bool)
+
+
+def distance_field(ok_mask, init_dist,
+                   anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
                    node_cost=None, clamp_positive: bool = False,
-                   max_rounds: int = _MAX_ROUNDS,
-                   conv: str = "exact", voxel_graph=None) -> torch.Tensor:
-    """Exact SSSP distance field to fixpoint.
+                   max_rounds: int = _MAX_ROUNDS, voxel_graph=None,
+                   rounds: Optional[int] = None,
+                   conv: str = "exact") -> torch.Tensor:
+    """Exact SSSP distance field to fixpoint (the parameters of
+    kimimaro_tpu.ops.geodesic.distance_field, in its order).
 
     ok_mask: bool volume of traversable voxels. init_dist: float32, +inf
     everywhere except the sources. node_cost: if given, the cost of
     entering v is node_cost[v]; else anisotropic euclidean step costs.
     clamp_positive: values > 0 reset to +inf each sweep (invalidation
-    ball). `conv` is the convergence criterion matched to what the caller
-    reads: "exact" or "negative" (the <= 0 part). `voxel_graph`: the
-    cc3d-convention bitfield gating every move.
-    Raises if the field still changes after `max_rounds` rounds.
-    """
-    ok = ok_mask.to(torch.bool)
-    d = torch.where(ok, init_dist.to(torch.float32), INF)
-    nc = None if node_cost is None else node_cost.to(torch.float32)
-    views = _SweptViews(ok, nc, voxel_graph)
+    ball). `voxel_graph`: the cc3d-convention bitfield gating every move.
+    `rounds`: run exactly rounds + 1 rounds and return, with no host
+    synchronization (the field may be unconverged). Otherwise stages of
+    seven rounds run until one changes nothing under `conv` ("exact",
+    "negative": the <= 0 part, or "reach": finiteness) or `max_rounds`
+    rounds have run; the field is returned either way, as JAX returns
+    it. Array-likes are taken as CPU tensors."""
+    ok = _bool_volume(ok_mask)
+    init = as_tensor(init_dist).to(device=ok.device, dtype=torch.float32)
+    d = torch.where(ok, init, INF)
+    nc = (None if node_cost is None else
+          as_tensor(node_cost).to(device=ok.device, dtype=torch.float32))
+    vg = None if voxel_graph is None else as_tensor(voxel_graph)
+    views = _SweptViews(ok, nc, vg)
+    if rounds is not None:
+        for _ in range(int(rounds) + 1):
+            for axis in range(3):
+                for direction in (1, -1):
+                    d = _sweep(d, views, axis, direction, anisotropy,
+                               bool(clamp_positive))
+        return d
     done = 0
     while done < int(max_rounds):
         d, converged = _relax_stage(d, views, anisotropy,
                                     bool(clamp_positive), _STAGE_ROUNDS, conv)
         done += _STAGE_ROUNDS + 1
         if converged:
-            return d
-    raise RuntimeError(f"distance_field: not converged in {max_rounds} rounds")
+            break
+    return d
 
 
 def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
@@ -220,7 +239,7 @@ def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0
     """Geodesic (foreground-constrained) anisotropic euclidean distance
     from source voxel(s); unreachable voxels are +inf. source: (3,) voxel
     coordinate or (k, 3) array."""
-    ok = ok_mask.to(torch.bool)
+    ok = _bool_volume(ok_mask)
     init = torch.full(ok.shape, INF, dtype=torch.float32, device=ok.device)
     src = np.asarray(source, dtype=np.int64).reshape(-1, 3)
     init[tuple(torch.as_tensor(src[:, a], device=ok.device)
@@ -240,8 +259,15 @@ def parent_field(dist, ok_mask, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
     none). At the fixpoint dist[v] == min_u (dist[u] + cost(u->v)) exactly,
     so a post-hoc argmin rebuilds a shortest-path tree with a
     deterministic (offset order) tie break. `voxel_graph`: a parent u =
-    v + o counts only where u permits the move along -o."""
-    ok = ok_mask.to(torch.bool)
+    v + o counts only where u permits the move along -o. Array-likes are
+    taken as CPU tensors."""
+    ok = _bool_volume(ok_mask)
+    dist = as_tensor(dist).to(device=ok.device, dtype=torch.float32)
+    if node_cost is not None:
+        node_cost = as_tensor(node_cost).to(device=ok.device,
+                                            dtype=torch.float32)
+    if voxel_graph is not None:
+        voxel_graph = as_tensor(voxel_graph)
     best = torch.full(dist.shape, INF, dtype=torch.float32, device=dist.device)
     parent = torch.full(dist.shape, 26, dtype=torch.int8, device=dist.device)
     for k, off in enumerate(OFFSETS26):
@@ -283,7 +309,8 @@ def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
     the radius is one fused multiply-add, as in the JAX package's jitted
     loops (its eager callers round the product and the sum apart). Path
     voxels follow JAX's index rule (`jax_index`)."""
-    ok = ok_mask.to(torch.bool).clone()
+    ok = _bool_volume(ok_mask).clone()
+    dbf = as_tensor(dbf).to(device=ok.device, dtype=torch.float32)
     pv, inb = jax_index(path_voxels, ok.shape)
     near = np.minimum(np.maximum(pv, 0), np.asarray(ok.shape) - 1)
     idx = tuple(torch.as_tensor(near[:, a], device=ok.device)
@@ -311,7 +338,7 @@ def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
     invalidated. A multi-source capped relaxation from
     `invalidation_seeds` (radii not fused: the JAX package's eager
     loop), positives clamped to +inf, to convergence. Returns a bool mask
-    of invalidated voxels."""
+    of invalidated voxels. Array-likes are taken as CPU tensors."""
     ok, init = invalidation_seeds(ok_mask, dbf, path_voxels, scale, const)
     dist = distance_field(ok, init, anisotropy, clamp_positive=True,
                           conv="negative", voxel_graph=voxel_graph)
@@ -389,7 +416,7 @@ def voronoi_feature_field(ok_mask, seeds,
     as JAX returns them. `ok_mask` may be an array, taken as a CPU tensor
     (a CUDA tensor runs V1 on the card). Returns (dist float32, features
     int32)."""
-    ok = torch.as_tensor(ok_mask).to(torch.bool)
+    ok = _bool_volume(ok_mask)
     dev, shape = ok.device, tuple(ok.shape)
     seeds = np.asarray(seeds, dtype=np.int64).reshape(-1, 3)
     c, inb = jax_index(seeds, shape)
@@ -473,14 +500,29 @@ def _flood6_stage(ok, reached, rounds: int):
     return reached, ~changed
 
 
-def flood_fill(seed_mask, ok_mask) -> torch.Tensor:
-    """Binary reachability: all ok voxels 6-connected to seed_mask."""
-    ok = ok_mask.to(torch.bool)
-    reached = seed_mask.to(torch.bool)
+def flood_fill(seed_mask, ok_mask, connectivity: int = 6,
+               rounds: Optional[int] = None) -> torch.Tensor:
+    """Binary reachability: all ok voxels connected to seed_mask
+    (kimimaro_tpu.ops.geodesic.flood_fill). connectivity 6 or 26 (26:
+    `distance_field` with unit costs read through finiteness). `rounds`:
+    the bounded form, rounds + 1 rounds and no host synchronization (may
+    under-flood); otherwise stages of seven rounds until one reaches
+    nothing new, at most 4096 rounds. Array-likes are taken as CPU
+    tensors."""
+    ok = _bool_volume(ok_mask)
+    seeds = _bool_volume(seed_mask).to(ok.device) & ok
+    if connectivity == 26:
+        init = torch.where(seeds, 0.0, INF)
+        dist = distance_field(ok, init, (1.0, 1.0, 1.0), rounds=rounds,
+                              conv="reach")
+        return torch.isfinite(dist)
+    if rounds is not None:
+        return _flood6_stage(ok, seeds, int(rounds))[0]
+    reached = seeds
     done = 0
     while done < _MAX_ROUNDS:
         reached, converged = _flood6_stage(ok, reached, _STAGE_ROUNDS)
         done += _STAGE_ROUNDS + 1
         if bool(converged.all()):
-            return reached
-    raise RuntimeError("flood_fill: not converged")
+            break
+    return reached

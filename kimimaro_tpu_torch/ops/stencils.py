@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -27,6 +28,15 @@ GRAPH_BITS = {
     (1, 1, 1): 18, (-1, 1, 1): 19, (1, -1, 1): 20, (-1, -1, 1): 21,
     (1, 1, -1): 22, (-1, 1, -1): 23, (1, -1, -1): 24, (-1, -1, -1): 25,
 }
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is; any other array-like as a CPU tensor (as the
+    JAX ops take numpy arrays)."""
+    if torch.is_tensor(x):
+        return x
+    a = np.ascontiguousarray(np.asarray(x))
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
 def graph_word(voxel_graph: torch.Tensor) -> torch.Tensor:

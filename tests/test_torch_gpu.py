@@ -1081,3 +1081,95 @@ def test_oversegment_cuda_matches_cpu(gen):
         np.testing.assert_array_equal(la, lb)
         for k in sa:
             np.testing.assert_array_equal(sa[k].segments, sb[k].segments)
+
+
+# --------------------------------------------------------------------------- #
+# the multi-device path (shards sharing the card)
+
+
+def _sharded_blobs():
+    rng = np.random.RandomState(5)
+    shape = (40, 36, 30)
+    vol = np.zeros(shape, dtype=np.uint32)
+    x, y, z = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    for lab in range(1, 7):
+        c = rng.randint(4, np.array(shape) - 4)
+        r = rng.randint(3, 7, size=3)
+        e = (((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / (r[1] * 1.3)) ** 2
+             + ((z - c[2]) / r[2]) ** 2)
+        vol[((e + rng.rand(*shape) * 0.4) < 1.0) & (vol == 0)] = lab
+    return vol
+
+
+@pytest.mark.parametrize("n", (2, 4))
+def test_skeletonize_sharded_cuda_matches_cpu(gen, n):
+    from kimimaro_tpu_torch.parallel import make_mesh, skeletonize_sharded
+
+    vol = _sharded_blobs()
+    teasar = dict(kimimaro_tpu_torch.DEFAULT_TEASAR_PARAMS, const=30,
+                  soma_detection_threshold=1e9, soma_acceptance_threshold=1e9)
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = skeletonize_sharded(
+            vol, mesh=make_mesh(n, device), teasar_params=teasar,
+            anisotropy=ANIS, dust_threshold=10)
+    assert sorted(out["cuda"]) == sorted(out["cpu"]) and len(out["cpu"]) >= 3
+    for k in out["cpu"]:
+        assert out["cuda"][k].to_swc() == out["cpu"][k].to_swc()
+
+
+@pytest.mark.parametrize("mode", ("euclid", "node", "maxflood", "minid"))
+def test_sweep0_slab_with_halo_each_side_of_the_rule(gen, mode):
+    """B1 on a slab extended by a halo plane (the sharded relaxes' plane 0,
+    cc -1 where unoccupied), at the planes on each side of sweep0_plan's
+    rule (no okmask, as the sharded path sweeps)."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plane sizes are those of a 132-SM card")
+    for persistent in (True, False):
+        side = _smem_limit(mode, False, persistent)
+        assert tgsweep.sweep0_plan(side, side, mode, False)["persistent"] \
+            == persistent
+        d, cc, nc, _ = _sweep0_inputs(gen, (4, side, side), mode)
+        if mode != "minid":
+            cc[0] = torch.where(cc[0] > 0, cc[0], -1)
+        for clamp in (False, True):
+            for desc in (False, True):
+                got = tgsweep.sweep0(d, cc, nc, None, ANIS, mode, clamp, desc)
+                want = tgsweep._sweep0_plain(d, cc, nc, None, ANIS, mode,
+                                             clamp, desc)
+                _assert_bit_equal((got,), (want,))
+
+
+def test_crop_argmax_with_boxes_cut_to_slabs_matches_cpu(gen):
+    """The sharded engine's argmax: B3 on each slab with each lane's window
+    cut into the slab and its box cut to the slab's rows, combined across
+    slabs; the card's answers equal the CPU's."""
+    from kimimaro_tpu_torch.parallel import gengine as tg
+    from kimimaro_tpu_torch.parallel import make_mesh
+
+    shape, h = (64, 40, 36), 16
+    cc = torch.randint(0, 6, shape, generator=gen, device="cuda",
+                       dtype=torch.int32)
+    field = torch.round(_rand(gen, shape) * 4)
+    field = torch.where(cc == 0, float("-inf"), field)
+    rng = np.random.RandomState(1)
+    n = 24
+    crops = np.array([(32, 16, 16)] * (n // 2) + [(64, 40, 36)] * (n // 2))
+    offs = np.stack([rng.randint(0, 64 - crops[:, 0] + 1),
+                     rng.randint(0, 40 - crops[:, 1] + 1),
+                     rng.randint(0, 36 - crops[:, 2] + 1)], axis=1)
+    size = np.stack([rng.randint(0, c + 1) for c in crops.T], axis=1)
+    size[::5] = 0
+    box_off = offs + np.stack([rng.randint(0, c - s + 1)
+                               for c, s in zip(crops.T, size.T)], axis=1)
+    lids = torch.tensor(rng.randint(1, 7, n), dtype=torch.int32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        mesh = make_mesh(4, device)
+        out[device] = tg._slab_argmax(
+            [field[i * h:(i + 1) * h].to(device) for i in range(4)],
+            [cc[i * h:(i + 1) * h].to(device) for i in range(4)],
+            offs, crops, (box_off, size), lids.to(device), mesh, h,
+            shape[1:])
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
