@@ -85,12 +85,22 @@ Phases (any failure exits non-zero):
  11. the analysis extras: V1 (the joint Voronoi sweep) against its plain
      version at small, odd and strip-stressing shapes, on each side of its
      form rule and at 512^3 with ties, its distance against B5's euclid
-     sweep; oversegment of the dense volume with phase 5's skeletons
-     (downsample 0 and 5, each a first and a warm run, with phases): a
-     uint64 composite, every voxel of a skeletonized label in a segment,
-     as many segments as distinct seed voxels, a segment per vertex, card
-     = CPU on the crops of 16 labels; V1 on the warm run's six most swept
-     shapes (a kernel-table row each); connect_points on one winding
+     sweep; V1's lane-batched form against its plain version at mixed
+     extents, one lane and 300, lanes with `active` off and on each side
+     of voronoi_batched_plan (beyond it the batched kernel refuses a
+     plane, and the batched field sends its crop to V1's single forms);
+     oversegment of the dense volume with phase 5's skeletons on the
+     batched route (downsample 0 and 5, each a first and a warm run, with
+     phases, fewer than 1,000 V1 launches, the padding, the device memory
+     and the lanes a two-stage prefetch would push out of one CTA's
+     shared memory): a uint64 composite, every voxel of a
+     skeletonized label in a segment, as many segments as distinct seed
+     voxels, a segment per vertex, card = CPU on the crops of 16 labels;
+     the batched V1 on the first round's calls of a run's first and last
+     batches, each twice (a kernel-table row each); then the per-crop
+     route (voronoi_feature_field on each crop) at downsample 0 and 5,
+     its composite and every segment equal to the batched route's, and V1
+     on its six most swept shapes (a kernel-table row each); connect_points on one winding
      neurite (a persistent random walk of 2,000 steps, radius 3) in an
      empty 512^3 volume: a chain of 26-adjacent voxels in the mask from
      end to start, radii = the EDT, card = CPU on a cut of at most 96^3;
@@ -152,6 +162,17 @@ runs made first).
 
 runs phase 13 alone (after the build, with the dense volume's skeletons
 made first).
+
+    python3 chip_smoke.py --time-oversegment DIR [RUNS]
+
+times oversegment with the port of the checkout at DIR (this one, or
+another unpacked with git archive) on the card: the dense volume's, the
+soma volume's and the 512^3 neurite walk's (phase 11's connect_points
+path as its skeleton), each once and then RUNS times (default 3) warm,
+and prints a JSON line per case with the seconds, phases, counters, V1
+launches and a digest of the composite and the segments. Compare two
+checkouts only within one call, in turns (parent, change, change,
+parent), one process each.
 
     python3 chip_smoke.py --host-soma
 
@@ -3130,6 +3151,256 @@ def check_v1_recorded(spy):
     return out
 
 
+# the batched V1 (voronoi_sweep_lanes) on each side of its shape rule and
+# at the shapes that stress it: (B, N, H, W) with each lane's extent
+def v1_batched_cases(cap):
+    rng = np.random.RandomState(7)
+    many = np.stack([rng.randint(1, 7, 300), rng.randint(1, 10, 300),
+                     rng.randint(1, 12, 300)], 1)
+    return (
+        ("mixed", (7, 9, 21, 19), [(9, 21, 19), (1, 21, 19), (9, 1, 19),
+                                   (9, 21, 1), (0, 5, 5), (4, 7, 3),
+                                   (6, 20, 18)], False),
+        ("one", (1, 40, 100, 80), [(40, 100, 80)], False),
+        ("many", (300, 6, 9, 11), many.tolist(), False),
+        ("inactive", (8, 7, 16, 16), [(7, 16, 16)] * 8, True),
+        ("shared", (2, 3, 100, cap // 100), [(3, 100, cap // 100),
+                                             (2, 100, cap // 100 - 1)],
+         False))
+
+
+def check_v1_single_side(gen, cap):
+    """The other side of voronoi_batched_plan: a plane of one cell more
+    than one CTA's shared memory is refused by the batched kernel, and
+    voronoi_feature_field_batched sends a crop with such a plane to V1's
+    single-volume forms beside a batch of crops that fit; every field
+    equal to voronoi_feature_field's on its own."""
+    import torch
+
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.ops import geodesic, voronoi
+
+    plan = voronoi.voronoi_batched_plan(2, 100, cap // 100 + 1)
+    if plan["form"] != "single":
+        raise AssertionError(f"batched V1 beyond {cap} cells: plan {plan}")
+    shape = (1, 3, 100, cap // 100 + 1)
+    d, f, ok = v1_inputs(shape, gen, False)
+    try:
+        voronoi.voronoi_sweep_batched(d, f, ok, [shape[1:]],
+                                      geodesic.plane_costs(0, False, ANIS),
+                                      False, torch.zeros(1, dtype=torch.int32,
+                                                         device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the batched V1 swept a plane beyond one CTA")
+    rng = np.random.RandomState(9)
+    oks, seeds = [], []
+    for crop in ((100, cap // 100 + 1, 3), (100, cap // 100, 3),
+                 (20, 30, 40)):
+        m = rng.rand(*crop) < 0.8
+        pts = np.argwhere(m)
+        oks.append(m)
+        seeds.append(pts[rng.choice(len(pts), 5, replace=False)])
+    before = dict(kernels.LAUNCHES)
+    got = geodesic.voronoi_feature_field_batched(oks, seeds, ANIS)
+    took = {k: kernels.LAUNCHES[k] - before[k]
+            for k in ("voronoi_sweep", "voronoi_sweep_batched")}
+    if min(took.values()) <= 0:
+        raise AssertionError(f"batched field across the shape rule: V1 "
+                             f"launches {took}")
+    for m, s, field in zip(oks, seeds, got):
+        require_equal(f"batched field {m.shape}", field,
+                      geodesic.voronoi_feature_field(m, s, ANIS))
+    log(f"[kernels] batched V1 shape rule, other side: a plane of "
+        f"{cap + 100} cells refused by the batched kernel; a crop with such "
+        f"a plane took V1's single forms beside a batch of two "
+        f"({json.dumps(took)} launches), every field equal to its own "
+        f"voronoi_feature_field")
+
+
+def check_v1_batched(gen):
+    """The batched V1 kernel against its plain version, each call twice,
+    at mixed extents, one lane and 300, lanes with `active` off, and on
+    each side of voronoi_batched_plan (a plane that fills one CTA's
+    shared memory, and one cell more: `check_v1_single_side`); both
+    directions, with and without ties. Returns the max abs error."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import geodesic, voronoi
+
+    cap = voronoi.voronoi_batched_plan(1, 1, 1)["capacity"]
+    err = 0.0
+    for name, shape, ext, inactive in v1_batched_cases(cap):
+        plan = voronoi.voronoi_batched_plan(shape[0], shape[2], shape[3])
+        if plan["form"] != "shared":
+            raise AssertionError(f"batched V1 {shape}: plan {plan}")
+        ext_t = torch.tensor(ext, dtype=torch.int32)
+        active = ((torch.arange(shape[0], device="cuda") % 2 == 0)
+                  if inactive else None)
+        for ties in (False, True):
+            d, f, ok = v1_inputs(shape, gen, ties)
+            anis = (1.0, 1.0, 1.0) if ties else (40.0, 16.0, 16.0)
+            for desc in (False, True):
+                costs = geodesic.plane_costs(0, desc, anis)
+                runs = []
+                for _ in range(2):
+                    gd, gf = d.clone(), f.clone()
+                    flag = torch.zeros(shape[0], dtype=torch.int32,
+                                       device="cuda")
+                    voronoi.voronoi_sweep_batched(gd, gf, ok, ext_t, costs,
+                                                  desc, flag, active)
+                    runs.append((gd, gf, flag))
+                wd, wf = d.clone(), f.clone()
+                wflag = torch.zeros(shape[0], dtype=torch.int32,
+                                    device="cuda")
+                voronoi._voronoi_sweep_lanes_plain(
+                    wd, wf, ok, voronoi.VoronoiLanes.batched(shape, ext_t),
+                    costs, desc, wflag, active)
+                tag = f"batched V1 {name} {shape} ties={ties} desc={desc}"
+                err = max(err, require_equal(tag, runs[0], (wd, wf, wflag)))
+                require_equal(tag + " run twice", runs[1], runs[0])
+        log(f"[kernels] batched V1 bit-equal on {name} {shape} (form "
+            f"{plan['form']}, {plan['lanes']} lanes a CTA): both "
+            f"directions, with and without ties, twice")
+    check_v1_single_side(gen, cap)
+    log(f"[kernels] batched V1 shape rule: a plane of up to {cap} cells in "
+        f"one CTA's shared memory, beyond it V1's single forms")
+    return err
+
+
+class V1LaneSpy:
+    """While installed, counts the batched V1 calls of each batch and
+    layout (axis) of a run; with `keep`, keeps on the host the first
+    round's calls (each layout, both directions) of the run's first and
+    last batches."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
+        self.batches = []  # each batch's lane tables, in layout order
+        self.calls = {}    # (batch, layout) -> calls
+        self.kept = {}     # (batch, layout, descending) -> the call
+
+    def install(self):
+        from kimimaro_tpu_torch.ops import voronoi
+
+        inner = voronoi.voronoi_sweep_lanes
+
+        def spy(d, f, ok, lanes, costs9, descending, changed, active=None):
+            if d.device.type == "cuda":
+                if not self.batches or (len(self.batches[-1]) == 3 and not any(
+                        x is lanes for x in self.batches[-1])):
+                    self.batches.append([])
+                    self.kept = {k: v for k, v in self.kept.items()
+                                 if k[0] == 0}
+                cur = self.batches[-1]
+                if not any(x is lanes for x in cur):
+                    cur.append(lanes)
+                key = (len(self.batches) - 1,
+                       [x is lanes for x in cur].index(True))
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if self.keep and self.calls[key] <= 2:
+                    self.kept[key + (bool(descending),)] = (
+                        d.cpu(), f.cpu(), ok, lanes, tuple(costs9),
+                        bool(descending),
+                        None if active is None else active.clone())
+            return inner(d, f, ok, lanes, costs9, descending, changed, active)
+
+        voronoi.voronoi_sweep_lanes = spy
+
+        def restore():
+            voronoi.voronoi_sweep_lanes = inner
+
+        return restore
+
+
+def lanes_bound(lanes, active):
+    """Least time of one batched V1 sweep: 17 bytes a real voxel of its
+    live, active lanes (and 27 operations). Returns (ms, by, voxels)."""
+    t = lanes.table
+    on = lanes.live() & (np.ones(len(t), bool) if active is None
+                         else active.cpu().numpy().astype(bool))
+    vox = int((t[on, 1] * t[on, 2] * t[on, 3]).sum())
+    t_b, t_o = V1_BYTES * vox / HBM_BYTES_PER_S, V1_OPS * vox / ALU_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", vox
+
+
+def check_v1_lanes_recorded(spy):
+    """The batched V1 kernel against its plain version on the calls the
+    spy kept, each run twice on fresh copies of the recorded fields; the
+    kernel timed with CUDA events over fresh copies, the plain version
+    once. Returns {(batch, layout, descending): (ms, plain ms, bound ms,
+    bound by, err, lanes, voxels, calls)}."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import voronoi
+
+    out = {}
+    for key, (d_h, f_h, ok, lanes, costs, desc, active) in sorted(
+            spy.kept.items()):
+        d0, f0 = d_h.cuda(), f_h.cuda()
+        runs = []
+        for _ in range(2):
+            d, f = d0.clone(), f0.clone()
+            flag = torch.zeros(len(lanes), dtype=torch.int32, device="cuda")
+            voronoi.voronoi_sweep_lanes(d, f, ok, lanes, costs, desc, flag,
+                                        active)
+            runs.append((d, f, flag))
+        d, f = d0.clone(), f0.clone()
+        wflag = torch.zeros(len(lanes), dtype=torch.int32, device="cuda")
+        _, plain = timed_once(lambda: voronoi._voronoi_sweep_lanes_plain(
+            d, f, ok, lanes, costs, desc, wflag, active))
+        name = f"batched V1 recorded call {key}"
+        err = require_equal(name, runs[0], (d, f, wflag))
+        require_equal(name + " run twice", runs[1], runs[0])
+        del runs, d, f
+        times = []
+        for _ in range(5):
+            d, f = d0.clone(), f0.clone()
+            flag = torch.zeros(len(lanes), dtype=torch.int32, device="cuda")
+            times.append(timed_once(lambda: voronoi.voronoi_sweep_lanes(
+                d, f, ok, lanes, costs, desc, flag, active))[1])
+        ms = float(np.mean(times[1:]))
+        bms, by, vox = lanes_bound(lanes, active)
+        live = int(lanes.live().sum())
+        calls = spy.calls[key[:2]]
+        out[key] = (ms, plain, bms, by, err, live, vox, calls)
+        log(f"[kernels] batched V1 recorded call batch {key[0]} axis "
+            f"{key[1]} desc={key[2]}: {live} lanes, {vox} voxels, "
+            f"{d0.numel()} padded; {ms:.4f} ms vs plain {plain:.1f} ms, "
+            f"bound {bms:.4f} ms ({by}); {calls} calls of this batch and "
+            f"axis a run")
+        del d0, f0, d, f
+    return out
+
+
+# shared-memory bytes a plane cell of the batched V1 takes: two carried
+# copies of d and f, and with a two-stage cp.async prefetch of the cell's
+# own d, f and ok 18 bytes more
+V1_CARRIED_BYTES, V1_PREFETCH_BYTES = 16, 18
+
+
+def prefetch_count(spy, cap):
+    """Over every batched V1 call of the run the spy counted: the lanes
+    (and their voxels) whose plane fits one CTA's shared memory as the
+    kernel carries it (`cap` cells) but would not fit with a two-stage
+    prefetch of each cell's own d, f and ok, by layout. Returns
+    {layout: (lanes, all live lanes, their voxels, all voxels)}, each
+    batch's lanes counted once per layout."""
+    cap_pf = cap * V1_CARRIED_BYTES // (V1_CARRIED_BYTES + V1_PREFETCH_BYTES)
+    out = {}
+    for tables in spy.batches:
+        for layout, lanes in enumerate(tables):
+            t, live = lanes.table, lanes.live()
+            cells = lanes.cells()
+            lose = live & (cells > cap_pf) & (cells <= cap)
+            vox = t[:, 1] * cells
+            a, b, c, d = out.get(layout, (0, 0, 0, 0))
+            out[layout] = (a + int(lose.sum()), b + int(live.sum()),
+                           c + int(vox[lose].sum()), d + int(vox[live].sum()))
+    return out, cap_pf
+
+
 def first_appearance(a):
     """The values of a 1-D array renumbered 0, 1, ... by first appearance."""
     _, first, inv = np.unique(a, return_index=True, return_inverse=True)
@@ -3138,25 +3409,45 @@ def first_appearance(a):
     return rank[inv.ravel()]
 
 
-def oversegment_run(tag, vol, skels, downsample, spy=None):
+# V1 launches a dense oversegment run may make on the batched route (25,608
+# a crop at a time), and the device memory it may take: the dense
+# skeletonize run's peak (PERF.md section 5)
+V1_BATCHED_LAUNCHES = 1000
+DENSE_PEAK_GIB = 15.60
+
+
+def oversegment_run(tag, vol, skels, downsample, spy=None, per_crop=False):
     """oversegment on the card once, the launch counts reset just before
-    it and read just after. Returns (labels, skeletons, launches)."""
+    it and read just after: the batched route, or with `per_crop` the
+    route that runs voronoi_feature_field on each crop (V1's single
+    form). Checks the launches of the route, the lane-rounds and the
+    device memory the run took beyond what was held before it. Returns
+    (labels, skeletons, launches)."""
+    import importlib
+
     import torch
 
-    import kimimaro_tpu_torch
     from kimimaro_tpu_torch import kernels
     from kimimaro_tpu_torch.utils import profiling
 
+    ovs = importlib.import_module("kimimaro_tpu_torch.oversegment")
     restore = spy.install() if spy is not None else None
     profiling.reset_stats()
     profiling.collect(True)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        labels, out = kimimaro_tpu_torch.oversegment(
-            vol, skels, anisotropy=ANIS, downsample=downsample,
-            device="cuda")
+        if per_crop:
+            labels, out = ovs._oversegment(vol, skels, ANIS, False, False,
+                                           False, downsample, "cuda",
+                                           per_crop=True)
+        else:
+            labels, out = ovs.oversegment(vol, skels, anisotropy=ANIS,
+                                          downsample=downsample,
+                                          device="cuda")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -3164,21 +3455,58 @@ def oversegment_run(tag, vol, skels, downsample, spy=None):
         if restore is not None:
             restore()
     launches = dict(kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     stats = profiling.get_stats()
     phases = {k: round(v, 3) for k, v in stats["phases"].items()}
-    log(f"[oversegment] {tag} (downsample={downsample}): {secs:.2f} s for "
-        f"{len(out)} skeletons; phases (s) {json.dumps(phases)}; counters "
-        f"{json.dumps(stats['counters'])}; V1 launches "
-        f"{launches['voronoi_sweep']}")
-    if launches["voronoi_sweep"] <= 0:
-        raise AssertionError("oversegment launched no V1 sweep")
+    counters = stats["counters"]
+    pad = (counters["voronoi_padded_voxels"] / counters["voronoi_voxels"]
+           if counters.get("voronoi_voxels") else None)
+    route = "per crop" if per_crop else "batched"
+    log(f"[oversegment] {tag} ({route}, downsample={downsample}): "
+        f"{secs:.2f} s for {len(out)} skeletons; phases (s) "
+        f"{json.dumps(phases)}; counters {json.dumps(counters)}; V1 "
+        f"launches {launches['voronoi_sweep']} single, "
+        f"{launches['voronoi_sweep_batched']} batched; padded / real "
+        f"voxels {pad}; device memory {peak:.2f} GiB beyond the "
+        f"{held / 2**30:.2f} GiB held before the run")
+    if per_crop:
+        if launches["voronoi_sweep"] <= 0 or \
+                launches["voronoi_sweep_batched"] != 0:
+            raise AssertionError("oversegment's per-crop route: V1 launches "
+                                 f"{launches}")
+    elif not (0 < launches["voronoi_sweep_batched"] and
+              launches["voronoi_sweep_batched"] + launches["voronoi_sweep"]
+              < V1_BATCHED_LAUNCHES and (launches["voronoi_sweep"] > 0) ==
+              (counters.get("voronoi_single_lanes", 0) > 0)):
+        raise AssertionError(
+            f"oversegment: {launches['voronoi_sweep_batched']} batched and "
+            f"{launches['voronoi_sweep']} single V1 launches for "
+            f"{counters.get('voronoi_single_lanes', 0)} crops beyond the "
+            f"batched kernel's planes")
+    if peak >= DENSE_PEAK_GIB:
+        raise AssertionError(f"oversegment took {peak:.2f} GiB of device "
+                             f"memory, the dense skeletonize run "
+                             f"{DENSE_PEAK_GIB}")
     # a change flag stuck at 1 would run every crop to the cap of 4096
     # rounds with the same fields; the crops converge in about two
-    rounds = stats["counters"].get("voronoi_rounds", 0)
+    rounds = counters.get("voronoi_rounds", 0)
     if not 0 < rounds <= 4 * len(out):
-        raise AssertionError(f"oversegment: {rounds} V1 rounds for "
+        raise AssertionError(f"oversegment: {rounds} V1 lane-rounds for "
                              f"{len(out)} skeletons")
     return labels, out, launches
+
+
+def require_same_oversegment(tag, got, want):
+    """The composite and every skeleton's segments of two runs equal."""
+    (gl, gs), (wl, ws) = got, want
+    if gl.dtype != wl.dtype or not np.array_equal(gl, wl):
+        raise AssertionError(f"oversegment {tag}: the composites differ in "
+                             f"{int((gl != wl).sum())} voxels")
+    bad = [k for k in ws if not np.array_equal(gs[k].segments,
+                                               ws[k].segments)]
+    if bad or set(gs) != set(ws):
+        raise AssertionError(f"oversegment {tag}: segments differ for "
+                             f"labels {bad[:10]}")
 
 
 def check_oversegment(vol, slcs, skels, labels, out, downsample, n_cpu=16):
@@ -3504,15 +3832,21 @@ def synapse_phase(dense, slcs):
 
 
 def analysis_phase(dense, dense_skels, gen):
-    """Phase 11: V1 against its plain version; oversegment of the dense
-    volume with its skeletons (downsample 0 and 5, each a first and a warm
-    run) with its checks and V1 on the warm runs' most swept shapes;
-    connect_points on a 512^3 neurite; synapses_to_targets through
-    skeletonize. Returns (launches of those runs, V1 at 512^3, V1's rows
-    by shape with their calls, B5's table rows of connect_points)."""
+    """Phase 11: V1 and its batched form against their plain versions;
+    oversegment of the dense volume with its skeletons (downsample 0 and
+    5, each a first and a warm run on the batched route, then the per-crop
+    route, every composite and segment equal) with its checks; the
+    batched V1 on the calls a run made, V1 on the per-crop runs' most
+    swept shapes; connect_points on a 512^3 neurite; synapses_to_targets
+    through skeletonize. Returns (launches of those runs, V1 at 512^3,
+    V1's rows by shape with their calls, the batched V1's recorded calls,
+    its max abs error, B5's table rows of connect_points)."""
     import scipy.ndimage
 
+    from kimimaro_tpu_torch.ops import voronoi
+
     v1 = check_v1(gen)
+    v1b_err = check_v1_batched(gen)
     slcs = scipy.ndimage.find_objects(dense)
     total = {}
 
@@ -3520,39 +3854,67 @@ def analysis_phase(dense, dense_skels, gen):
         for k, v in part.items():
             total[k] = total.get(k, 0) + v
 
+    batched = {}
+    for ds in (0, 5):
+        counting = V1LaneSpy() if ds == 0 else None
+        labels, out, launches = oversegment_run("first run", dense,
+                                                dense_skels, ds, counting)
+        add(launches)
+        check_oversegment(dense, slcs, dense_skels, labels, out, ds)
+        del labels, out
+        batched[ds] = oversegment_run("warm run", dense, dense_skels, ds)
+        add(batched[ds][2])
+        if ds == 0:
+            log(f"[oversegment] batched V1 calls by (batch, axis): "
+                f"{json.dumps({str(k): v for k, v in counting.calls.items()})}")
+            cap = voronoi.voronoi_batched_plan(1, 1, 1)["capacity"]
+            lose, cap_pf = prefetch_count(counting, cap)
+            log(f"[oversegment] batched V1 lanes with a plane of "
+                f"{cap_pf}-{cap} cells (carried in shared memory now, beyond "
+                f"it with a two-stage prefetch of {V1_PREFETCH_BYTES} more "
+                f"bytes a cell), by layout: (lanes, of live lanes, their "
+                f"voxels, of all voxels) "
+                f"{json.dumps({str(k): v for k, v in lose.items()})}")
+    recording = V1LaneSpy(keep=True)
+    oversegment_run("recorded run", dense, dense_skels, 0, recording)
+    lanes_rows = check_v1_lanes_recorded(recording)
+    del recording
+    v1b_err = max([v1b_err] + [v[4] for v in lanes_rows.values()])
     counting = V1Spy()
-    labels, out, launches = oversegment_run("first run", dense, dense_skels,
-                                            0, counting)
-    add(launches)
-    check_oversegment(dense, slcs, dense_skels, labels, out, 0)
-    del labels, out
+    for ds in (0, 5):
+        got = batched.pop(ds)
+        per = oversegment_run("per-crop run", dense, dense_skels, ds,
+                              counting if ds == 0 else None, per_crop=True)
+        add(per[2])
+        require_same_oversegment(f"downsample={ds} batched against per "
+                                 f"crop", got[:2], per[:2])
+        log(f"[oversegment] downsample={ds}: the batched route's composite "
+            f"and the segments of all {len(per[1])} skeletons equal the "
+            f"per-crop route's")
+        del got, per
     top = sorted(counting.calls, key=lambda k: counting.calls[k]
                  * int(np.prod(k)))[-6:]
     keeping = V1Spy(want=top)
-    _, _, launches = oversegment_run("warm run", dense, dense_skels, 0,
-                                     keeping)
-    add(launches)
-    for run in ("first run", "warm run"):
-        labels, out, launches = oversegment_run(run, dense, dense_skels, 5)
-        add(launches)
-        if run == "first run":
-            check_oversegment(dense, slcs, dense_skels, labels, out, 5)
-        del labels, out
+    oversegment_run("per-crop run, recorded", dense, dense_skels, 0, keeping,
+                    per_crop=True)
     rows = check_v1_recorded(keeping)
-    log(f"[kernels] V1 on the dense oversegment's {len(counting.calls)} "
-        f"sweep shapes, {sum(counting.calls.values())} calls a run; the six "
-        f"of the most swept voxels bit-equal, twice")
+    log(f"[kernels] V1 on the dense per-crop oversegment's "
+        f"{len(counting.calls)} sweep shapes, "
+        f"{sum(counting.calls.values())} calls a run; the six of the most "
+        f"swept voxels bit-equal, twice")
     launches, b5_rows = connect_points_phase()
     add(launches)
     add(synapse_phase(dense, slcs))
     return (total, v1, {k: (counting.calls[k], v) for k, v in rows.items()},
-            b5_rows)
+            lanes_rows, v1b_err, b5_rows)
 
 
-def v1_table(launches, v1, rows):
+def v1_table(launches, v1, rows, lanes_rows, v1b_err):
     """The kernel table's V1 rows: a 512^3 sweep with all of the main
-    path's V1 launches, and each recorded oversegment shape with its calls
-    of a run."""
+    path's single-form V1 launches (the per-crop route), each recorded
+    per-crop shape with its calls of a run, the batched form with all of
+    its launches, and each of its recorded calls (batch, axis, direction)
+    with the calls of its batch and axis in a run."""
     n = DENSE_N
     ms, plain, err = v1
     err = max([err] + [v[4] for _, v in rows.values()])
@@ -3571,6 +3933,27 @@ def v1_table(launches, v1, rows):
                       "ms": round(ms, 4), "plain_ms": round(plain, 4),
                       "bound_ms": round(bms, 4), "bound_by": by,
                       "library_ms": None})
+    for key, (ms, plain, bms, by, _, live, vox, calls) in sorted(
+            lanes_rows.items()):
+        table.append({
+            "name": f"voronoi_sweep_batched batch {key[0]} axis {key[1]} "
+                    f"{'desc' if key[2] else 'asc'} ({live} lanes, {vox} "
+                    f"voxels)",
+            "route": "cuda", "source": "kimimaro_tpu_torch/csrc/voronoi.cu",
+            "replaces": "kimimaro_tpu/ops/geodesic.py:727",
+            "launches": calls, "max_abs_err": v1b_err, "ms": round(ms, 4),
+            "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+            "bound_by": by, "library_ms": None})
+    if lanes_rows:
+        first = lanes_rows[min(lanes_rows)]
+        table.insert(len(rows) + 1, {
+            "name": "voronoi_sweep_batched", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/voronoi.cu",
+            "replaces": "kimimaro_tpu/ops/geodesic.py:727",
+            "launches": launches["voronoi_sweep_batched"],
+            "max_abs_err": v1b_err, "ms": round(first[0], 4),
+            "plain_ms": round(first[1], 4), "bound_ms": round(first[2], 4),
+            "bound_by": first[3], "library_ms": None})
     return table
 
 
@@ -3680,6 +4063,78 @@ def turns(fa, fb, reps):
     tb = [cuda_ms(fb, reps), cuda_ms(fb, reps)]
     ta.append(cuda_ms(fa, reps))
     return ta, tb
+
+
+def time_oversegment(root, runs):
+    """`--time-oversegment DIR [RUNS]`: oversegment with the port at DIR
+    on the dense, soma and neurite volumes (their skeletons made first
+    with the same port, not timed), a first run and RUNS warm runs each.
+    Prints one JSON line a case."""
+    import hashlib
+
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch import kernels
+    from kimimaro_tpu_torch.utils import profiling
+
+    if not kimimaro_tpu_torch.__file__.startswith(root + os.sep):
+        raise AssertionError(f"imported {kimimaro_tpu_torch.__file__}, not "
+                             f"the port at {root}")
+    log(f"[time-oversegment] {root}: nvcc {kernels.build():.2f} s")
+
+    def volumes():
+        dense = dense_volume(DENSE_N)
+        yield "dense", dense, kimimaro_tpu_torch.skeletonize(
+            dense, teasar_params=TEASAR, anisotropy=ANIS,
+            dust_threshold=1000, fix_borders=True, fix_branching=True,
+            device="cuda")
+        hollow = hollow_volume(dense)
+        del dense
+        yield "soma", hollow, kimimaro_tpu_torch.skeletonize(
+            hollow, teasar_params=TEASAR, anisotropy=ANIS,
+            dust_threshold=1000, fix_borders=True, fix_branching=True,
+            fill_holes=False, fix_avocados=False, device="cuda")
+        del hollow
+        vol, _, start, end = neurite_walk()
+        skel = kimimaro_tpu_torch.connect_points(vol, start, end,
+                                                 anisotropy=ANIS,
+                                                 device="cuda")
+        skel.id = 1
+        yield "neurite", vol.astype(np.uint32), {1: skel}
+
+    for case, vol, skels in volumes():
+        secs, phases = [], []
+        for _ in range(runs + 1):
+            profiling.reset_stats()
+            profiling.collect(True)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                labels, out = kimimaro_tpu_torch.oversegment(
+                    vol, skels, anisotropy=ANIS, device="cuda")
+                torch.cuda.synchronize()
+            finally:
+                profiling.collect(False)
+            secs.append(round(time.perf_counter() - t0, 3))
+            stats = profiling.get_stats()
+            phases.append({k: round(v, 3) for k, v in stats["phases"].items()
+                           if k.startswith(("oversegment", "voronoi"))})
+        digest = hashlib.sha256(labels.tobytes())
+        for k in sorted(out):
+            digest.update(np.asarray(out[k].segments).tobytes())
+        print(json.dumps({
+            "root": root, "case": case, "skeletons": len(out),
+            "first": secs[0], "seconds": secs[1:], "phases": phases,
+            "counters": {k: v for k, v in stats["counters"].items()
+                         if k.startswith("voronoi")},
+            "launches": {k: v for k, v in kernels.LAUNCHES.items()
+                         if k.startswith("voronoi")},
+            "digest": digest.hexdigest()[:16]}), flush=True)
+    return 0
 
 
 def ab_parent(parent):
@@ -4573,6 +5028,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time-oversegment"] and len(sys.argv) in (3, 4):
+        log(device_line())
+        return time_oversegment(sys.argv[2], int(sys.argv[3])
+                                if len(sys.argv) == 4 else 3)
     sys.path.insert(0, ROOT)
     from kimimaro_tpu_torch import kernels
 
@@ -4610,10 +5069,11 @@ def main() -> int:
             fix_borders=True, fix_branching=True, device="cuda")
         log(f"[analysis] {len(skels)} dense skeletons "
             f"({time.perf_counter() - t0:.1f} s, set-up)")
-        launches, v1, rows, b5_rows = analysis_phase(dense, skels, gen)
+        (launches, v1, rows, lanes_rows, v1b_err,
+         b5_rows) = analysis_phase(dense, skels, gen)
         log(f"[analysis] launches: {json.dumps(launches)}")
-        print(json.dumps({"kernels": v1_table(launches, v1, rows)
-                          + b5_rows}))
+        print(json.dumps({"kernels": v1_table(launches, v1, rows, lanes_rows,
+                                              v1b_err) + b5_rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4778,7 +5238,7 @@ def main() -> int:
     (touch_launches, b1_vg, b5_vg, b4_touch,
      b4_touch_calls) = self_touch_phase(dense, gen)
     # 11. the analysis extras on the dense run's skeletons
-    (analysis_launches, v1, v1_rows,
+    (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
      b5_connect) = analysis_phase(dense, dense_skels, gen)
 
     # 12. the multi-device path over four shards of the card
@@ -4977,7 +5437,7 @@ def main() -> int:
             "launches": b4_touch_calls[shape], "max_abs_err": touch_err,
             "ms": round(ms, 4), "plain_ms": round(plain, 4),
             "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
-    table.extend(v1_table(launches, v1, v1_rows))
+    table.extend(v1_table(launches, v1, v1_rows, v1_lanes_rows, v1b_err))
     # B5 at phase 11's connect_points shape (512^3), each mode
     table.extend(b5_connect)
     # phase 12: B1, B3, B4, B5 and F1 at the sharded path's shapes

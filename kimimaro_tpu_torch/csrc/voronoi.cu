@@ -196,6 +196,144 @@ kt::StripPlan plan_v1(int H, int W) {
     return plan;
 }
 
+// ---------------------------------------------------------------------------
+// The lane-batched form: one launch per directed sweep for every lane of a
+// batch (oversegment's crops, each in its own extent within its bucket).
+//
+// Lane i is the (n, H, W) box at element base_i of flat d/f/ok storage, its
+// rows row_i and its planes plane_i elements apart (ops.voronoi
+// .VoronoiLanes). The sweep is in place: a CTA walks the planes of its
+// lanes in order, reading each plane's own values before writing them, and
+// writes a voxel only where its distance or feature changes. Nothing
+// outside a lane's extent is read as a candidate or written.
+//
+// What bounds it: 17 bytes a voxel at most (d, f, ok read; d, f written
+// where they change), against the chain of n dependent planes of each lane.
+// The crops of oversegment are small (planes of a few hundred to about
+// 15,000 voxels, tens of planes), so a lane's chain is short and many
+// lanes must be in flight at once to fill the card: one CTA walks a whole
+// lane, with one __syncthreads() a plane and no exchange with other CTAs.
+// The host packs lanes of similar plane counts into CTAs up to the shared
+// memory one CTA may hold (`pack_lanes`), so several small lanes share a
+// CTA and its SM; each CTA carries the previous plane of each of its lanes
+// (d and f, 8 bytes a cell) in shared memory, twice (the plane being
+// relaxed is written into the other copy), and each thread relaxes a few
+// cells of every plane. A lane's plane must fit one CTA's shared memory
+// (`capacity` cells): a crop with a larger plane takes V1's single-volume
+// forms above, whose clusters and strips spread a plane over many SMs.
+// The previous plane's feature is read only for the winning neighbour.
+// Each CTA posts each of its lanes' change flags once, at its end; a lane
+// that is not active is not swept.
+constexpr int kLaneThreads = 1024;
+constexpr int kMaxPack = 32;
+// static shared memory of `v1_lanes` and a margin, kept out of the carried
+// planes
+constexpr int kLaneStaticBytes = 2048;
+
+__global__ void __launch_bounds__(kLaneThreads, 1)
+v1_lanes(float* d, int32_t* f, const uint8_t* __restrict__ ok,
+         const long long* __restrict__ lanes, const int* __restrict__ order,
+         const int* __restrict__ packs, int* __restrict__ changed,
+         const uint8_t* __restrict__ active, int capacity, kt::Costs9 costs,
+         int descending) {
+    __shared__ long long s_base[kMaxPack], s_plane[kMaxPack];
+    __shared__ int s_lane[kMaxPack], s_n[kMaxPack], s_H[kMaxPack],
+        s_W[kMaxPack], s_row[kMaxPack], s_moved[kMaxPack];
+    __shared__ int s_voff[kMaxPack + 1];
+    __shared__ int s_maxn;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tid = threadIdx.x;
+    const int first = packs[2 * blockIdx.x];
+    const int count = packs[2 * blockIdx.x + 1];
+    if (tid < count) {
+        const int lane = order[first + tid];
+        const long long* e = lanes + 6 * (long long)lane;
+        const bool on = active == nullptr || active[lane] != 0;
+        s_lane[tid] = lane;
+        s_base[tid] = e[0];
+        s_n[tid] = on ? (int)e[1] : 0;
+        s_H[tid] = (int)e[2];
+        s_W[tid] = (int)e[3];
+        s_row[tid] = (int)e[4];
+        s_plane[tid] = e[5];
+        s_moved[tid] = 0;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        int off = 0, most = 0;
+        for (int j = 0; j < count; ++j) {
+            s_voff[j] = off;
+            off += s_H[j] * s_W[j];
+            most = max(most, s_n[j]);
+        }
+        s_voff[count] = off;
+        s_maxn = most;
+    }
+    __syncthreads();
+    const int cells = s_voff[count];
+    const int steps = s_maxn;
+    // the carried planes: d of the two copies, then f of the two copies
+    float* cd = (float*)smem;
+    int32_t* cf = (int32_t*)(smem + (size_t)8 * capacity);
+    for (int s = 0; s < steps; ++s) {
+        const int into = (s & 1) * capacity, from = capacity - into;
+        int j = 0;
+        for (int v = tid; v < cells; v += blockDim.x) {
+            while (v >= s_voff[j + 1]) ++j;
+            const int n = s_n[j];
+            if (s >= n) continue;
+            const int H = s_H[j], W = s_W[j], voff = s_voff[j];
+            const int local = v - voff;
+            const int y = local / W, z = local - y * W;
+            const long long base = s_base[j], pstride = s_plane[j];
+            const long long row = s_row[j];
+            const long long pl = descending ? n - 1 - s : s;
+            const long long gi = base + pl * pstride + y * row + z;
+            const float cur_d = d[gi];
+            const int32_t cur_f = f[gi];
+            float nd = cur_d;
+            int32_t nf = cur_f;
+            if (s > 0) {
+                float best = INFINITY;
+                int win = 0;
+#pragma unroll
+                for (int dy = -1; dy <= 1; ++dy) {
+                    const int yy = y + dy;
+                    if (yy < 0 || yy >= H) continue;
+#pragma unroll
+                    for (int dz = -1; dz <= 1; ++dz) {
+                        const int zz = z + dz;
+                        if (zz < 0 || zz >= W) continue;
+                        const float sd =
+                            __fadd_rn(cd[from + voff + yy * W + zz],
+                                      costs.c[3 * (dy + 1) + dz + 1]);
+                        if (sd < best) {
+                            best = sd;
+                            win = 3 * (dy + 1) + dz + 1;
+                        }
+                    }
+                }
+                const bool okv = ok[gi] != 0;
+                const bool take = okv && best < cur_d;
+                nd = take ? best : (okv ? cur_d : INFINITY);
+                if (take) {
+                    const int wy = y + win / 3 - 1, wz = z + win % 3 - 1;
+                    nf = cf[from + voff + wy * W + wz];
+                }
+                if (nd != cur_d || nf != cur_f) {
+                    d[gi] = nd;
+                    f[gi] = nf;
+                    s_moved[j] = 1;
+                }
+            }
+            cd[into + v] = nd;
+            cf[into + v] = nf;
+        }
+        __syncthreads();
+    }
+    if (tid < count && s_moved[tid]) changed[s_lane[tid]] = 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -239,6 +377,45 @@ int kt_voronoi_sweep(const void* d, const void* f, const void* ok,
     }
     return kt::run_grid_strips(op, (unsigned long long*)mail, n, H, W,
                                descending, plan, st);
+}
+
+// V1, lane-batched. d: float32, f: int32, ok: uint8 (bool), flat storage
+// the lanes lie in; lanes: int64 (L, 6) (base, n, H, W, row, plane); order:
+// int32, the lanes of the packs in turn; packs: int32 (P, 2) (first index
+// into order, lanes <= kMaxPack); changed: int32 (L,), entry i set to 1
+// where lane i changes; active: uint8 (L,) or NULL (every lane active);
+// capacity: the cells of the shared-memory planes (at most the value of
+// kt_voronoi_lanes_limits), which every pack's planes fit. In place. Returns a cudaError_t code (0 = success).
+int kt_voronoi_lanes(void* d, void* f, const void* ok, const void* lanes,
+                     const void* order, const void* packs, int P,
+                     void* changed, const void* active, int capacity,
+                     const float* costs9, int descending, void* stream) {
+    if (P < 0 || capacity < 0 || changed == nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (P == 0) return 0;
+    const size_t smem = (size_t)16 * capacity;
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)v1_lanes, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    v1_lanes<<<P, kLaneThreads, smem, (cudaStream_t)stream>>>(
+        (float*)d, (int32_t*)f, (const uint8_t*)ok, (const long long*)lanes,
+        (const int*)order, (const int*)packs, (int*)changed,
+        (const uint8_t*)active, capacity, kt::make_costs9(costs9),
+        descending);
+    return (int)cudaGetLastError();
+}
+
+// The lane-batched V1's limits on the current device: returns the most
+// cells a CTA carries in shared memory (two copies of d and f), with its
+// threads and the most lanes of a pack.
+int kt_voronoi_lanes_limits(int* threads, int* max_pack) {
+    *threads = kLaneThreads;
+    *max_pack = kMaxPack;
+    const int optin = kt::optin_smem();
+    if (optin <= kLaneStaticBytes) return -1;
+    return (optin - kLaneStaticBytes) / 16;
 }
 
 // How V1 runs a plane of H x W on the current device: returns the form (0

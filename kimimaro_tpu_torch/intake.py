@@ -47,6 +47,7 @@ from .skeleton import Skeleton
 from .utility import find_objects
 from .utils import profiling
 from .utils.bbox import Bbox
+from .utils.device import resolve_device
 from .utils.profiling import phase
 
 
@@ -65,15 +66,6 @@ DEFAULT_TEASAR_PARAMS = {
     "soma_invalidation_const": 300,
     "soma_invalidation_scale": 2,
 }
-
-
-def resolve_device(device) -> torch.device:
-    """The working device; asking for CUDA where there is none raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was requested but CUDA is not "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _as_int32(labels: np.ndarray) -> np.ndarray:

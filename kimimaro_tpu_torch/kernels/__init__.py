@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
-# F1, V1); the forms gated by a voxel graph (B1, B4, B5) count apart
+# F1, V1 and its lane-batched form); the forms gated by a voxel graph (B1,
+# B4, B5) count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_vg": 0,
@@ -51,6 +52,7 @@ LAUNCHES: Dict[str, int] = {
     "section_flood": 0,
     "fma_f32": 0,
     "voronoi_sweep": 0,
+    "voronoi_sweep_batched": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -167,6 +169,11 @@ def lib() -> ctypes.CDLL:
         so.kt_voronoi_sweep.restype = i
         so.kt_voronoi_plan.argtypes = [i, i, p, p]
         so.kt_voronoi_plan.restype = i
+        so.kt_voronoi_lanes.argtypes = [p, p, p, p, p, p, i, p, p, i, p, i,
+                                        p]
+        so.kt_voronoi_lanes.restype = i
+        so.kt_voronoi_lanes_limits.argtypes = [p, p]
+        so.kt_voronoi_lanes_limits.restype = i
         _LIB = so
     return _LIB
 

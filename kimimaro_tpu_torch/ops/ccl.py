@@ -65,18 +65,19 @@ def label_words(labels) -> torch.Tensor:
     return rank
 
 
-def connected_components(labels, voxel_graph=None) -> torch.Tensor:
+def connected_components(labels, voxel_graph=None,
+                         device="cuda") -> torch.Tensor:
     """Raw 26-connected multi-label CCL of a 3D label volume (any integer
-    type, as `label_words` takes it; an array-like as a CPU tensor).
-    Returns an int32 volume where each component is labeled by the
-    1-based minimum linear index of its voxels; background is 0.
-    `voxel_graph`: an optional cc3d-convention bitfield of the same shape
-    (uint32 or int32) on the same device."""
-    labels = label_words(labels)
+    type, as `label_words` takes it; an array-like on `device`, a tensor
+    on its own device). Returns an int32 volume where each component is
+    labeled by the 1-based minimum linear index of its voxels; background
+    is 0. `voxel_graph`: an optional cc3d-convention bitfield of the same
+    shape (uint32 or int32), taken to the labels' device."""
+    labels = label_words(as_tensor(labels, device))
     if labels.ndim != 3:
         raise ValueError("connected_components takes a 3D volume")
     if voxel_graph is not None:
-        voxel_graph = as_tensor(voxel_graph)
+        voxel_graph = as_tensor(voxel_graph).to(labels.device)
     fg = labels != 0
     ids = torch.where(fg, _lin(labels.shape, labels.device), BIGID)
     cc_v = gsweep.MaskViews(labels)
@@ -189,22 +190,31 @@ def label_info(cc, orig_labels, n_max: int, rep_prefix, dbf):
     return counts, bbox_min, bbox_max, orig, dbfmax
 
 
-def renumber_cc(cc_raw: np.ndarray, orig_labels: np.ndarray
+def renumber_cc(cc_raw, orig_labels, device="cuda"
                 ) -> Tuple[np.ndarray, Dict[int, int]]:
-    """Host compaction of raw CCL output to contiguous ids in the order of
-    the raw ids (background 0 stays 0; without background the ids start at
+    """Compaction of raw CCL output to contiguous ids in the order of the
+    raw ids (background 0 stays 0; without background the ids start at
     1), plus the cc-id -> original-label mapping, each component's label
-    taken at its first voxel (kimimaro_tpu.ops.ccl.renumber_cc)."""
-    cc_raw = np.asarray(cc_raw)
-    orig_labels = np.asarray(orig_labels)
-    uniq, first_idx, inv = np.unique(cc_raw, return_index=True,
-                                     return_inverse=True)
-    new_ids = np.arange(len(uniq), dtype=np.int64)
-    if not (len(uniq) and uniq[0] == 0):
-        new_ids = new_ids + 1
-    cc = new_ids[inv].reshape(cc_raw.shape)
-    cc = cc.astype(np.uint32 if len(uniq) < 2**32 else np.uint64)
-    flat_orig = orig_labels.reshape(-1)
-    remapping = {int(uid): int(flat_orig[fidx])
-                 for uid, fidx in zip(new_ids, first_idx) if uid != 0}
-    return cc, remapping
+    taken at its first voxel (kimimaro_tpu.ops.ccl.renumber_cc). The
+    sort and the first voxels are found on `cc_raw`'s device (`device`
+    for an array); the result is a host array, as JAX returns it."""
+    if not torch.is_tensor(cc_raw):
+        cc_raw = np.asarray(cc_raw)
+        if cc_raw.dtype.kind == "u" and cc_raw.dtype.itemsize >= 4:
+            cc_raw = cc_raw.astype(np.int64)  # torch sorts no wide unsigned
+    raw = as_tensor(cc_raw, device)
+    flat = raw.reshape(-1)
+    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+    first_idx = torch.full((uniq.numel(),), flat.numel(), dtype=torch.int64,
+                           device=flat.device).scatter_reduce_(
+        0, inv, torch.arange(flat.numel(), device=flat.device), "amin")
+    n = int(uniq.numel())
+    start = 0 if n and int(uniq[0]) == 0 else 1
+    cc = (inv + start).reshape(raw.shape).cpu().numpy()
+    cc = cc.astype(np.uint32 if n < 2**32 else np.uint64)
+    first_idx = first_idx.cpu().numpy()
+    flat_orig = np.asarray(orig_labels.cpu() if torch.is_tensor(orig_labels)
+                           else orig_labels).reshape(-1)
+    return cc, {uid: int(flat_orig[fidx])
+                for uid, fidx in enumerate(first_idx.tolist(), start)
+                if uid != 0}

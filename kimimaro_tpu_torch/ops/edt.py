@@ -156,18 +156,20 @@ def wall_segments(open_edges: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def edtsq(labels: torch.Tensor, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-          black_border: bool = False, voxel_graph=None) -> torch.Tensor:
+          black_border: bool = False, voxel_graph=None,
+          device="cuda") -> torch.Tensor:
     """Squared multi-label anisotropic EDT of a 2D or 3D integer volume.
     Returns float32, BIG where the distance is unbounded (single label, no
     black border). `voxel_graph`: a cc3d-convention bitfield of the same
     shape; a blocked axis edge acts as a label boundary in that axis's
-    pass (self-touch walls). Array-likes are taken as CPU tensors;
-    unsigned 32-bit labels are compared through their int32 bits."""
-    labels = as_tensor(labels)
+    pass (self-touch walls). Array-likes go to `device`, a tensor stays
+    on its own; unsigned 32-bit labels are compared through their int32
+    bits."""
+    labels = as_tensor(labels, device)
     if labels.dtype == torch.uint32:
         labels = labels.view(torch.int32)
     if voxel_graph is not None:
-        voxel_graph = as_tensor(voxel_graph)
+        voxel_graph = as_tensor(voxel_graph).to(labels.device)
     squeeze_2d = labels.ndim == 2
     if squeeze_2d:
         # a borderless singleton z axis
@@ -207,8 +209,9 @@ def edtsq(labels: torch.Tensor, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
 
 
 def edt(labels: torch.Tensor, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-        black_border: bool = False, voxel_graph=None) -> torch.Tensor:
+        black_border: bool = False, voxel_graph=None,
+        device="cuda") -> torch.Tensor:
     """Multi-label anisotropic euclidean distance transform (physical
-    units); `voxel_graph` as in `edtsq`."""
+    units); `voxel_graph` and `device` as in `edtsq`."""
     return torch.sqrt(edtsq(labels, anisotropy, black_border,
-                            voxel_graph).double()).float()
+                            voxel_graph, device).double()).float()

@@ -19,11 +19,12 @@ from .geodesic import _flood6_stage, flood_fill
 from .stencils import as_tensor
 
 
-def fill(binimg: torch.Tensor, return_fill_count: bool = False):
+def fill(binimg: torch.Tensor, return_fill_count: bool = False,
+         device="cuda"):
     """Fill interior holes of a 3D boolean volume; a 2D input is filled
-    with its border on the 2D perimeter only. An array-like is taken as a
-    CPU tensor."""
-    bin3 = as_tensor(binimg).to(torch.bool)
+    with its border on the 2D perimeter only. An array-like goes to
+    `device`, a tensor stays on its own."""
+    bin3 = as_tensor(binimg, device).to(torch.bool)
     squeeze_back = bin3.ndim == 2
     if squeeze_back:
         bin3 = bin3[..., None]

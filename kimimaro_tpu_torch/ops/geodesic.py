@@ -12,8 +12,10 @@ Two edge-cost modes:
   - node: cost of entering voxel v = node_cost[v]
 
 `voronoi_feature_field` relaxes a distance and the id of the nearest seed
-together (kernel V1, `ops.voronoi.voronoi_sweep`); `invalidation_cube` is
-the legacy box-shaped invalidation, slice fills on `device`.
+together (kernel V1, `ops.voronoi.voronoi_sweep`), and
+`voronoi_feature_field_batched` does so for many volumes at once (V1's
+lane-batched form, `ops.voronoi.voronoi_sweep_lanes`); `invalidation_cube`
+is the legacy box-shaped invalidation, slice fills on `device`.
 
 `voxel_graph` (optional, cc3d convention, ops.stencils.GRAPH_BITS): a
 candidate reaching v from u = v + o counts only where u permits the move
@@ -35,6 +37,7 @@ from .stencils import (GRAPH_BITS, as_tensor, graph_allows, graph_word,
                        neighborhood_offsets, shifted)
 from .sweep import sweep_axis0, sweep_axis0_batched
 from .voronoi import voronoi_sweep
+from ..utils.device import resolve_device
 
 INF = float("inf")
 
@@ -185,8 +188,8 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
     return d, ~changed
 
 
-def _bool_volume(x) -> torch.Tensor:
-    return as_tensor(x).to(torch.bool)
+def _bool_volume(x, device=None) -> torch.Tensor:
+    return as_tensor(x, device).to(torch.bool)
 
 
 def distance_field(ok_mask, init_dist,
@@ -194,7 +197,7 @@ def distance_field(ok_mask, init_dist,
                    node_cost=None, clamp_positive: bool = False,
                    max_rounds: int = _MAX_ROUNDS, voxel_graph=None,
                    rounds: Optional[int] = None,
-                   conv: str = "exact") -> torch.Tensor:
+                   conv: str = "exact", device="cuda") -> torch.Tensor:
     """Exact SSSP distance field to fixpoint (the parameters of
     kimimaro_tpu.ops.geodesic.distance_field, in its order).
 
@@ -208,13 +211,15 @@ def distance_field(ok_mask, init_dist,
     seven rounds run until one changes nothing under `conv` ("exact",
     "negative": the <= 0 part, or "reach": finiteness) or `max_rounds`
     rounds have run; the field is returned either way, as JAX returns
-    it. Array-likes are taken as CPU tensors."""
-    ok = _bool_volume(ok_mask)
+    it. An array-like `ok_mask` goes to `device` (a tensor stays on its
+    own), the other volumes to the mask's device."""
+    ok = _bool_volume(ok_mask, device)
     init = as_tensor(init_dist).to(device=ok.device, dtype=torch.float32)
     d = torch.where(ok, init, INF)
     nc = (None if node_cost is None else
           as_tensor(node_cost).to(device=ok.device, dtype=torch.float32))
-    vg = None if voxel_graph is None else as_tensor(voxel_graph)
+    vg = (None if voxel_graph is None
+          else as_tensor(voxel_graph).to(ok.device))
     views = _SweptViews(ok, nc, vg)
     if rounds is not None:
         for _ in range(int(rounds) + 1):
@@ -235,11 +240,11 @@ def distance_field(ok_mask, init_dist,
 
 def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
                              return_max_location: bool = False,
-                             voxel_graph=None):
+                             voxel_graph=None, device="cuda"):
     """Geodesic (foreground-constrained) anisotropic euclidean distance
     from source voxel(s); unreachable voxels are +inf. source: (3,) voxel
-    coordinate or (k, 3) array."""
-    ok = _bool_volume(ok_mask)
+    coordinate or (k, 3) array. An array-like mask goes to `device`."""
+    ok = _bool_volume(ok_mask, device)
     init = torch.full(ok.shape, INF, dtype=torch.float32, device=ok.device)
     src = np.asarray(source, dtype=np.int64).reshape(-1, 3)
     init[tuple(torch.as_tensor(src[:, a], device=ok.device)
@@ -254,20 +259,22 @@ def euclidean_distance_field(ok_mask, source, anisotropy: Sequence[float] = (1.0
 
 
 def parent_field(dist, ok_mask, anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-                 node_cost=None, voxel_graph=None) -> torch.Tensor:
+                 node_cost=None, voxel_graph=None,
+                 device="cuda") -> torch.Tensor:
     """Parent direction codes (int8 index into OFFSETS26; 26 = source or
     none). At the fixpoint dist[v] == min_u (dist[u] + cost(u->v)) exactly,
     so a post-hoc argmin rebuilds a shortest-path tree with a
     deterministic (offset order) tie break. `voxel_graph`: a parent u =
-    v + o counts only where u permits the move along -o. Array-likes are
-    taken as CPU tensors."""
-    ok = _bool_volume(ok_mask)
+    v + o counts only where u permits the move along -o. An array-like
+    mask goes to `device` (a tensor stays on its own), the other volumes
+    to the mask's device."""
+    ok = _bool_volume(ok_mask, device)
     dist = as_tensor(dist).to(device=ok.device, dtype=torch.float32)
     if node_cost is not None:
         node_cost = as_tensor(node_cost).to(device=ok.device,
                                             dtype=torch.float32)
     if voxel_graph is not None:
-        voxel_graph = as_tensor(voxel_graph)
+        voxel_graph = as_tensor(voxel_graph).to(ok.device)
     best = torch.full(dist.shape, INF, dtype=torch.float32, device=dist.device)
     parent = torch.full(dist.shape, 26, dtype=torch.int8, device=dist.device)
     for k, off in enumerate(OFFSETS26):
@@ -301,15 +308,16 @@ def jax_index(coords, shape):
 
 
 def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
-                       const: float, fused: bool = False):
+                       const: float, fused: bool = False, device=None):
     """The sources of a rolling-ball invalidation: (ok, init), `ok` the
     mask with the path voxels set (sources expand even where an earlier
     ball invalidated them), `init` +inf but -(scale*DBF[v] + const) at each
     path voxel v (the largest ball where several share a voxel). fused:
     the radius is one fused multiply-add, as in the JAX package's jitted
     loops (its eager callers round the product and the sum apart). Path
-    voxels follow JAX's index rule (`jax_index`)."""
-    ok = _bool_volume(ok_mask).clone()
+    voxels follow JAX's index rule (`jax_index`). An array-like mask goes
+    to `device` (the CPU where None)."""
+    ok = _bool_volume(ok_mask, device).clone()
     dbf = as_tensor(dbf).to(device=ok.device, dtype=torch.float32)
     pv, inb = jax_index(path_voxels, ok.shape)
     near = np.minimum(np.maximum(pv, 0), np.asarray(ok.shape) - 1)
@@ -331,22 +339,25 @@ def invalidation_seeds(ok_mask, dbf, path_voxels, scale: float,
 
 def invalidation_ball(ok_mask, dbf, path_voxels, scale: float, const: float,
                       anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-                      voxel_graph=None) -> torch.Tensor:
+                      voxel_graph=None, device="cuda") -> torch.Tensor:
     """Rolling-ball invalidation restricted to the connected component:
     for each path vertex v, every foreground voxel within geodesic
     distance scale*DBF[v] + const (physical units, 26-connected steps) is
     invalidated. A multi-source capped relaxation from
     `invalidation_seeds` (radii not fused: the JAX package's eager
     loop), positives clamped to +inf, to convergence. Returns a bool mask
-    of invalidated voxels. Array-likes are taken as CPU tensors."""
-    ok, init = invalidation_seeds(ok_mask, dbf, path_voxels, scale, const)
+    of invalidated voxels. An array-like mask goes to `device`, the other
+    volumes to the mask's device."""
+    ok, init = invalidation_seeds(ok_mask, dbf, path_voxels, scale, const,
+                                  device=device)
     dist = distance_field(ok, init, anisotropy, clamp_positive=True,
                           conv="negative", voxel_graph=voxel_graph)
     return dist <= 0.0
 
 
 def invalidation_cube(labels, dbf, path_voxels, scale: float, const: float,
-                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0)):
+                      anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+                      device="cuda"):
     """Cube-shaped TEASAR invalidation: zero every voxel within the
     axis-aligned box of physical half-extent scale*DBF[v] + const around
     each path vertex v, crossing label gaps (the legacy
@@ -357,10 +368,11 @@ def invalidation_cube(labels, dbf, path_voxels, scale: float, const: float,
     package's jitted cube. Voxel c lies in the box where |c_a - v_a| <=
     r / w_a in float32 on every axis a; for integer offsets below 2^24 that
     is |c_a - v_a| <= floor(r / w_a), so each box is one slice fill.
-    `labels` and `dbf` may be arrays: an array is taken as a CPU tensor
-    (`labels`' device holds the work). Returns (n_invalidated, labels)."""
-    labels = torch.as_tensor(labels)
-    dbf = torch.as_tensor(dbf).to(device=labels.device, dtype=torch.float32)
+    `labels` and `dbf` may be arrays: array labels go to `device`, a
+    tensor stays on its own, and `labels`' device holds the work. Returns
+    (n_invalidated, labels)."""
+    labels = as_tensor(labels, device)
+    dbf = as_tensor(dbf).to(device=labels.device, dtype=torch.float32)
     shape = np.asarray(dbf.shape, dtype=np.int64)
     pv = np.asarray(path_voxels, dtype=np.int32).reshape(-1, 3)
     pv = pv[pv[:, 0] >= 0].astype(np.int64)
@@ -402,22 +414,11 @@ def plane_costs(axis: int, descending: bool, anisotropy: tuple) -> tuple:
     return tuple(costs)
 
 
-def voronoi_feature_field(ok_mask, seeds,
-                          anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
-                          max_rounds: int = _MAX_ROUNDS):
-    """Multi-source geodesic distance field and nearest-seed feature map
-    (kimimaro_tpu.ops.geodesic.voronoi_feature_field). `seeds`: (k, 3)
-    voxel coordinates (JAX's index rule: a negative coordinate counts from
-    the end, rows outside are dropped); a repeated voxel keeps the later
-    seed. Features are 1-based seed indices (0 = unreached). Rounds of six
-    directed sweeps (kernel V1, `ops.voronoi.voronoi_sweep`) run until one
-    changes nothing; where none does, the fields after as many rounds as
-    the JAX package's stages of seven run for `max_rounds` are returned,
-    as JAX returns them. `ok_mask` may be an array, taken as a CPU tensor
-    (a CUDA tensor runs V1 on the card). Returns (dist float32, features
-    int32)."""
-    ok = _bool_volume(ok_mask)
-    dev, shape = ok.device, tuple(ok.shape)
+def _seed_cells(seeds, shape):
+    """The seeds of a Voronoi field by JAX's index rule (`jax_index`: a
+    negative coordinate counts from the end, rows outside are dropped),
+    the last occurrence of a repeated voxel kept: (linear indices into
+    `shape`, their 1-based seed ids)."""
     seeds = np.asarray(seeds, dtype=np.int64).reshape(-1, 3)
     c, inb = jax_index(seeds, shape)
     lin = np.ravel_multi_index(tuple(c[inb].T), shape)
@@ -426,13 +427,38 @@ def voronoi_feature_field(ok_mask, seeds,
     # is unordered on CUDA)
     _, last = np.unique(lin[::-1], return_index=True)
     keep = len(lin) - 1 - last
-    at = torch.as_tensor(lin[keep], device=dev)
+    return lin[keep], ids[keep]
+
+
+def _voronoi_rounds(max_rounds: int) -> int:
+    """The rounds JAX's stages of seven run for `max_rounds`."""
+    stage = _STAGE_ROUNDS + 1
+    return stage * -(-int(max_rounds) // stage)
+
+
+def voronoi_feature_field(ok_mask, seeds,
+                          anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+                          max_rounds: int = _MAX_ROUNDS, device="cuda"):
+    """Multi-source geodesic distance field and nearest-seed feature map
+    (kimimaro_tpu.ops.geodesic.voronoi_feature_field). `seeds`: (k, 3)
+    voxel coordinates (JAX's index rule: a negative coordinate counts from
+    the end, rows outside are dropped); a repeated voxel keeps the later
+    seed. Features are 1-based seed indices (0 = unreached). Rounds of six
+    directed sweeps (kernel V1, `ops.voronoi.voronoi_sweep`) run until one
+    changes nothing; where none does, the fields after as many rounds as
+    the JAX package's stages of seven run for `max_rounds` are returned,
+    as JAX returns them. An array-like `ok_mask` goes to `device`, a
+    tensor stays on its own (a CUDA tensor runs V1 on the card). Returns
+    (dist float32, features int32)."""
+    ok = _bool_volume(ok_mask, device)
+    dev, shape = ok.device, tuple(ok.shape)
+    lin, ids = _seed_cells(seeds, shape)
+    at = torch.as_tensor(lin, device=dev)
     d = torch.full(shape, INF, dtype=torch.float32, device=dev)
     f = torch.zeros(shape, dtype=torch.int32, device=dev)
     d.view(-1)[at] = 0.0
-    f.view(-1)[at] = torch.as_tensor(ids[keep], device=dev)
-    stage = _STAGE_ROUNDS + 1
-    rounds = stage * -(-int(max_rounds) // stage)
+    f.view(-1)[at] = torch.as_tensor(ids, device=dev)
+    rounds = _voronoi_rounds(max_rounds)
     if rounds <= 0:
         return d, f
     d = torch.where(ok, d, INF)
@@ -456,6 +482,235 @@ def voronoi_feature_field(ok_mask, seeds,
         if not bool(changed.item()):
             break
     return d, f
+
+
+# the batched field's buckets: each side rounded up to a multiple of this
+VORONOI_BUCKET = 16
+# device bytes a padded voxel of a batch takes: its ok mask in each of the
+# three sweep layouts and two copies of the distance and the feature
+VORONOI_BYTES_PER_VOXEL = 3 + 16
+# each sweep axis' layout of an (X, Y, Z) volume: the axis first, the
+# other two in order (torch.movedim(v, axis, 0))
+_LAYOUTS = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
+
+
+def voronoi_bucket(shape) -> tuple:
+    """The bucket of a volume of `shape`: each side rounded up to a
+    multiple of VORONOI_BUCKET."""
+    q = VORONOI_BUCKET
+    return tuple(-(-int(s) // q) * q for s in shape)
+
+
+class _Bucket:
+    """The lanes of one bucket shape in a batch: their indices, their
+    segment [start, start + len * prod(shape)) of the flat storages, and,
+    once every lane is done, the storage that holds the final fields."""
+
+    def __init__(self, shape, lanes, start):
+        self.shape, self.lanes, self.start = shape, lanes, start
+        self.size = len(lanes) * int(np.prod(shape))
+        self.final = None
+
+    def view(self, flat, layout):
+        """The bucket's segment of a flat storage as (B, n, H, W) in the
+        sweep layout of axis `layout`."""
+        dims = tuple(self.shape[a] for a in _LAYOUTS[layout])
+        return flat[self.start:self.start + self.size].view(
+            len(self.lanes), *dims)
+
+
+def _lane_table(buckets, shapes, layout, n_lanes):
+    """The V1 lane table of a batch in the sweep layout of axis `layout`:
+    lane i at its bucket's offset, its own extent, the bucket's strides."""
+    table = np.zeros((n_lanes, 6), dtype=np.int64)
+    a, h, w = _LAYOUTS[layout]
+    for b in buckets:
+        _, H, W = (b.shape[a], b.shape[h], b.shape[w])
+        vox = int(np.prod(b.shape))
+        for k, i in enumerate(b.lanes):
+            table[i] = (b.start + k * vox, shapes[i][a], shapes[i][h],
+                        shapes[i][w], W, H * W)
+    return table
+
+
+def _batch_setup(masks, shapes, seeds_list, buckets, total, dev):
+    """The flat storages of a batch: the ok masks in the three sweep
+    layouts (each bucket's lanes at its low corners, assembled on the host
+    where the masks are arrays), and the seeded distance and feature."""
+    ok_flat = [torch.zeros(total, dtype=torch.bool, device=dev)
+               for _ in range(3)]
+    d = torch.full((total,), INF, dtype=torch.float32, device=dev)
+    f = torch.zeros(total, dtype=torch.int32, device=dev)
+    seed_lin, seed_ids = [], []
+    for b in buckets:
+        ok0 = b.view(ok_flat[0], 0)
+        if all(not torch.is_tensor(masks[i]) for i in b.lanes):
+            host = np.zeros(ok0.shape, dtype=bool)
+            for k, i in enumerate(b.lanes):
+                x, y, z = shapes[i]
+                host[k, :x, :y, :z] = masks[i]
+            ok0.copy_(torch.from_numpy(host))
+        else:
+            for k, i in enumerate(b.lanes):
+                x, y, z = shapes[i]
+                ok0[k, :x, :y, :z] = torch.as_tensor(masks[i]).to(dev)
+        b.view(ok_flat[1], 1).copy_(ok0.permute(0, 2, 1, 3))
+        b.view(ok_flat[2], 2).copy_(ok0.permute(0, 3, 1, 2))
+        vox = int(np.prod(b.shape))
+        for k, i in enumerate(b.lanes):
+            lin, ids = _seed_cells(seeds_list[i], shapes[i])
+            c = np.unravel_index(lin, shapes[i])
+            seed_lin.append(b.start + k * vox
+                            + np.ravel_multi_index(c, b.shape))
+            seed_ids.append(ids)
+    if seed_lin:
+        at = torch.as_tensor(np.concatenate(seed_lin), device=dev)
+        d[at] = 0.0
+        f[at] = torch.as_tensor(np.concatenate(seed_ids), device=dev)
+    return ok_flat, d, f
+
+
+def _batch_rounds(d, f, ok_flat, buckets, shapes, anisotropy, rounds: int):
+    """The rounds of a batch (d, f in axis 0's layout, non-ok voxels +inf):
+    each directed sweep one `voronoi_sweep_lanes` call for every lane, the
+    layouts of axes 1 and 2 one copy a bucket, the change flags read once a
+    round; a lane whose round changed nothing leaves `active`, a bucket
+    whose lanes all left keeps its fields where they are (`final`).
+    Returns the storages of the last round's (d, f)."""
+    from .voronoi import VoronoiLanes, voronoi_sweep_lanes
+
+    n_lanes, total = len(shapes), d.numel()
+    lanes = [VoronoiLanes(_lane_table(buckets, shapes, a, n_lanes), total)
+             for a in range(3)]
+    src = (d, f)
+    dst = (torch.empty_like(d), torch.empty_like(f))
+    anis = tuple(float(a) for a in anisotropy)
+    changed = torch.zeros(n_lanes, dtype=torch.int32, device=d.device)
+    live = np.ones(n_lanes, dtype=bool)
+    active = torch.ones(n_lanes, dtype=torch.bool, device=d.device)
+    ran = 0
+    for _ in range(rounds):
+        changed.zero_()
+        moving = [b for b in buckets if b.final is None]
+        for a in range(3):
+            if a > 0:  # into axis a's layout, bucket by bucket
+                for b in moving:
+                    for s, t in zip(src, dst):
+                        b.view(t, a).copy_(b.view(s, a - 1).permute(
+                            (0, 2, 1, 3) if a == 1 else (0, 3, 2, 1)))
+                src, dst = dst, src
+            for desc in (False, True):
+                voronoi_sweep_lanes(src[0], src[1], ok_flat[a], lanes[a],
+                                    plane_costs(a, desc, anis), desc,
+                                    changed, active)
+        for b in moving:  # back to axis 0's layout
+            for s, t in zip(src, dst):
+                b.view(t, 0).copy_(b.view(s, 2).permute(0, 2, 3, 1))
+        src, dst = dst, src
+        ran += int(live.sum())
+        live &= changed.cpu().numpy() != 0
+        for b in moving:
+            if not live[b.lanes].any():
+                b.final = src
+        if not live.any():
+            break
+        active.copy_(torch.from_numpy(live))
+    profiling.count("voronoi_rounds", ran)
+    return src
+
+
+def voronoi_feature_field_batched(oks, seeds_list,
+                                  anisotropy: Sequence[float] = (1.0, 1.0,
+                                                                 1.0),
+                                  max_rounds: int = _MAX_ROUNDS,
+                                  device="cuda", with_ok: bool = False):
+    """`voronoi_feature_field` of many volumes at once: lane i the mask
+    `oks[i]` (any 3-D shape) with the seeds `seeds_list[i]`, each result
+    bit-equal to voronoi_feature_field(oks[i], seeds_list[i], anisotropy,
+    max_rounds). The lanes whose planes all fit the lane-batched V1
+    (`ops.voronoi.lane_capacity` cells in each of the three sweep
+    layouts) are grouped into buckets of one shape, each side rounded up
+    to a multiple of VORONOI_BUCKET, at the low corner; each sweep of a
+    round is one call of `ops.voronoi.voronoi_sweep_lanes` for every lane
+    of every bucket, over flat storages that hold the buckets in turn,
+    with the axis-1 and axis-2 layouts made by one copy per bucket and
+    axis. Every round's change flags are read once for the whole batch; a
+    lane whose round changed nothing (a fixpoint of the round) is not
+    swept again, and every lane stops at the same cap on rounds. A lane
+    with a larger plane takes `voronoi_feature_field` alone, whose forms
+    spread a plane over many SMs. Array-like masks go to `device`
+    (tensors keep theirs; all on one device). Phases: voronoi_setup (the
+    masks, their layouts and the seeds), voronoi_sweeps (the rounds).
+    Counters: `voronoi_rounds` (lane-rounds), `voronoi_batches`,
+    `voronoi_voxels`, `voronoi_padded_voxels` (of the batched lanes),
+    `voronoi_single_lanes`. Returns a list of (dist float32, features
+    int32), views of the batch's storages; with `with_ok`, (dist,
+    features, ok) with each lane's mask on the device."""
+    from .voronoi import lane_capacity
+
+    masks = [x if torch.is_tensor(x) else np.asarray(x) for x in oks]
+    on = [x.device for x in masks if torch.is_tensor(x)]
+    dev = on[0] if on else resolve_device(device)
+    shapes = [tuple(int(s) for s in x.shape) for x in masks]
+    if any(len(s) != 3 for s in shapes) or len(seeds_list) != len(masks):
+        raise ValueError("voronoi_feature_field_batched: one 3-D mask and "
+                         "one seed array a lane")
+    cap = lane_capacity(dev)
+    out = [None] * len(masks)
+    batched = []
+    for i, (x, y, z) in enumerate(shapes):
+        if max(y * z, x * z, x * y) <= cap:
+            batched.append(i)
+            continue
+        profiling.count("voronoi_single_lanes")
+        ok = _bool_volume(masks[i], dev)
+        d, f = voronoi_feature_field(ok, seeds_list[i], anisotropy,
+                                     max_rounds)
+        out[i] = (d, f, ok)
+    if batched:
+        fields = _voronoi_lanes([masks[i] for i in batched],
+                                [seeds_list[i] for i in batched],
+                                [shapes[i] for i in batched], anisotropy,
+                                max_rounds, dev)
+        for i, field in zip(batched, fields):
+            out[i] = field
+    return out if with_ok else [(d, f) for d, f, _ in out]
+
+
+def _voronoi_lanes(masks, seeds_list, shapes, anisotropy, max_rounds, dev):
+    """The lane-batched fields of `voronoi_feature_field_batched` for
+    lanes whose planes all fit the kernel: a list of (dist, features, ok)
+    views, one per lane, into the batch's storages."""
+    groups = {}
+    for i, s in enumerate(shapes):
+        groups.setdefault(voronoi_bucket(s), []).append(i)
+    buckets, start = [], 0
+    for key in sorted(groups):
+        buckets.append(_Bucket(key, groups[key], start))
+        start += buckets[-1].size
+    total = start
+    profiling.count("voronoi_batches")
+    profiling.count("voronoi_voxels", sum(int(np.prod(s)) for s in shapes))
+    profiling.count("voronoi_padded_voxels", total)
+
+    with profiling.phase("voronoi_setup", dev):
+        ok_flat, d_a, f_a = _batch_setup(masks, shapes, seeds_list, buckets,
+                                         total, dev)
+    rounds = _voronoi_rounds(max_rounds)
+    src = (d_a, f_a)
+    if rounds > 0:
+        d_a.masked_fill_(~ok_flat[0], INF)  # seeds outside the masks
+        with profiling.phase("voronoi_sweeps", dev):
+            src = _batch_rounds(d_a, f_a, ok_flat, buckets, shapes,
+                                anisotropy, rounds)
+    out = [None] * len(shapes)
+    for b in buckets:
+        d_f = b.final if b.final is not None else src
+        views = [b.view(t, 0) for t in (*d_f, ok_flat[0])]
+        for k, i in enumerate(b.lanes):
+            x, y, z = shapes[i]
+            out[i] = tuple(v[k, :x, :y, :z] for v in views)
+    return out
 
 
 def _reach_scan(reached, ok, axis: int, descending: bool):
@@ -501,15 +756,15 @@ def _flood6_stage(ok, reached, rounds: int):
 
 
 def flood_fill(seed_mask, ok_mask, connectivity: int = 6,
-               rounds: Optional[int] = None) -> torch.Tensor:
+               rounds: Optional[int] = None, device="cuda") -> torch.Tensor:
     """Binary reachability: all ok voxels connected to seed_mask
     (kimimaro_tpu.ops.geodesic.flood_fill). connectivity 6 or 26 (26:
     `distance_field` with unit costs read through finiteness). `rounds`:
     the bounded form, rounds + 1 rounds and no host synchronization (may
     under-flood); otherwise stages of seven rounds until one reaches
-    nothing new, at most 4096 rounds. Array-likes are taken as CPU
-    tensors."""
-    ok = _bool_volume(ok_mask)
+    nothing new, at most 4096 rounds. An array-like mask goes to `device`
+    (a tensor stays on its own), the seeds to the mask's device."""
+    ok = _bool_volume(ok_mask, device)
     seeds = _bool_volume(seed_mask).to(ok.device) & ok
     if connectivity == 26:
         init = torch.where(seeds, 0.0, INF)

@@ -8,6 +8,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def neighborhood_offsets() -> List[Tuple[int, int, int]]:
     """The 26 neighbour offsets in lexicographic order, the fixed order
@@ -30,13 +32,16 @@ GRAPH_BITS = {
 }
 
 
-def as_tensor(x) -> torch.Tensor:
-    """A tensor as it is; any other array-like as a CPU tensor (as the
-    JAX ops take numpy arrays)."""
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor as it is, on its own device; any other array-like (as the
+    JAX ops take numpy arrays) as a tensor on `device` (`resolve_device`:
+    asking for CUDA where there is none raises), or on the CPU where
+    `device` is None."""
     if torch.is_tensor(x):
         return x
     a = np.ascontiguousarray(np.asarray(x))
-    return torch.from_numpy(a if a.flags.writeable else a.copy())
+    t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t if device is None else t.to(resolve_device(device))
 
 
 def graph_word(voxel_graph: torch.Tensor) -> torch.Tensor:

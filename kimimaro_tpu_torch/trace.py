@@ -41,6 +41,7 @@ from .ops.geodesic import (
     relax_rounds_batched,
 )
 from .skeleton import Skeleton
+from .utils.device import resolve_device
 
 INF = float("inf")
 # buffer sizes of the JAX package's fused path loop (kimimaro_tpu.trace)
@@ -217,14 +218,15 @@ def trace(
     root=None,
     max_paths: Optional[int] = None,
     voxel_graph=None,
-    device="cpu",
+    device="cuda",
 ) -> Skeleton:
     """Skeletonize one binary label given its distance-to-boundary field
     (`labels` a binary volume, `DBF` its EDT in physical units; numpy
     arrays or tensors). `voxel_graph` (numpy array or tensor, cc3d
     convention) masks the moves of a self-touching label and routes the
-    paths through the eager loop. The fields are computed on `device`."""
-    device = torch.device(device)
+    paths through the eager loop. The fields are computed on `device`
+    (asking for CUDA where there is none raises)."""
+    device = resolve_device(device)
     vg = None
     if voxel_graph is not None:
         if not torch.is_tensor(voxel_graph):
@@ -515,13 +517,14 @@ def _compute_paths_host(
 def point_to_point(binary_img, start, end,
                    anisotropy: Sequence[float] = (1, 1, 1),
                    pdrf_scale: float = 100000, pdrf_exponent: int = 4,
-                   device="cpu") -> Skeleton:
+                   device="cuda") -> Skeleton:
     """Trace one centerline from `start` to `end` through a binary image
     (numpy array or tensor): the EDT (black border), the distance from
     `start` and its farthest voxel, the PDRF over them, the node-cost
     distance field from `end`, then parents chased from `start`. Radii are
-    the EDT at the vertices. The fields are computed on `device`."""
-    device = torch.device(device)
+    the EDT at the vertices. The fields are computed on `device` (asking
+    for CUDA where there is none raises)."""
+    device = resolve_device(device)
     if not torch.is_tensor(binary_img):
         binary_img = torch.from_numpy(np.asarray(binary_img) != 0)
     fg = binary_img.to(device) != 0

@@ -155,6 +155,239 @@ def test_voronoi_sweep_plain_flags_changes():
     assert int(changed) == 0
 
 
+def _corridor():
+    """A winding corridor of 2 x 48 x 8 that needs many rounds from one
+    seed."""
+    ok = np.zeros((2, 48, 8), dtype=bool)
+    for i, y in enumerate(range(0, 48, 2)):
+        ok[:, y, :] = True
+        ok[:, y + 1, (7 if i % 2 == 0 else 0)] = True
+    return ok, np.array([[1, 0, 0]])
+
+
+def _batch_cases():
+    """One batch of crops of different shapes: `_voronoi_case`'s masks
+    (n = 1 axes, repeated seeds, a seed outside the mask, an unreachable
+    box, a negative coordinate), the tie case, the corridor, a lane with
+    no seed in the volume, and shapes on both sides of a bucket side
+    (16, 17)."""
+    cases = [_voronoi_case(name)[:2] for name in sorted(VORONOI)]
+    cases.append((np.ones((5, 6, 7), dtype=bool),
+                  np.array([[0, 2, 3], [0, 3, 3], [4, 0, 0], [4, 0, 0]])))
+    cases.append(_corridor())
+    cases.append((np.ones((3, 4, 5), dtype=bool), np.array([[9, 9, 9]])))
+    rng = np.random.RandomState(8)
+    for shape in ((16, 3, 17), (17, 16, 2)):
+        ok = rng.rand(*shape) < 0.7
+        seeds = np.argwhere(ok)[rng.choice(int(ok.sum()), 3, replace=False)]
+        cases.append((ok, seeds))
+    return cases
+
+
+def test_voronoi_feature_field_batched_matches_jax():
+    """One batch of crops of different shapes, crop by crop equal to the
+    JAX package's voronoi_feature_field; each lane is smaller than its
+    bucket in some side but the (16, 16) sides."""
+    cases = _batch_cases()
+    anis = (1.0, 2.0, 1.5)
+    got = tgeo.voronoi_feature_field_batched(
+        [ok for ok, _ in cases], [s for _, s in cases], anis, device="cpu")
+    assert len(got) == len(cases)
+    for (ok, seeds), (td, tf) in zip(cases, got):
+        jd, jf = jgeo.voronoi_feature_field(ok, seeds, anis)
+        assert tuple(td.shape) == ok.shape
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+
+
+@pytest.mark.parametrize("anis", ((1.0, 1.0, 1.0), (3.7, 1.3, 2.9)))
+def test_voronoi_batched_equals_single_calls(anis):
+    """The batch is bit-equal to the port's single calls, masks given as
+    arrays or tensors, with the lane-rounds and the padding counted."""
+    cases = _batch_cases()
+    profiling.reset_stats()
+    profiling.collect(True)
+    try:
+        got = tgeo.voronoi_feature_field_batched(
+            [torch.from_numpy(ok) for ok, _ in cases],
+            [s for _, s in cases], anis)
+        batched = profiling.get_stats()["counters"]
+        profiling.reset_stats()
+        want = [tgeo.voronoi_feature_field(ok, s, anis, device="cpu")
+                for ok, s in cases]
+        single = profiling.get_stats()["counters"]
+    finally:
+        profiling.collect(False)
+    for (wd, wf), (gd, gf) in zip(want, got):
+        assert torch.equal(gd, wd) and torch.equal(gf, wf)
+    assert batched["voronoi_rounds"] == single["voronoi_rounds"]
+    assert batched["voronoi_batches"] == 1
+    real = sum(ok.size for ok, _ in cases)
+    padded = sum(int(np.prod(tgeo.voronoi_bucket(ok.shape)))
+                 for ok, _ in cases)
+    assert batched["voronoi_voxels"] == real
+    assert batched["voronoi_padded_voxels"] == padded > real
+
+
+def test_voronoi_batched_lanes_leave_active_after_a_fixpoint():
+    """A lane that converges in its first round (no seed in the volume)
+    beside one that needs many (the corridor): the first is swept in one
+    round only, and the results equal the single calls."""
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    (still_ok, still_seeds), (cor_ok, cor_seeds) = (
+        (np.ones((3, 4, 5), dtype=bool), np.array([[9, 9, 9]])), _corridor())
+    calls = []
+    inner = tvoronoi._voronoi_sweep_lanes_plain
+
+    def spy(d, f, ok, lanes, costs9, descending, changed, active=None):
+        calls.append(active.clone())
+        return inner(d, f, ok, lanes, costs9, descending, changed, active)
+
+    tvoronoi._voronoi_sweep_lanes_plain = spy
+    try:
+        got = tgeo.voronoi_feature_field_batched(
+            [still_ok, cor_ok], [still_seeds, cor_seeds], device="cpu")
+    finally:
+        tvoronoi._voronoi_sweep_lanes_plain = inner
+    rounds = len(calls) // 6
+    assert rounds > 3 and len(calls) == 6 * rounds
+    assert all(bool(a[0]) == (k < 6) for k, a in enumerate(calls))
+    assert all(bool(a[1]) for a in calls)
+    for (ok, seeds), (gd, gf) in zip(((still_ok, still_seeds),
+                                      (cor_ok, cor_seeds)), got):
+        wd, wf = tgeo.voronoi_feature_field(ok, seeds, device="cpu")
+        assert torch.equal(gd, wd) and torch.equal(gf, wf)
+
+
+@pytest.mark.parametrize("max_rounds", (0, 3, 9))
+def test_voronoi_batched_cap_stops_where_jax_stops(max_rounds):
+    """The cap on rounds is JAX's stages of seven for every lane: the
+    corridor is cut where JAX cuts it, a lane that converges early is
+    not."""
+    cases = [_corridor(), _voronoi_case("iso")[:2]]
+    got = tgeo.voronoi_feature_field_batched(
+        [ok for ok, _ in cases], [s for _, s in cases],
+        max_rounds=max_rounds, device="cpu")
+    for (ok, seeds), (td, tf) in zip(cases, got):
+        jd, jf = jgeo.voronoi_feature_field(ok, seeds, max_rounds=max_rounds)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    full, _ = tgeo.voronoi_feature_field(*cases[0], device="cpu")
+    # seven rounds cut the corridor; fourteen reach its fixpoint
+    assert torch.equal(full, got[0][0]) == (max_rounds > 7)
+
+
+def test_voronoi_sweep_batched_plain_is_each_lanes_sweep():
+    """The plain batched sweep: each active lane's extent swept as
+    `_voronoi_sweep_plain` sweeps it, in place, with its own flag; voxels
+    outside the extents and inactive lanes untouched."""
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    rng = np.random.RandomState(2)
+    B, N, H, W = 4, 6, 5, 7
+    ext = np.array([[6, 5, 7], [3, 2, 4], [1, 5, 1], [4, 4, 6]])
+    d = torch.from_numpy(np.where(rng.rand(B, N, H, W) < 0.3, np.floor(
+        rng.rand(B, N, H, W) * 4), np.inf).astype(np.float32))
+    f = torch.from_numpy(rng.randint(1, 50, size=(B, N, H, W)).astype(
+        np.int32))
+    ok = torch.from_numpy(rng.rand(B, N, H, W) < 0.8)
+    active = torch.tensor([True, True, True, False])
+    costs = tgeo.plane_costs(0, True, (1.0, 1.0, 1.0))
+    gd, gf = d.clone(), f.clone()
+    changed = torch.zeros(B, dtype=torch.int32)
+    tvoronoi.voronoi_sweep_batched(gd, gf, ok, torch.from_numpy(ext), costs,
+                                   True, changed, active)
+    for b in range(B):
+        n, h, w = ext[b]
+        box = (b, slice(0, n), slice(0, h), slice(0, w))
+        flag = torch.zeros(1, dtype=torch.int32)
+        if bool(active[b]):
+            wd, wf = tvoronoi._voronoi_sweep_plain(d[box], f[box], ok[box],
+                                                  costs, True, flag)
+        else:
+            wd, wf = d[box], f[box]
+        assert torch.equal(gd[box], wd) and torch.equal(gf[box], wf)
+        assert int(changed[b]) == int(flag[0])
+        outside = torch.ones((N, H, W), dtype=torch.bool)
+        outside[:n, :h, :w] = False
+        assert torch.equal(gd[b][outside], d[b][outside])
+        assert torch.equal(gf[b][outside], f[b][outside])
+    assert int(changed[:3].sum()) >= 1
+
+
+def test_pack_lanes_fills_ctas_by_plane_count():
+    """The kernel's packs: every live lane once, lanes by plane count
+    (most first), at most `max_pack` lanes and `capacity` cells a pack, no
+    dead lane; a live lane beyond `capacity` is refused, a dead one is
+    not packed."""
+    from kimimaro_tpu_torch.ops.voronoi import pack_lanes
+
+    rng = np.random.RandomState(4)
+    L = 200
+    table = np.zeros((L, 6), dtype=np.int64)
+    table[:, 1] = rng.randint(0, 40, L)
+    table[:, 2] = rng.randint(1, 60, L)
+    table[:, 3] = rng.randint(1, 60, L)
+    table[5, 1:4] = (0, 80, 90)  # beyond the capacity, but dead
+    capacity, max_pack = 3600, 8
+    order, packs, used = pack_lanes(table, capacity, max_pack)
+    live = np.flatnonzero(table[:, 1] > 0)
+    assert sorted(order.tolist()) == live.tolist()
+    assert (np.diff(table[order, 1]) <= 0).all()
+    assert packs[0, 0] == 0 and (packs[1:, 0] == np.cumsum(packs[:-1, 1])
+                                 ).all() and packs[:, 1].sum() == len(order)
+    cells = table[:, 2] * table[:, 3]
+    held = [int(cells[order[a:a + c]].sum()) for a, c in packs]
+    assert (packs[:, 1] <= max_pack).all()
+    assert max(held) <= capacity and used == max(held)
+    table[5, 1] = 3
+    with pytest.raises(ValueError, match="one CTA holds"):
+        pack_lanes(table, capacity, max_pack)
+
+
+def test_voronoi_lanes_beyond_the_capacity_take_the_single_form(
+        monkeypatch):
+    """With the lane capacity cut to 120 cells, the lanes with a larger
+    plane in any of the three layouts take voronoi_feature_field alone,
+    the others one batch; every lane equals JAX's field, the masks come
+    back with `with_ok`, the batched sweep refuses a lane beyond the
+    capacity."""
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    monkeypatch.setattr(tvoronoi, "LANE_CELLS", 120)
+    cases = _batch_cases()
+    big = [max(y * z, x * z, x * y) > 120 for (x, y, z) in
+           (ok.shape for ok, _ in cases)]
+    assert 0 < sum(big) < len(cases)
+    anis = (1.0, 2.0, 1.5)
+    profiling.reset_stats()
+    profiling.collect(True)
+    try:
+        got = tgeo.voronoi_feature_field_batched(
+            [ok for ok, _ in cases], [s for _, s in cases], anis,
+            device="cpu", with_ok=True)
+        counters = profiling.get_stats()["counters"]
+    finally:
+        profiling.collect(False)
+    assert counters["voronoi_single_lanes"] == sum(big)
+    assert counters["voronoi_batches"] == 1
+    assert counters["voronoi_voxels"] == sum(
+        ok.size for (ok, _), b in zip(cases, big) if not b)
+    for (ok, seeds), (td, tf, tok) in zip(cases, got):
+        jd, jf = jgeo.voronoi_feature_field(ok, seeds, anis)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(tok.numpy(), ok)
+    shape = (1, 3, 11, 11)
+    with pytest.raises(ValueError, match="beyond 120 cells"):
+        tvoronoi.voronoi_sweep_batched(
+            torch.zeros(shape), torch.zeros(shape, dtype=torch.int32),
+            torch.ones(shape, dtype=torch.bool), [(3, 11, 11)],
+            tgeo.plane_costs(0, False, anis), False,
+            torch.zeros(1, dtype=torch.int32))
+
+
 # --------------------------------------------------------------------------- #
 # oversegment
 
@@ -263,6 +496,69 @@ def test_oversegment_fixture_of_the_jax_tests(downsample):
     assert np.all(new_skels[1].segments > 0)
 
 
+@pytest.mark.parametrize("downsample", (0, 5))
+def test_oversegment_batches_equal_the_per_crop_route(blob_skeletons,
+                                                      downsample,
+                                                      monkeypatch):
+    """The batched fields in one batch, in batches of a few crops each
+    (BATCH_BYTES cut), and the per-crop route (voronoi_feature_field on
+    each crop) give the same composite and segments; the counters keep
+    their meaning."""
+    import importlib
+
+    tovs = importlib.import_module("kimimaro_tpu_torch.oversegment")
+    vol, skels = blob_skeletons
+    runs = []
+    for budget in (1 << 30, 50_000, None):
+        profiling.reset_stats()
+        profiling.collect(True)
+        try:
+            if budget:
+                monkeypatch.setattr(tovs, "BATCH_BYTES", budget)
+            runs.append((tovs._oversegment(
+                vol, skels, ANIS, False, False, False, downsample, "cpu",
+                per_crop=budget is None),
+                profiling.get_stats()["counters"]))
+        finally:
+            profiling.collect(False)
+    (one, c1), (few, c2), (per, c3) = runs
+    _assert_oversegment_equal(per, one)
+    _assert_oversegment_equal(per, few)
+    assert c1["voronoi_batches"] == 1 < c2["voronoi_batches"]
+    assert "voronoi_batches" not in c3
+    assert c1["voronoi_rounds"] == c2["voronoi_rounds"] == \
+        c3["voronoi_rounds"] > 0
+
+
+def test_oversegment_sends_crops_beyond_the_lane_capacity_alone(
+        blob_skeletons, monkeypatch):
+    """With the lane capacity cut below the blob's larger crops' planes,
+    those crops take voronoi_feature_field alone beside the batch, with
+    the per-crop route's composite, segments and lane-rounds."""
+    import importlib
+
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    tovs = importlib.import_module("kimimaro_tpu_torch.oversegment")
+    vol, skels = blob_skeletons
+    monkeypatch.setattr(tvoronoi, "LANE_CELLS", 150)
+    runs = []
+    for per_crop in (False, True):
+        profiling.reset_stats()
+        profiling.collect(True)
+        try:
+            runs.append((tovs._oversegment(
+                vol, skels, ANIS, False, False, False, 0, "cpu",
+                per_crop=per_crop), profiling.get_stats()["counters"]))
+        finally:
+            profiling.collect(False)
+    (got, c1), (per, c2) = runs
+    _assert_oversegment_equal(per, got)
+    assert 0 < c1["voronoi_single_lanes"] < len(skels)
+    assert c1["voronoi_batches"] >= 1
+    assert c1["voronoi_rounds"] == c2["voronoi_rounds"] > 0
+
+
 def test_renumber_first_appearance_matches_numpy():
     from kimimaro_tpu_torch.oversegment import renumber_first_appearance
 
@@ -321,7 +617,8 @@ def _assert_same_skeleton(a, b):
 def test_point_to_point_matches_jax(anis):
     mask, start, end = _tube((20, 18, 14), seed=1)
     want = jtrace.point_to_point(mask, start, end, anisotropy=anis)
-    got = ttrace.point_to_point(mask, start, end, anisotropy=anis)
+    got = ttrace.point_to_point(mask, start, end, anisotropy=anis,
+                                device="cpu")
     assert len(want.vertices) > 5
     _assert_same_skeleton(want, got)
     # the path runs from `end` (the field's source) to `start`
@@ -450,7 +747,7 @@ def test_renumber_cc_matches_jax(background):
     cc_raw = rng.randint(0 if background else 5, 60, size=(9, 8, 7)) * 31
     orig = rng.randint(1, 9, size=cc_raw.shape).astype(np.uint32)
     wc, wm = jccl.renumber_cc(cc_raw, orig)
-    gc, gm = tccl.renumber_cc(cc_raw, orig)
+    gc, gm = tccl.renumber_cc(cc_raw, orig, device="cpu")
     np.testing.assert_array_equal(gc, wc)
     assert gc.dtype == wc.dtype
     assert gm == wm
@@ -525,18 +822,80 @@ def test_invalidation_cube_skips_and_wraps_vertices_like_jax():
 
 @pytest.mark.parametrize("op", ("voronoi_feature_field", "invalidation_cube"))
 def test_ops_take_numpy_arrays_as_jax_does(op):
-    """The ops take numpy arrays where the JAX twins do (as CPU tensors)."""
+    """The ops take numpy arrays where the JAX twins do (on the device
+    asked for, here the CPU)."""
     if op == "voronoi_feature_field":
         ok, seeds, anis = _voronoi_case("aniso")
         want = jgeo.voronoi_feature_field(ok, seeds, anis)
-        got = tgeo.voronoi_feature_field(ok, seeds, anis)
+        got = tgeo.voronoi_feature_field(ok, seeds, anis, device="cpu")
     else:
         rng = np.random.RandomState(5)
         labels = (rng.rand(9, 8, 7) < 0.8).astype(np.uint8)
         dbf = rng.uniform(0, 3, size=labels.shape).astype(np.float32)
         args = (labels, dbf, [(4, 4, 3), (1, 6, 2)], 1.3, 0.5, (1, 2, 1.5))
         want = jgeo.invalidation_cube(*args)
-        got = tgeo.invalidation_cube(*args)
+        got = tgeo.invalidation_cube(*args, device="cpu")
     for g, w in zip(got, want):
         assert g.device.type == "cpu"
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# --------------------------------------------------------------------------- #
+# the device of numpy input
+
+
+def _numpy_calls():
+    """Each function of kimimaro_tpu_torch.ops.__all__, and the trace
+    entry points, called with numpy input and no device."""
+    from kimimaro_tpu_torch import ops as tops
+
+    ok = np.ones((4, 5, 6), dtype=bool)
+    lab = ok.astype(np.uint32)
+    dbf = np.ones(ok.shape, dtype=np.float32)
+    init = np.where(ok, np.inf, 0).astype(np.float32)
+    path = np.array([[1, 1, 1]])
+    return {
+        "connected_components": lambda: tops.connected_components(lab),
+        "renumber_cc": lambda: tops.renumber_cc(lab, lab),
+        "edt_transform": lambda: tops.edt_transform(lab),
+        "edtsq": lambda: tops.edtsq(lab),
+        "fill_voids": lambda: tops.fill_voids(ok),
+        "distance_field": lambda: tops.distance_field(ok, init),
+        "euclidean_distance_field": lambda: tops.euclidean_distance_field(
+            ok, (0, 0, 0)),
+        "flood_fill": lambda: tops.flood_fill(ok, ok),
+        "invalidation_ball": lambda: tops.invalidation_ball(
+            ok, dbf, path, 1.0, 1.0),
+        "invalidation_cube": lambda: tops.invalidation_cube(
+            lab, dbf, path, 1.0, 1.0),
+        "parent_field": lambda: tops.parent_field(dbf, ok),
+        "voronoi_feature_field": lambda: tops.voronoi_feature_field(
+            ok, path),
+        "voronoi_feature_field_batched":
+            lambda: tgeo.voronoi_feature_field_batched([ok], [path]),
+        "trace": lambda: ttrace.trace(lab, dbf),
+        "point_to_point": lambda: ttrace.point_to_point(ok, (0, 0, 0),
+                                                        (3, 4, 5)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_numpy_calls()))
+def test_numpy_input_goes_to_the_card_by_default(name, monkeypatch):
+    """Without CUDA, numpy input and no `device` raise: the default is the
+    card, never a quiet run on the CPU."""
+    from kimimaro_tpu_torch import ops as tops
+
+    if name in tops.__all__:
+        assert callable(getattr(tops, name))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _numpy_calls()[name]()
+
+
+def test_numpy_calls_cover_every_op_function():
+    from kimimaro_tpu_torch import ops as tops
+
+    funcs = {n for n in tops.__all__
+             if callable(getattr(tops, n))
+             and not isinstance(getattr(tops, n), type(tops))}
+    assert funcs <= set(_numpy_calls())

@@ -1021,6 +1021,152 @@ def test_voronoi_feature_field_cuda_matches_cpu(gen):
     _assert_bit_equal(out["cuda"], out["cpu"])
 
 
+# V1's lane-batched form: lanes of mixed extents (n = 0, n = 1, H = 1,
+# W = 1, full), planes on both sides of its shape rule, one lane against
+# many, lanes with `active` off
+def _batched_case(name, cap):
+    rng = np.random.RandomState(7)
+    if name == "mixed":
+        B, N, H, W = 7, 9, 21, 19
+        ext = [(9, 21, 19), (1, 21, 19), (9, 1, 19), (9, 21, 1), (0, 5, 5),
+               (4, 7, 3), (6, 20, 18)]
+    elif name == "one":
+        B, N, H, W = 1, 13, 37, 45
+        ext = [(13, 37, 45)]
+    elif name == "many":
+        B, N, H, W = 300, 6, 9, 11
+        ext = np.stack([rng.randint(1, N + 1, B), rng.randint(1, H + 1, B),
+                        rng.randint(1, W + 1, B)], 1)
+    elif name == "inactive":
+        B, N, H, W = 8, 7, 16, 16
+        ext = [(7, 16, 16)] * B
+    else:  # the plane of the shape rule's edge
+        B, N, H = 2, 3, 100
+        W = cap // H
+        ext = [(N, H, W), (N - 1, H, W - 1)]
+    active = (torch.arange(B, device="cuda") % 2 == 0
+              if name == "inactive" else None)
+    return (B, N, H, W), torch.tensor(np.asarray(ext), dtype=torch.int32), \
+        active
+
+
+@pytest.mark.parametrize("name", ("mixed", "one", "many", "inactive",
+                                  "shared"))
+@pytest.mark.parametrize("ties", (False, True))
+def test_voronoi_sweep_batched_kernel_matches_plain(gen, name, ties):
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    cap = tvoronoi.voronoi_batched_plan(1, 1, 1)["capacity"]
+    shape, ext, active = _batched_case(name, cap)
+    d, f, ok = _voronoi_inputs(gen, shape, ties)
+    anis = (1.0, 1.0, 1.0) if ties else ANIS
+    for desc in (False, True):
+        costs = tgeodesic.plane_costs(0, desc, anis)
+        runs = []
+        for _ in range(2):
+            gd, gf = d.clone(), f.clone()
+            flag = torch.zeros(shape[0], dtype=torch.int32, device="cuda")
+            before = kernels.LAUNCHES["voronoi_sweep_batched"]
+            tvoronoi.voronoi_sweep_batched(gd, gf, ok, ext, costs, desc,
+                                           flag, active)
+            assert kernels.LAUNCHES["voronoi_sweep_batched"] == before + 1
+            runs.append((gd, gf, flag))
+        wd, wf = d.clone(), f.clone()
+        want_flag = torch.zeros(shape[0], dtype=torch.int32, device="cuda")
+        tvoronoi._voronoi_sweep_lanes_plain(
+            wd, wf, ok, tvoronoi.VoronoiLanes.batched(shape, ext), costs,
+            desc, want_flag, active)
+        _assert_bit_equal(runs[0], (wd, wf, want_flag))
+        _assert_bit_equal(runs[1], runs[0])
+        assert int(want_flag.sum()) > 0
+        # a second sweep of the output changes nothing, flags stay 0
+        still = torch.zeros_like(want_flag)
+        tvoronoi.voronoi_sweep_batched(wd, wf, ok, ext, costs, desc, still,
+                                       active)
+        assert int(still.sum()) == 0
+        _assert_bit_equal((wd, wf), runs[0][:2])
+
+
+def test_voronoi_batched_plan_follows_the_shape_rule(gen):
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    plan = tvoronoi.voronoi_batched_plan(1, 1, 1)
+    cap = plan["capacity"]
+    assert plan["threads"] == 1024 and cap >= 100 * 100
+    edge = tvoronoi.voronoi_batched_plan(5, 100, cap // 100)
+    assert edge["form"] == "shared" and edge["ctas"] == 5
+    beyond = tvoronoi.voronoi_batched_plan(5, 100, cap // 100 + 1)
+    assert beyond["form"] == "single" and beyond["ctas"] == 0
+    small = tvoronoi.voronoi_batched_plan(100, 10, 10)
+    assert small["form"] == "shared" and small["lanes"] == 32
+    assert small["ctas"] == 4
+
+
+def test_voronoi_sweep_batched_refuses_a_plane_beyond_one_cta(gen):
+    """A lane whose plane exceeds one CTA's shared memory is refused
+    before any launch; the same lane with no extent is not swept."""
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    cap = tvoronoi.voronoi_batched_plan(1, 1, 1)["capacity"]
+    shape = (2, 3, 100, cap // 100 + 1)
+    d, f, ok = _voronoi_inputs(gen, shape, False)
+    costs = tgeodesic.plane_costs(0, False, ANIS)
+    flag = torch.zeros(2, dtype=torch.int32, device="cuda")
+    before = kernels.LAUNCHES["voronoi_sweep_batched"]
+    with pytest.raises(ValueError, match="beyond"):
+        tvoronoi.voronoi_sweep_batched(d, f, ok, [(3, 100, cap // 100 + 1),
+                                                  (1, 2, 2)], costs, False,
+                                       flag)
+    assert kernels.LAUNCHES["voronoi_sweep_batched"] == before
+    tvoronoi.voronoi_sweep_batched(d, f, ok, [(0, 100, cap // 100 + 1),
+                                              (3, 2, 2)], costs, False, flag)
+    assert kernels.LAUNCHES["voronoi_sweep_batched"] == before + 1
+
+
+def test_voronoi_feature_field_batched_sends_large_planes_alone(gen):
+    """Crops on both sides of the shape rule in one call: the one whose
+    axis-2 plane (X x Y) exceeds one CTA's shared memory takes V1's
+    single-volume forms, the others the batched kernel; every field
+    equals the CPU's."""
+    from kimimaro_tpu_torch.ops import voronoi as tvoronoi
+
+    cap = tvoronoi.voronoi_batched_plan(1, 1, 1)["capacity"]
+    rng = np.random.RandomState(9)
+    oks, seeds = [], []
+    for shape in ((100, cap // 100 + 1, 3), (100, cap // 100, 3),
+                  (20, 30, 40)):
+        ok = rng.rand(*shape) < 0.8
+        pts = np.argwhere(ok)
+        oks.append(ok)
+        seeds.append(pts[rng.choice(len(pts), 5, replace=False)])
+    kernels.reset_launches()
+    got = tgeodesic.voronoi_feature_field_batched(oks, seeds, ANIS)
+    assert kernels.LAUNCHES["voronoi_sweep_batched"] > 0
+    assert kernels.LAUNCHES["voronoi_sweep"] > 0
+    for ok, s, (d, f) in zip(oks, seeds, got):
+        want = tgeodesic.voronoi_feature_field(ok, s, ANIS, device="cpu")
+        _assert_bit_equal((d.cpu(), f.cpu()), want)
+
+
+def test_voronoi_feature_field_batched_cuda_matches_cpu(gen):
+    rng = np.random.RandomState(6)
+    oks, seeds = [], []
+    for shape in ((40, 33, 21), (17, 16, 1), (5, 64, 30), (1, 1, 1),
+                  (30, 30, 30)):
+        ok = rng.rand(*shape) < 0.8
+        pts = np.argwhere(ok)
+        pick = pts[rng.choice(len(pts), min(6, len(pts)), replace=False)]
+        oks.append(ok)
+        seeds.append(np.concatenate([pick, pick[:1], [(-1, 0, 0)]]))
+    before = kernels.LAUNCHES["voronoi_sweep_batched"]
+    got = tgeodesic.voronoi_feature_field_batched(oks, seeds, ANIS)
+    assert kernels.LAUNCHES["voronoi_sweep_batched"] > before
+    for ok, s, (d, f) in zip(oks, seeds, got):
+        assert d.device.type == "cuda"
+        want = tgeodesic.voronoi_feature_field(ok, s, ANIS, device="cpu")
+        _assert_bit_equal((d.cpu(), f.cpu()), want)
+
+
 def _tube64():
     """A winding tube of radius 2 in 64^3 and its two ends."""
     rng = np.random.RandomState(5)
@@ -1071,12 +1217,12 @@ def test_oversegment_cuda_matches_cpu(gen):
     for ds in (0, 5):
         out = {}
         for device in ("cuda", "cpu"):
-            before = kernels.LAUNCHES["voronoi_sweep"]
+            before = kernels.LAUNCHES["voronoi_sweep_batched"]
             out[device] = kimimaro_tpu_torch.oversegment(
                 vol, skels, anisotropy=(16, 16, 40), downsample=ds,
                 device=device)
             if device == "cuda":
-                assert kernels.LAUNCHES["voronoi_sweep"] > before
+                assert kernels.LAUNCHES["voronoi_sweep_batched"] > before
         (la, sa), (lb, sb) = out["cuda"], out["cpu"]
         np.testing.assert_array_equal(la, lb)
         for k in sa:

@@ -50,7 +50,7 @@ def _serpentine():
 
 def _pair(fn_name, *args, **kw):
     want = getattr(jops, fn_name)(*args, **kw)
-    got = getattr(tops, fn_name)(*args, **kw)
+    got = getattr(tops, fn_name)(*args, device="cpu", **kw)
     return want, got
 
 
@@ -146,7 +146,8 @@ def test_distance_field_returns_the_unconverged_field_at_max_rounds():
     ok, init = _serpentine()
     want = np.asarray(jops.distance_field(ok, init, (1, 1, 1), None, False,
                                           7))
-    got = tops.distance_field(ok, init, (1, 1, 1), None, False, 7)
+    got = tops.distance_field(ok, init, (1, 1, 1), None, False, 7,
+                              device="cpu")
     assert 0 < int(np.isfinite(want).sum()) < int(ok.sum())
     _equal(got, want)
 
@@ -157,7 +158,7 @@ def test_distance_field_bounded_rounds_match_jax(rounds):
     want = jops.distance_field(ok, init, (1.0, 1.0, 1.0), None, False, 4096,
                                None, rounds, "exact")
     got = tops.distance_field(ok, init, (1.0, 1.0, 1.0), None, False, 4096,
-                              None, rounds, "exact")
+                              None, rounds, "exact", device="cpu")
     _equal(got, want)
 
 
@@ -168,14 +169,14 @@ def test_flood_fill_connectivity_and_rounds_match_jax(connectivity, rounds):
     seed = np.zeros(ok.shape, dtype=bool)
     seed[0, 0, 0] = True
     want = jops.flood_fill(seed, ok, connectivity, rounds)
-    got = tops.flood_fill(seed, ok, connectivity, rounds)
+    got = tops.flood_fill(seed, ok, connectivity, rounds, device="cpu")
     _equal(got, want)
 
 
 def test_connected_components_takes_wide_and_narrow_labels():
     labels = _labels().astype(np.int64) * 4099  # values beyond 2^32
     want = np.asarray(jops.connected_components(labels))
-    got = tops.connected_components(labels)
+    got = tops.connected_components(labels, device="cpu")
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     small = (_labels() != 0).astype(np.uint8)

@@ -201,7 +201,7 @@ def test_sharded_compaction_and_label_info_match_single_device():
     lab = ts.shard_volume(labels, tm)
     cc, n_comp, roots = tsk._compact_cc_sharded(ts.sharded_ccl_rounds(lab,
                                                                       tm))
-    want, n_want, _ = compact_cc(connected_components(labels))
+    want, n_want, _ = compact_cc(connected_components(labels, device="cpu"))
     assert n_comp == n_want
     np.testing.assert_array_equal(_host(cc), want.numpy())
     dbf = ts.sharded_edtsq(lab, tm, (1.0, 1.0, 1.0))
