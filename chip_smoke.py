@@ -79,9 +79,12 @@ Phases (any failure exits non-zero):
      left out and counted); a 64^3 self-touch volume with a label that
      takes the host trace path, card against CPU; then B1-vg and B5-vg
      bit-equal to their plain versions at strip-stressing shapes, on
-     each side of their shape rules and on the recorded calls, and B4 on
-     the self-touch runs' calls, with kernel-table rows for B1-vg, B5-vg
-     and B4's graph-gated shapes;
+     each side of their shape rules and on the recorded calls, B4-vg on
+     each side of its plan rule and on the self-touch runs' calls, each
+     timed in turns with the ungated form on the same inputs (B5-vg at
+     96^3), and G1 (the graph gate, csrc/gate.cu) at its stress shapes
+     and on the recorded calls, with kernel-table rows for B1-vg, B5-vg,
+     B4's graph-gated shapes and G1;
  11. the analysis extras: V1 (the joint Voronoi sweep) against its plain
      version at small, odd and strip-stressing shapes, on each side of its
      form rule and at 512^3 with ties, its distance against B5's euclid
@@ -713,21 +716,21 @@ class B5Spy:
         inner = geodesic.sweep_axis0
 
         def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False,
-                vg=None, bits9=None):
+                gate=None, gate_bits9=None):
             if d.device.type == "cuda":
                 key = (tuple(d.shape), bool(node_mode), bool(clamp_positive),
-                       bool(descending), None if bits9 is None
-                       else tuple(bits9))
+                       bool(descending), None if gate_bits9 is None
+                       else tuple(gate_bits9))
                 seen = self.seen.get(key, 0)
                 self.seen[key] = seen + 1
                 if seen == self.nth and len(self.kept) < self.keep:
-                    self.kept[key] = (d.clone(), ok, nc, tuple(anis), vg)
+                    self.kept[key] = (d.clone(), ok, nc, tuple(anis), gate)
                 form = sweep.sweep_axis0_plan(d.shape[1], d.shape[2],
-                                              node_mode, vg is not None)
-                form = form["form"] + ("-vg" if vg is not None else "")
+                                              node_mode, gate is not None)
+                form = form["form"] + ("-vg" if gate is not None else "")
                 self.calls[form] = self.calls.get(form, 0) + 1
             return inner(d, ok, nc, anis, node_mode, clamp_positive,
-                         descending, vg=vg, bits9=bits9)
+                         descending, gate=gate, gate_bits9=gate_bits9)
 
         geodesic.sweep_axis0 = spy
 
@@ -747,24 +750,25 @@ def check_b5_recorded(spy, rows=None):
     err = 0.0
     ms_total = plain_total = 0.0
     forms = {}
-    for key, (d, ok, nc, anis, vg) in sorted(
+    for key, (d, ok, nc, anis, gate) in sorted(
             spy.kept.items(), key=lambda kv: (kv[0][:4], kv[0][4] or ())):
         shape, node, clamp, desc, bits = key
-        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
-                                bits9=bits)
-        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
-                                  bits9=bits)
+        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc,
+                                gate=gate, gate_bits9=bits)
+        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc,
+                                  gate=gate, gate_bits9=bits)
         want, plain = timed_once(lambda: sweep._sweep_axis0_plain(
-            d, ok, nc, anis, node, clamp, desc, vg, bits))
+            d, ok, nc, anis, node, clamp, desc, gate=gate, gate_bits9=bits))
         e = require_equal(f"B5 host call {key}", got, want)
         err = max(err, e)
         require_equal(f"B5 host call {key} run twice", again, got)
         ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, node, clamp,
-                                               desc, vg=vg, bits9=bits), 3)
+                                               desc, gate=gate,
+                                               gate_bits9=bits), 3)
         if rows is not None:
             rows[key] = (ms, plain, e)
         form = sweep.sweep_axis0_plan(shape[1], shape[2], node,
-                                      vg is not None)["form"]
+                                      gate is not None)["form"]
         forms[form] = forms.get(form, 0) + 1
         ms_total += ms
         plain_total += plain
@@ -820,10 +824,10 @@ def check_b4(shapes, gen):
             f"voxel graph; node sweep {ms:.4f} ms vs plain {plain:.3f} ms, "
             f"bound {bms:.4f} ms ({by})")
     ms_vg = cuda_ms(lambda: sweep.sweep_axis0_batched(
-        d, ok, nc, anis, True, False, vg=vg, bits9=bits9), 5)
+        d, ok, nc, anis, True, False, gate=vg, gate_bits9=bits9), 5)
     plain_vg = cuda_ms(lambda: sweep._sweep_axis0_batched_plain(
-        d, ok, nc, anis, True, False, False, vg, bits9), 1)
-    log(f"[kernels] B4 with the voxel graph: {ms_vg:.3f} ms vs plain "
+        d, ok, nc, anis, True, False, False, gate=vg, gate_bits9=bits9), 1)
+    log(f"[kernels] B4 with a graph gate: {ms_vg:.3f} ms vs plain "
         f"{plain_vg:.3f} ms ({shape[0]} lanes of {shape[1:]})")
     return ms, plain, err
 
@@ -847,22 +851,22 @@ class B4Spy:
         inner = geodesic.sweep_axis0_batched
 
         def spy(d, ok, nc, anis, node_mode, clamp_positive, descending=False,
-                vg=None, bits9=None):
+                gate=None, gate_bits9=None):
             if d.device.type == "cuda":
                 shape = tuple(d.shape)
                 self.calls[shape] = self.calls.get(shape, 0) + 1
                 key = (shape, bool(node_mode), bool(clamp_positive),
-                       bool(descending), None if bits9 is None
-                       else tuple(bits9))
+                       bool(descending), None if gate_bits9 is None
+                       else tuple(gate_bits9))
                 first = not self.per_shape or self.calls[shape] == 1
                 if first and key not in self.kept and \
                         len(self.kept) < self.keep:
                     self.kept[key] = (d.clone(), ok.clone(),
                                       None if nc is None else nc.clone(),
                                       tuple(anis),
-                                      None if vg is None else vg.clone())
+                                      None if gate is None else gate.clone())
             return inner(d, ok, nc, anis, node_mode, clamp_positive,
-                         descending, vg=vg, bits9=bits9)
+                         descending, gate=gate, gate_bits9=gate_bits9)
 
         geodesic.sweep_axis0_batched = spy
 
@@ -882,33 +886,47 @@ def b4_bound(shape, node, vg=False):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def check_b4_recorded(spy):
+def check_b4_recorded(spy, ungated=None):
     """B4 against its plain version on the calls a run made, each made
     twice. Returns {shape: (ms, plain_ms, bound_ms, bound_by, err)}, timed
-    on the shape's first recorded call (a node sweep where there is one)."""
+    on the shape's first recorded call (a node sweep where there is one);
+    with `ungated` (a dict), puts there the times of that call with and
+    without its graph gate, in turns (a, b, b, a): {shape: ([gated ms],
+    [ungated ms])}."""
     from kimimaro_tpu_torch.ops import sweep
 
     out = {}
     for key in sorted(spy.kept, key=lambda k: (k[0], not k[1], k[2], k[3],
                                                k[4] or ())):
         shape, node, clamp, desc, bits = key
-        d, ok, nc, anis, vg = spy.kept[key]
+        d, ok, nc, anis, gate = spy.kept[key]
         got = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc,
-                                        vg=vg, bits9=bits)
+                                        gate=gate, gate_bits9=bits)
         again = sweep.sweep_axis0_batched(d, ok, nc, anis, node, clamp, desc,
-                                          vg=vg, bits9=bits)
+                                          gate=gate, gate_bits9=bits)
         want, plain = timed_once(lambda: sweep._sweep_axis0_batched_plain(
-            d, ok, nc, anis, node, clamp, desc, vg, bits))
+            d, ok, nc, anis, node, clamp, desc, gate=gate, gate_bits9=bits))
         err = require_equal(f"B4 {spy.tag} call {key}", got, want)
         require_equal(f"B4 {spy.tag} call {key} run twice", again, got)
         if shape in out:
             out[shape] = out[shape][:4] + (max(out[shape][4], err),)
             continue
         ms = cuda_ms(lambda: sweep.sweep_axis0_batched(
-            d, ok, nc, anis, node, clamp, desc, vg=vg, bits9=bits), 5)
-        bms, by = b4_bound(shape, node, vg is not None)
+            d, ok, nc, anis, node, clamp, desc, gate=gate, gate_bits9=bits),
+            5)
+        if ungated is not None and gate is not None:
+            # the same call without its gate, in turns with the gated one
+            ta, tb = turns(
+                lambda: sweep.sweep_axis0_batched(
+                    d, ok, nc, anis, node, clamp, desc, gate=gate,
+                    gate_bits9=bits),
+                lambda: sweep.sweep_axis0_batched(d, ok, nc, anis, node,
+                                                  clamp, desc), 5)
+            ungated[shape] = (ta, tb)
+            ms = float(np.mean(ta))
+        bms, by = b4_bound(shape, node, gate is not None)
         plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2], shape[3],
-                                              node, vg is not None)
+                                              node, gate is not None)
         out[shape] = (ms, plain, bms, by, err)
         if not spy.per_shape:  # a per-shape record is summed up below
             log(f"[kernels] B4 {spy.tag} {shape} ({spy.calls.get(shape, 0)}"
@@ -2650,49 +2668,103 @@ def check_b1_vg(spy, gen):
     return timed[0], timed[1], err, timed[3]
 
 
-# B5 with a voxel graph on each side of its form rules on an H100: the
-# bitfield rides the carried-id channel, so the grid strips hold square
-# planes up to 848 x 848 in euclid mode and 784 x 784 in node mode
-B5_VG_RULE = {False: ((170, "cluster"), (171, "strips"), (848, "strips"),
-                      (864, "plane")),
-              True: ((170, "cluster"), (171, "strips"), (784, "strips"),
-                     (800, "plane"))}
+# B5 with a graph gate on each side of its form rules on an H100: the gate
+# is a fourth word of a voxel's stage (the carried plane holds the field
+# only), so the grid strips hold square planes up to 1024 x 1024 in euclid
+# mode and 912 x 912 in node mode (848 and 784 while the neighbours'
+# bitfields rode the carried plane)
+B5_VG_RULE = {False: ((170, "cluster"), (171, "strips"), (1024, "strips"),
+                      (1040, "plane")),
+              True: ((170, "cluster"), (171, "strips"), (912, "strips"),
+                     (928, "plane"))}
+# B4 with a graph gate, two lanes of square planes too wide for a cluster:
+# per-lane grid strips (66 CTAs a lane) up to 720 x 720 in euclid mode and
+# 640 x 640 in node mode, one launch per plane beyond (623 and 565 with the
+# carried bitfields)
+B4_VG_RULE = {False: (((2, 2, 720, 720), "strips"),
+                      ((2, 2, 736, 736), "plane")),
+              True: (((2, 2, 640, 640), "strips"),
+                     ((2, 2, 656, 656), "plane"))}
 
 
 def b5_vg_case(shape, node, clamp, gen, anis, axis=0):
-    """B5's graph-gated form against its plain version in both
-    directions, twice; the first plane passes through."""
+    """B5's graph-gated kernel against its plain version in both
+    directions, twice, in both forms of the graph: source bitfields
+    (the wrapper builds their gate) against the plain source form, and a
+    gate against the plain gate form; the first plane passes through."""
     import torch
 
-    from kimimaro_tpu_torch.ops import geodesic, sweep
+    from kimimaro_tpu_torch.ops import geodesic, gsweep, sweep
 
     d, ok, nc = b5_inputs(shape, clamp, gen)
-    vg = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
-                       dtype=torch.int32)
+    words = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
     err = 0.0
     for desc in (False, True):
-        bits = geodesic.sweep_bits9(axis, desc)
-        got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
-                                bits9=bits)
-        again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, vg=vg,
-                                  bits9=bits)
-        want = sweep._sweep_axis0_plain(d, ok, nc, anis, node, clamp, desc,
-                                        vg, bits)
-        name = f"B5-vg node={node} clamp={clamp} desc={desc} {shape}"
-        err = max(err, require_equal(name, got, want))
-        require_equal(name + " run twice", again, got)
-        first = -1 if desc else 0
-        require_equal(name + " first plane", got[first], d[first])
+        for form, kw in (
+                ("source", {"vg": words,
+                            "bits9": geodesic.sweep_bits9(axis, desc)}),
+                ("gate", {"gate": words,
+                          "gate_bits9": gsweep.gate_bits9(axis, desc)})):
+            got = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc, **kw)
+            again = sweep.sweep_axis0(d, ok, nc, anis, node, clamp, desc,
+                                      **kw)
+            want = sweep._sweep_axis0_plain(d, ok, nc, anis, node, clamp,
+                                            desc, **kw)
+            name = (f"B5-vg ({form}) node={node} clamp={clamp} desc={desc} "
+                    f"{shape}")
+            err = max(err, require_equal(name, got, want))
+            require_equal(name + " run twice", again, got)
+            first = -1 if desc else 0
+            require_equal(name + " first plane", got[first], d[first])
+    return err
+
+
+def check_b4_vg_rule(gen):
+    """B4's graph-gated form on each side of its plan rule
+    (B4_VG_RULE), both directions, twice, against its plain version."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import gsweep, sweep
+
+    anis = (40.0, 16.0, 16.0)
+    err = 0.0
+    for node, sides in B4_VG_RULE.items():
+        for shape, form in sides:
+            plan = sweep.sweep_axis0_batched_plan(shape[0], shape[2],
+                                                  shape[3], node, True)
+            if plan["form"] != form:
+                raise AssertionError(f"B4-vg node={node} {shape}: plan "
+                                     f"{plan}, expected {form}")
+            r = lambda: torch.rand(shape, generator=gen, device="cuda")
+            d = torch.where(r() < 0.25, r() * 10 - 5.0, float("inf"))
+            ok, nc = r() < 0.8, r() * 3
+            gate = torch.randint(0, 1 << 26, shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            for desc in (False, True):
+                kw = {"gate": gate, "gate_bits9": gsweep.gate_bits9(1, desc)}
+                got = sweep.sweep_axis0_batched(d, ok, nc, anis, node, True,
+                                                desc, **kw)
+                again = sweep.sweep_axis0_batched(d, ok, nc, anis, node,
+                                                  True, desc, **kw)
+                want = sweep._sweep_axis0_batched_plain(
+                    d, ok, nc, anis, node, True, desc, **kw)
+                name = f"B4-vg node={node} desc={desc} {shape}"
+                err = max(err, require_equal(name, got, want))
+                require_equal(name + " run twice", again, got)
+    log(f"[kernels] B4-vg bit-equal on each side of its plan rule: "
+        f"{json.dumps({('node' if k else 'euclid'): v for k, v in B4_VG_RULE.items()})}")
     return err
 
 
 def check_b5_vg(gen):
     """B5's graph-gated form at B5's stress shapes and on each side of its
-    form rules; timed on a node sweep of a 96^3 crop (B5's row shape).
-    Returns (ms, plain_ms, err)."""
+    form rules; timed on a node sweep of a 96^3 crop (B5's row shape) with
+    its gate, in turns with the same sweep without it. Returns (ms,
+    plain_ms, err, [gated ms], [ungated ms])."""
     import torch
 
-    from kimimaro_tpu_torch.ops import geodesic, sweep
+    from kimimaro_tpu_torch.ops import gsweep, sweep
 
     anis = (40.0, 16.0, 16.0)
     err = 0.0
@@ -2713,14 +2785,111 @@ def check_b5_vg(gen):
         f"and on each side of its form rules: "
         f"{json.dumps({('node' if k else 'euclid'): v for k, v in B5_VG_RULE.items()})}")
     d, ok, nc = b5_inputs((96, 96, 96), False, gen)
-    vg = torch.randint(0, 1 << 26, d.shape, generator=gen, device="cuda",
-                       dtype=torch.int32)
-    bits = geodesic.sweep_bits9(0, False)
-    ms = cuda_ms(lambda: sweep.sweep_axis0(d, ok, nc, anis, True, False,
-                                           vg=vg, bits9=bits), 5)
+    gate = torch.randint(0, 1 << 26, d.shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bits = gsweep.gate_bits9(0, False)
+    ta, tb = turns(
+        lambda: sweep.sweep_axis0(d, ok, nc, anis, True, False, gate=gate,
+                                  gate_bits9=bits),
+        lambda: sweep.sweep_axis0(d, ok, nc, anis, True, False), 5)
     plain = cuda_ms(lambda: sweep._sweep_axis0_plain(
-        d, ok, nc, anis, True, False, False, vg, bits), 1)
-    return ms, plain, err
+        d, ok, nc, anis, True, False, False, gate=gate, gate_bits9=bits), 1)
+    log(f"[kernels] B5-vg node sweep of a 96^3 crop: {ta} ms with its gate, "
+        f"{tb} ms without (in turns a, b, b, a)")
+    return float(np.mean(ta)), plain, err, ta, tb
+
+
+class G1Spy:
+    """While installed, counts G1's calls (ops.stencils.graph_into, as the
+    CCL, the crop engine and the host trace path's fields call it) per
+    shape and keeps the input of the first call of each shape, up to
+    `keep_bytes` of them."""
+
+    MODULES = ("kimimaro_tpu_torch.ops.ccl", "kimimaro_tpu_torch.engine",
+               "kimimaro_tpu_torch.ops.geodesic")
+
+    def __init__(self, keep_bytes=4 << 30):
+        self.keep_bytes = keep_bytes
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        import importlib
+
+        from kimimaro_tpu_torch.ops import stencils
+
+        inner = stencils.graph_into
+
+        def spy(vg):
+            if vg.device.type == "cuda":
+                shape = tuple(vg.shape)
+                self.calls[shape] = self.calls.get(shape, 0) + 1
+                held = sum(t.numel() * 4 for t in self.kept.values())
+                if shape not in self.kept and \
+                        held + vg.numel() * 4 <= self.keep_bytes:
+                    self.kept[shape] = stencils.graph_word(vg).clone()
+            return inner(vg)
+
+        mods = [importlib.import_module(m) for m in self.MODULES]
+        for m in mods:
+            m.graph_into = spy
+
+        def restore():
+            for m in mods:
+                m.graph_into = inner
+
+        return restore
+
+
+# G1 beyond the main path's shapes: one voxel, lanes of one row, odd
+# widths, more lane rows (lanes x X) than a grid's z extent (65,535)
+G1_STRESS_SHAPES = ((1, 1, 1), (3, 1, 5, 7), (2, 9, 1, 33), (17, 40, 24),
+                    (70000, 1, 2, 3), (2, 3, 5, 4, 6))
+
+
+def g1_bound(shape):
+    """Least time of one G1 call: the words read once and the gate written
+    once (8 B a voxel) over the HBM rate, against 26 moves of four integer
+    operations a voxel over the 32-bit peak. Returns (ms, by)."""
+    vox = int(np.prod(shape))
+    t_b, t_o = 8 * vox / HBM_BYTES_PER_S, 104 * vox / ALU_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_g1(spy, gen):
+    """G1 against its plain version at its stress shapes (random words,
+    every bit) and on the calls `spy` kept, each made twice. Returns
+    {shape: (ms, plain_ms, bound_ms, bound_by, err)} of the kept calls."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import stencils
+
+    for shape in G1_STRESS_SHAPES:
+        vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                           device="cuda", dtype=torch.int32)
+        got = stencils.graph_into(vg)
+        require_equal(f"G1 {shape}", got, stencils._graph_into_plain(vg))
+        require_equal(f"G1 {shape} run twice", stencils.graph_into(vg), got)
+    out = {}
+    for shape, vg in sorted(spy.kept.items()):
+        got = stencils.graph_into(vg)
+        again = stencils.graph_into(vg)
+        want, plain = timed_once(lambda: stencils._graph_into_plain(vg))
+        err = require_equal(f"G1 call {shape}", got, want)
+        require_equal(f"G1 call {shape} run twice", again, got)
+        ms = cuda_ms(lambda: stencils.graph_into(vg), 5)
+        bms, by = g1_bound(shape)
+        out[shape] = (ms, plain, bms, by, err)
+    if not out:
+        raise AssertionError("the self-touch runs made no G1 call")
+    top = sorted(out, key=lambda k: -spy.calls[k] * int(np.prod(k)))[:4]
+    log(f"[kernels] G1 bit-equal at {len(G1_STRESS_SHAPES)} stress shapes "
+        f"and on the first call of {len(out)} of the {len(spy.calls)} "
+        f"shapes of the self-touch runs ({sum(spy.calls.values())} calls), "
+        f"twice; most voxels: " + "; ".join(
+            f"{k} x {spy.calls[k]}: {out[k][0]:.4f} ms vs plain "
+            f"{out[k][1]:.2f} ms, bound {out[k][2]:.4f} ms" for k in top))
+    return out
 
 
 class RefillSpy:
@@ -2883,7 +3052,8 @@ def self_touch_phase(dense, gen):
     the identity against skeletonize(pre, all-ones graph), the 64^3 volume
     card against CPU, then the graph-gated kernels against their plain
     versions. Returns (launches of the main-path runs, B1-vg timing, B5-vg
-    timing, B4's recorded shapes and calls)."""
+    timing, B4's recorded shapes and calls, the B4-vg rule's error, G1's
+    recorded shapes and calls)."""
     import torch
 
     import kimimaro_tpu_torch
@@ -2908,18 +3078,19 @@ def self_touch_phase(dense, gen):
         raise AssertionError("self-touch: the graph's components are not the "
                              "pre-merge volume's")
 
-    gate_spy, b5_spy = GateSpy(), B5Spy()
+    gate_spy, b5_spy, g1_spy = GateSpy(), B5Spy(), G1Spy()
     b4_spy = B4Spy("self-touch", keep=4096, per_shape=True)
     labels_dev = torch.from_numpy(merged.view(np.int32)).cuda()
     refill_spy = RefillSpy(labels_dev, TEASAR["soma_detection_threshold"])
-    restores = [s.install() for s in (gate_spy, b5_spy, b4_spy, refill_spy)]
+    restores = [s.install() for s in (gate_spy, b5_spy, g1_spy, b4_spy,
+                                      refill_spy)]
     try:
         skels, counters, launches, _ = run_main_path(
             "self-touch", merged, ("gsweep_sweep0_vg",
-                                   "sweep_axis0_batched_vg"),
+                                   "sweep_axis0_batched_vg", "graph_into"),
             voxel_graph=vg)
     finally:
-        for restore in reversed(restores[2:]):
+        for restore in reversed(restores[3:]):
             restore()
     if counters.get("gengine_iterations", 0):
         raise AssertionError("self-touch: the global engine traced labels")
@@ -2953,7 +3124,7 @@ def self_touch_phase(dense, gen):
     try:
         small = small_self_touch_path()
     finally:
-        for restore in reversed(restores[:2]):
+        for restore in reversed(restores[:3]):
             restore()
     for k, v in small.items():
         launches[k] += v
@@ -2963,11 +3134,22 @@ def self_touch_phase(dense, gen):
     del gate_spy
     b5_err = check_b5_recorded(b5_spy) if b5_spy.kept else 0.0
     b5_vg = check_b5_vg(gen)
-    log(f"[kernels] sweep_axis0_vg: {b5_vg[0]:.3f} ms vs plain "
-        f"{b5_vg[1]:.1f} ms (node sweep of a 96^3 crop)")
-    b4_rows = check_b4_recorded(b4_spy)
+    log(f"[kernels] sweep_axis0_vg: {b5_vg[0]:.4f} ms vs plain "
+        f"{b5_vg[1]:.1f} ms (node sweep of a 96^3 crop); without the gate "
+        f"{np.mean(b5_vg[4]):.4f} ms: x{b5_vg[0] / np.mean(b5_vg[4]):.3f}")
+    b4_err = check_b4_vg_rule(gen)
+    bare = {}
+    b4_rows = check_b4_recorded(b4_spy, ungated=bare)
+    calls = b4_spy.calls
+    for shape in sorted(bare, key=lambda k: -calls[k] * int(np.prod(k)))[:8]:
+        ta, tb = bare[shape]
+        log(f"[kernels] B4-vg self-touch {shape} ({calls[shape]} calls): "
+            f"{[round(t, 4) for t in ta]} ms with the gate, "
+            f"{[round(t, 4) for t in tb]} ms without (in turns a, b, b, a):"
+            f" x{np.mean(ta) / np.mean(tb):.3f}")
+    g1_rows = check_g1(g1_spy, gen)
     return (launches, b1_vg, (b5_vg[0], b5_vg[1], max(b5_vg[2], b5_err)),
-            b4_rows, dict(b4_spy.calls))
+            b4_rows, dict(calls), b4_err, g1_rows, dict(g1_spy.calls))
 
 
 
@@ -5235,8 +5417,8 @@ def main() -> int:
         b5_err = max(b5_err, check_b5_recorded(b5_fill))
     del b5_fill
     # 10. self-touch: the dense volume under a voxel graph
-    (touch_launches, b1_vg, b5_vg, b4_touch,
-     b4_touch_calls) = self_touch_phase(dense, gen)
+    (touch_launches, b1_vg, b5_vg, b4_touch, b4_touch_calls, b4_rule_err,
+     g1_touch, g1_touch_calls) = self_touch_phase(dense, gen)
     # 11. the analysis extras on the dense run's skeletons
     (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
      b5_connect) = analysis_phase(dense, dense_skels, gen)
@@ -5422,7 +5604,7 @@ def main() -> int:
                   "bound_ms": round(bound(17 * 96 ** 3, 12 * 96 ** 3)[0], 4),
                   "bound_by": bound(17 * 96 ** 3, 12 * 96 ** 3)[1],
                   "library_ms": None})
-    touch_err = max(v[4] for v in b4_touch.values())
+    touch_err = max([v[4] for v in b4_touch.values()] + [b4_rule_err])
     ms_all = [v[0] for v in b4_touch.values()]
     log(f"[kernels] B4 self-touch: {len(b4_touch)} shapes, "
         f"{sum(b4_touch_calls.values())} calls, {min(ms_all):.4f}-"
@@ -5435,6 +5617,19 @@ def main() -> int:
             "source": "kimimaro_tpu_torch/csrc/sweep.cu",
             "replaces": "kimimaro_tpu/ops/pallas_sweep.py:308",
             "launches": b4_touch_calls[shape], "max_abs_err": touch_err,
+            "ms": round(ms, 4), "plain_ms": round(plain, 4),
+            "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
+    # G1 at the self-touch runs' shapes of the most voxels (the CCL's
+    # whole volume, the crop engine's largest lane sets)
+    g1_err = max(v[4] for v in g1_touch.values())
+    for shape in sorted(g1_touch, key=lambda k: -g1_touch_calls[k]
+                        * int(np.prod(k)))[:3]:
+        ms, plain, bms, by, _ = g1_touch[shape]
+        table.append({
+            "name": f"graph_into {shape}", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/gate.cu",
+            "replaces": "kimimaro_tpu/ops/geodesic.py:444",
+            "launches": g1_touch_calls[shape], "max_abs_err": g1_err,
             "ms": round(ms, 4), "plain_ms": round(plain, 4),
             "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
     table.extend(v1_table(launches, v1, v1_rows, v1_lanes_rows, v1b_err))

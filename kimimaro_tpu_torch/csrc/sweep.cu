@@ -32,19 +32,24 @@
 //   * B1's grid-wide persistent strips (plane.cuh `grid_strips`, mailboxes
 //     in device memory) without the cc gating, for larger planes (up to
 //     1184 x 1184 in euclid mode and 1024 x 1024 in node mode on 132 SMs);
-//   * one launch per plane (`axis0_plane`) above that.
+//   * one launch per plane (`batched_plane`, one lane) above that.
 //
-// B5 with a voxel graph (VG): the host trace path of a label under a graph
-// (kimimaro_tpu/ops/geodesic.py `_sweep` with `voxel_graph`, a lax.scan in
-// the JAX package). A candidate from the neighbour u on the previous plane
-// counts only where bit bits.b[k] of vg[u] allows the move, as in B4; in
-// the strips the bitfield rides the carried-id channel (the carried id of a
-// cell is its bitfield, the halo rows' read from the volume), 4 bytes a
-// voxel more in a stage and 4 a carried cell.
+// B4 and B5 with a voxel graph (VG): the crop engine and the host trace
+// path of a label under a graph (kimimaro_tpu/ops/geodesic.py `_sweep` with
+// `voxel_graph`, a lax.scan in the JAX package). As in B1-vg, the gate sits
+// at the target: a per-voxel word `gate` (ops.stencils.graph_into: bit
+// GRAPH_BITS[o] set where the move from v + o into v is open) is one more
+// operand of the stage, read with the voxel's own operands, and `bits`
+// names the bit of each of the nine (dy, dz) neighbours on the previous
+// plane for this layout and direction. The carried plane holds the field
+// only and nothing new crosses a strip's halo: 4 bytes a voxel more in a
+// stage (grid strips up to 1024 x 1024 in euclid mode and 912 x 912 in
+// node mode on 132 SMs).
 
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 #include "plane.cuh"
 
@@ -53,13 +58,12 @@ namespace {
 using kt::Bits9;
 
 // One voxel of a directed plane sweep of the volume that starts at `base`
-// in the buffers. With VG, a candidate from the neighbour u on the previous
-// plane counts only where bit bits.b[k] of vg[u] allows the move (the bit
-// of the neighbour, not of the voxel).
+// in the buffers. With VG, a candidate from the neighbour k on the previous
+// plane counts only where bit bits.b[k] of the voxel's gate word is set.
 template <bool NODE, bool CLAMP, bool VG>
 __device__ __forceinline__ void sweep_cell(
     const float* __restrict__ d, const uint8_t* __restrict__ ok,
-    const float* __restrict__ nc, const uint32_t* __restrict__ vg,
+    const float* __restrict__ nc, const uint32_t* __restrict__ gate,
     float* __restrict__ out, int H, int W, int64_t base, int64_t plane,
     int64_t prev, int y, int z, const kt::Costs9& costs, const Bits9& bits) {
     const int64_t HW = (int64_t)H * W;
@@ -69,6 +73,7 @@ __device__ __forceinline__ void sweep_cell(
         out[i] = cur;
         return;
     }
+    const uint32_t g = VG ? gate[i] : 0u;
     float cand = INFINITY;
     int k = 0;
     for (int dy = -1; dy <= 1; ++dy) {
@@ -76,10 +81,9 @@ __device__ __forceinline__ void sweep_cell(
             const int yy = y + dy;
             const int zz = z + dz;
             float s = INFINITY;
-            if (yy >= 0 && yy < H && zz >= 0 && zz < W) {
-                const int64_t j = base + prev * HW + (int64_t)yy * W + zz;
-                s = out[j];
-                if (VG && ((vg[j] >> bits.b[k]) & 1u) == 0u) s = INFINITY;
+            if (yy >= 0 && yy < H && zz >= 0 && zz < W &&
+                (!VG || ((g >> bits.b[k]) & 1u) != 0u)) {
+                s = out[base + prev * HW + (int64_t)yy * W + zz];
             }
             cand = NODE ? fminf(cand, s)
                         : fminf(cand, __fadd_rn(s, costs.c[k]));
@@ -91,57 +95,24 @@ __device__ __forceinline__ void sweep_cell(
     out[i] = nv;
 }
 
-template <bool NODE, bool CLAMP, bool VG>
-__global__ void axis0_plane(const float* __restrict__ d,
-                            const uint8_t* __restrict__ ok,
-                            const float* __restrict__ nc,
-                            const uint32_t* __restrict__ vg,
-                            float* __restrict__ out, int H, int W,
-                            int64_t plane, int64_t prev, kt::Costs9 costs,
-                            Bits9 bits) {
-    const int z = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (y >= H || z >= W) return;
-    sweep_cell<NODE, CLAMP, VG>(d, ok, nc, vg, out, H, W, 0, plane, prev, y,
-                                z, costs, bits);
-}
-
-template <bool NODE, bool CLAMP, bool VG>
-int run_axis0(const void* d, const void* ok, const void* nc, const void* vg,
-              void* out, int n, int H, int W, const kt::Costs9& costs,
-              const Bits9& bits, int descending, cudaStream_t st) {
-    const dim3 grid = kt::plane_grid(H, W);
-    const dim3 block = kt::plane_block();
-    for (int s = 0; s < n; ++s) {
-        int64_t plane, prev;
-        kt::sweep_planes(s, n, descending, &plane, &prev);
-        axis0_plane<NODE, CLAMP, VG><<<grid, block, 0, st>>>(
-            (const float*)d, (const uint8_t*)ok, (const float*)nc,
-            (const uint32_t*)vg, (float*)out, H, W, plane, prev, costs, bits);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return 0;
-}
-
 // B5 in the strips (cluster or grid-wide): the operator of
-// kt::sweep_strips. Operands in this order: d (, nc) (, vg) words, ok
+// kt::sweep_strips. Operands in this order: d (, nc) (, gate) words, ok
 // bytes.
-template <bool NODE, bool CLAMP, bool VG = false>
+template <bool NODE, bool CLAMP, bool VG>
 struct Axis0Op {
     using T = float;
     static constexpr int kFields = 1;
-    static constexpr bool kIds = VG;
-    static constexpr int kVg = NODE ? 2 : 1;  // vg's operand index
+    static constexpr bool kIds = false;
+    static constexpr int kGate = NODE ? 2 : 1;  // the gate's operand index
     static constexpr int kWords = 1 + (NODE ? 1 : 0) + (VG ? 1 : 0);
     static constexpr int kBytes = 1;
 
     const float* d;
     const uint8_t* ok;
     const float* nc;
+    const uint32_t* gate;
     float* out;
     kt::Costs9 costs;
-    const uint32_t* vg;
     Bits9 bits;
 
     __device__ float fill() const { return INFINITY; }
@@ -149,35 +120,30 @@ struct Axis0Op {
     __device__ const void* operand(int k) const {
         if (k == 0) return d;
         if (NODE && k == 1) return nc;
-        if (VG && k == kVg) return vg;
+        if (VG && k == kGate) return gate;
         return ok;
     }
 
-    __device__ int32_t halo_id(int64_t j) const {
-        return VG ? (int32_t)vg[j] : 0;
-    }
-
-    // the arithmetic of `sweep_cell`, in its order; with VG the carried
-    // ids are the neighbours' bitfields
+    // the arithmetic of `sweep_cell`, in its order
     __device__ __forceinline__ void relax(
         bool first, const kt::StageView<kWords + kBytes>& in, int i,
         const float (&v)[1][kt::kGroup + 2][3],
-        const int32_t (&nid)[kt::kGroup + 2][3], int rr, float (&nv)[1],
-        int32_t& cid) const {
+        const int32_t (&)[kt::kGroup + 2][3], int rr, float (&nv)[1],
+        int32_t&) const {
         const float cur = ((const float*)in.p[0])[i];
-        if constexpr (VG) cid = ((const int32_t*)in.p[kVg])[i];
         if (first) {
             nv[0] = cur;
             return;
         }
+        uint32_t g = 0u;
+        if constexpr (VG) g = ((const uint32_t*)in.p[kGate])[i];
         float cand = INFINITY;
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
             for (int dz = 0; dz < 3; ++dz) {
                 float sv = v[0][rr + dy][dz];
-                if (VG && ((((uint32_t)nid[rr + dy][dz]) >>
-                            bits.b[3 * dy + dz]) & 1u) == 0u) {
+                if (VG && ((g >> bits.b[3 * dy + dz]) & 1u) == 0u) {
                     sv = INFINITY;
                 }
                 cand = NODE ? fminf(cand, sv)
@@ -194,6 +160,62 @@ struct Axis0Op {
         out[j] = nv[0];
     }
 };
+
+// B4: the lane-batched form. Replaces the Pallas kernel
+// kimimaro_tpu/ops/pallas_sweep.py `sweep_axis0_batched`
+// (`_batched_kernel_factory`), the crop engine's relax
+// (kimimaro_tpu/ops/geodesic.py `_batched_relax_pallas`). Each lane is an
+// independent (n, H, W) volume of a (B, n, H, W) batch, gated as B5 is.
+//
+// What bounds it: like B5, the chain of n dependent planes of each lane,
+// not the bytes. B4 makes one launch per directed sweep for all lanes, in
+// one of three forms chosen by `plan_batched` (ops.sweep
+// .sweep_axis0_batched_plan):
+//
+//   * a grid of thread-block clusters, one cluster per lane (blockIdx.y):
+//     B5's cluster strips, each lane's CTAs posting edge rows into their
+//     neighbours' shared memory. The CTAs a lane are the most (up to 16,
+//     one pass of 512 threads a strip) that keep B x CTAs within one wave
+//     of the SMs, but at least the fewest that hold a strip in one pass:
+//     many small lanes take few CTAs each, few large lanes many;
+//   * per-lane grid-wide strips (one cooperative launch, B x CTAs
+//     co-resident, edge rows through mailboxes in device memory) where a
+//     cluster cannot hold the plane in one pass;
+//   * one launch per plane for all lanes (blockIdx.z = lane) beyond both;
+//     B5's per-plane form is this with one lane.
+template <bool NODE, bool CLAMP, bool VG>
+__global__ void batched_plane(const float* __restrict__ d,
+                              const uint8_t* __restrict__ ok,
+                              const float* __restrict__ nc,
+                              const uint32_t* __restrict__ gate,
+                              float* __restrict__ out, int n, int H, int W,
+                              int64_t plane, int64_t prev, kt::Costs9 costs,
+                              Bits9 bits) {
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (y >= H || z >= W) return;
+    const int64_t base = (int64_t)blockIdx.z * n * H * W;
+    sweep_cell<NODE, CLAMP, VG>(d, ok, nc, gate, out, H, W, base, plane,
+                                prev, y, z, costs, bits);
+}
+
+template <bool NODE, bool CLAMP, bool VG>
+int run_batched(const Axis0Op<NODE, CLAMP, VG>& op, int B, int n, int H,
+                int W, int descending, cudaStream_t st) {
+    dim3 grid = kt::plane_grid(H, W);
+    grid.z = B;
+    const dim3 block = kt::plane_block();
+    for (int s = 0; s < n; ++s) {
+        int64_t plane, prev;
+        kt::sweep_planes(s, n, descending, &plane, &prev);
+        batched_plane<NODE, CLAMP, VG><<<grid, block, 0, st>>>(
+            op.d, op.ok, op.nc, op.gate, op.out, n, H, W, plane, prev,
+            op.costs, op.bits);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
 
 // How B5 runs a plane of H x W: one cluster, grid-wide strips or per plane
 // (the form in the order of preference that the shape and the device
@@ -217,19 +239,13 @@ kt::StripPlan plan_axis0(int H, int W) {
 }
 
 template <bool NODE, bool CLAMP, bool VG>
-int dispatch_axis0(const void* d, const void* ok, const void* nc,
-                   const void* vg, void* mail, void* out, int n, int H, int W,
-                   const kt::Costs9& costs, const Bits9& bits, int descending,
-                   cudaStream_t st) {
+int dispatch_axis0(const Axis0Op<NODE, CLAMP, VG>& op, void* mail, int n,
+                   int H, int W, int descending, cudaStream_t st) {
     if (n <= 0 || H <= 0 || W <= 0) return 0;
     const kt::StripPlan plan = plan_axis0<NODE, VG>(H, W);
     if (plan.form == kt::kPerPlane) {
-        return run_axis0<NODE, CLAMP, VG>(d, ok, nc, vg, out, n, H, W, costs,
-                                          bits, descending, st);
+        return run_batched(op, 1, n, H, W, descending, st);
     }
-    const Axis0Op<NODE, CLAMP, VG> op = {
-        (const float*)d, (const uint8_t*)ok, (const float*)nc, (float*)out,
-        costs, (const uint32_t*)vg, bits};
     if (plan.form == kt::kCluster) {
         return kt::run_cluster(op, n, H, W, descending, plan, st);
     }
@@ -237,87 +253,9 @@ int dispatch_axis0(const void* d, const void* ok, const void* nc,
                                descending, plan, st);
 }
 
-// B4: the lane-batched form. Replaces the Pallas kernel
-// kimimaro_tpu/ops/pallas_sweep.py `sweep_axis0_batched`
-// (`_batched_kernel_factory`), the crop engine's relax
-// (kimimaro_tpu/ops/geodesic.py `_batched_relax_pallas`). Each lane is an
-// independent (n, H, W) volume of a (B, n, H, W) batch. With a voxel graph,
-// a candidate from the neighbour u on the previous plane counts only where
-// bit bits9[k] of u's bitfield allows the move (the bit of the neighbour,
-// not of the voxel).
-//
-// What bounds it: like B5, the chain of n dependent planes of each lane,
-// not the bytes. B4 makes one launch per directed sweep for all lanes, in
-// one of three forms chosen by `plan_batched` (ops.sweep
-// .sweep_axis0_batched_plan):
-//
-//   * a grid of thread-block clusters, one cluster per lane (blockIdx.y):
-//     B5's cluster strips, each lane's CTAs posting edge rows into their
-//     neighbours' shared memory. The CTAs a lane are the most (up to 16,
-//     one pass of 512 threads a strip) that keep B x CTAs within one wave
-//     of the SMs, but at least the fewest that hold a strip in one pass:
-//     many small lanes take few CTAs each, few large lanes many;
-//   * per-lane grid-wide strips (one cooperative launch, B x CTAs
-//     co-resident, edge rows through mailboxes in device memory) where a
-//     cluster cannot hold the plane in one pass;
-//   * one launch per plane for all lanes (blockIdx.z = lane) beyond both.
-//
-// The voxel graph rides the strips' carried-id channel: the carried id of
-// a cell is its bitfield, and the halo rows' ids are read from the volume.
+// B4 in the strips: B5's operator for one lane (`at_lane` moves it there).
 template <bool NODE, bool CLAMP, bool VG>
-__global__ void batched_plane(const float* __restrict__ d,
-                              const uint8_t* __restrict__ ok,
-                              const float* __restrict__ nc,
-                              const uint32_t* __restrict__ vg,
-                              float* __restrict__ out, int n, int H, int W,
-                              int64_t plane, int64_t prev, kt::Costs9 costs,
-                              Bits9 bits) {
-    const int z = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (y >= H || z >= W) return;
-    const int64_t base = (int64_t)blockIdx.z * n * H * W;
-    sweep_cell<NODE, CLAMP, VG>(d, ok, nc, vg, out, H, W, base, plane, prev,
-                                y, z, costs, bits);
-}
-
-template <bool NODE, bool CLAMP, bool VG>
-int run_batched(const void* d, const void* ok, const void* nc, const void* vg,
-                void* out, int B, int n, int H, int W, const kt::Costs9& costs,
-                const Bits9& bits, int descending, cudaStream_t st) {
-    dim3 grid = kt::plane_grid(H, W);
-    grid.z = B;
-    const dim3 block = kt::plane_block();
-    for (int s = 0; s < n; ++s) {
-        int64_t plane, prev;
-        kt::sweep_planes(s, n, descending, &plane, &prev);
-        batched_plane<NODE, CLAMP, VG><<<grid, block, 0, st>>>(
-            (const float*)d, (const uint8_t*)ok, (const float*)nc,
-            (const uint32_t*)vg, (float*)out, n, H, W, plane, prev, costs,
-            bits);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return 0;
-}
-
-// B4 in the strips: the operator of kt::sweep_strips for one lane (`at_lane`
-// moves it there). Operands in this order: d (, nc) (, vg) words, ok bytes.
-template <bool NODE, bool CLAMP, bool VG>
-struct BatchedOp {
-    using T = float;
-    static constexpr int kFields = 1;
-    static constexpr bool kIds = VG;
-    static constexpr int kVg = NODE ? 2 : 1;  // vg's operand index
-    static constexpr int kWords = 1 + (NODE ? 1 : 0) + (VG ? 1 : 0);
-    static constexpr int kBytes = 1;
-
-    const float* d;
-    const uint8_t* ok;
-    const float* nc;
-    const uint32_t* vg;
-    float* out;
-    kt::Costs9 costs;
-    Bits9 bits;
+struct BatchedOp : Axis0Op<NODE, CLAMP, VG> {
     int64_t lane_elems;  // n * H * W
 
     __device__ BatchedOp at_lane(int b) const {
@@ -326,59 +264,9 @@ struct BatchedOp {
         o.d += e;
         o.ok += e;
         if (NODE) o.nc += e;
-        if (VG) o.vg += e;
+        if (VG) o.gate += e;
         o.out += e;
         return o;
-    }
-
-    __device__ float fill() const { return INFINITY; }
-
-    __device__ const void* operand(int k) const {
-        if (k == 0) return d;
-        if (NODE && k == 1) return nc;
-        if (VG && k == kVg) return vg;
-        return ok;
-    }
-
-    __device__ int32_t halo_id(int64_t j) const {
-        return VG ? (int32_t)vg[j] : 0;
-    }
-
-    // the arithmetic of `sweep_cell`, in its order; the carried ids are
-    // the neighbours' bitfields
-    __device__ __forceinline__ void relax(
-        bool first, const kt::StageView<kWords + kBytes>& in, int i,
-        const float (&v)[1][kt::kGroup + 2][3],
-        const int32_t (&nid)[kt::kGroup + 2][3], int rr, float (&nv)[1],
-        int32_t& cid) const {
-        const float cur = ((const float*)in.p[0])[i];
-        if (VG) cid = ((const int32_t*)in.p[kVg])[i];
-        if (first) {
-            nv[0] = cur;
-            return;
-        }
-        float cand = INFINITY;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-            for (int dz = 0; dz < 3; ++dz) {
-                float sv = v[0][rr + dy][dz];
-                if (VG && ((((uint32_t)nid[rr + dy][dz]) >>
-                            bits.b[3 * dy + dz]) & 1u) == 0u) {
-                    sv = INFINITY;
-                }
-                cand = NODE ? fminf(cand, sv)
-                            : fminf(cand, __fadd_rn(sv, costs.c[3 * dy + dz]));
-            }
-        }
-        if (NODE) cand = __fadd_rn(cand, ((const float*)in.p[1])[i]);
-        float r = in.p[kWords][i] ? fminf(cur, cand) : INFINITY;
-        if (CLAMP && r > 0.0f) r = INFINITY;
-        nv[0] = r;
-    }
-
-    __device__ void store(int64_t j, const float (&nv)[1]) const {
-        out[j] = nv[0];
     }
 };
 
@@ -512,20 +400,14 @@ kt::StripPlan plan_batched(int B, int H, int W) {
 }
 
 template <bool NODE, bool CLAMP, bool VG>
-int dispatch_batched(const void* d, const void* ok, const void* nc,
-                     const void* vg, void* mail, void* out, int B, int n,
-                     int H, int W, const kt::Costs9& costs, const Bits9& bits,
-                     int descending, cudaStream_t st) {
+int dispatch_batched(const BatchedOp<NODE, CLAMP, VG>& op, void* mail, int B,
+                     int n, int H, int W, int descending, cudaStream_t st) {
     if (n <= 0 || H <= 0 || W <= 0) return 0;
     const kt::StripPlan plan = plan_batched<NODE, VG>(B, H, W);
     if (plan.form == kt::kPerPlane) {
-        return run_batched<NODE, CLAMP, VG>(d, ok, nc, vg, out, B, n, H, W,
-                                            costs, bits, descending, st);
+        return run_batched<NODE, CLAMP, VG>(op, B, n, H, W, descending, st);
     }
     using Op = BatchedOp<NODE, CLAMP, VG>;
-    const Op op = {(const float*)d, (const uint8_t*)ok, (const float*)nc,
-                   (const uint32_t*)vg, (float*)out, costs, bits,
-                   (int64_t)n * H * W};
     int R = plan.strips.rows;
     if (plan.form == kt::kCluster) {
         void (*kern)(Op, int, int, int, int, int) = batched_cluster<Op>;
@@ -567,61 +449,70 @@ int dispatch_batched(const void* d, const void* ok, const void* nc,
                                             plan.smem, st);
 }
 
-template <bool NODE, bool CLAMP>
-int dispatch_batched_vg(int has_vg, const void* d, const void* ok,
-                        const void* nc, const void* vg, void* mail, void* out,
-                        int B, int n, int H, int W, const kt::Costs9& costs,
-                        const Bits9& bits, int descending, cudaStream_t st) {
-    return has_vg ? dispatch_batched<NODE, CLAMP, true>(
-                        d, ok, nc, vg, mail, out, B, n, H, W, costs, bits,
-                        descending, st)
-                  : dispatch_batched<NODE, CLAMP, false>(
-                        d, ok, nc, vg, mail, out, B, n, H, W, costs, bits,
-                        descending, st);
+// fn(node, clamp, vg) with each flag as a std::integral_constant, so that
+// fn instantiates the template of those flags
+template <class Fn>
+int by_flags(int node, int clamp, int vg, Fn fn) {
+    using Y = std::true_type;
+    using N = std::false_type;
+    auto with_vg = [&](auto nd, auto cl) {
+        return vg ? fn(nd, cl, Y{}) : fn(nd, cl, N{});
+    };
+    auto with_clamp = [&](auto nd) {
+        return clamp ? with_vg(nd, Y{}) : with_vg(nd, N{});
+    };
+    return node ? with_clamp(Y{}) : with_clamp(N{});
+}
+
+// the operator's step costs and gate bits from the host's arrays, or a
+// cudaError_t code
+int read_costs_bits(const float* costs9, const int* bits9, kt::Costs9* costs,
+                    Bits9* bits) {
+    *costs = kt::make_costs9(costs9);
+    for (int k = 0; k < 9; ++k) {
+        bits->b[k] = bits9 ? bits9[k] : 0;
+        if (bits->b[k] < 0 || bits->b[k] > 31) {
+            return (int)cudaErrorInvalidValue;
+        }
+    }
+    return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// B4. d/out/nc: float32, ok: uint8 (bool), vg: uint32, all (B, n, H, W)
-// contiguous; nc may be NULL when node_mode is 0, vg and bits9 are both NULL
-// or both given (bits9: nine bit indices in (dy, dz) order). mail: int64
-// (B * strips * 4 * W,) for the per-lane grid strips
+// B4. d/out/nc: float32, ok: uint8 (bool), gate: uint32 (graph_into words
+// of each lane), all (B, n, H, W) contiguous; nc may be NULL when node_mode
+// is 0, gate and bits9 are both NULL or both given (bits9: the gate bit of
+// each of the nine previous-plane neighbours in (dy, dz) order). mail:
+// int64 (B * strips * 4 * W,) for the per-lane grid strips
 // (kt_sweep_axis0_batched_plan form 1), zeroed by the caller before every
 // call, else ignored. Returns a cudaError_t code (0 = success).
 int kt_sweep_axis0_batched(const void* d, const void* ok, const void* nc,
-                           const void* vg, void* mail, void* out, int B,
+                           const void* gate, void* mail, void* out, int B,
                            int n, int H, int W, const float* costs9,
                            const int* bits9, int node_mode, int clamp,
                            int descending, void* stream) {
     if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
     if (node_mode && nc == nullptr) return (int)cudaErrorInvalidValue;
-    if ((vg == nullptr) != (bits9 == nullptr)) {
+    if ((gate == nullptr) != (bits9 == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
-    const kt::Costs9 costs = kt::make_costs9(costs9);
+    kt::Costs9 costs;
     Bits9 bits;
-    for (int k = 0; k < 9; ++k) {
-        bits.b[k] = bits9 ? bits9[k] : 0;
-        if (bits.b[k] < 0 || bits.b[k] > 31) return (int)cudaErrorInvalidValue;
-    }
-    const int has_vg = vg != nullptr;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (node_mode) {
-        return clamp ? dispatch_batched_vg<true, true>(
-                           has_vg, d, ok, nc, vg, mail, out, B, n, H, W,
-                           costs, bits, descending, st)
-                     : dispatch_batched_vg<true, false>(
-                           has_vg, d, ok, nc, vg, mail, out, B, n, H, W,
-                           costs, bits, descending, st);
-    }
-    return clamp ? dispatch_batched_vg<false, true>(
-                       has_vg, d, ok, nc, vg, mail, out, B, n, H, W, costs,
-                       bits, descending, st)
-                 : dispatch_batched_vg<false, false>(
-                       has_vg, d, ok, nc, vg, mail, out, B, n, H, W, costs,
-                       bits, descending, st);
+    const int bad = read_costs_bits(costs9, bits9, &costs, &bits);
+    if (bad) return bad;
+    return by_flags(node_mode, clamp, gate != nullptr,
+                    [&](auto nd, auto cl, auto vg) {
+        const BatchedOp<decltype(nd)::value, decltype(cl)::value,
+                        decltype(vg)::value> op = {
+            {(const float*)d, (const uint8_t*)ok, (const float*)nc,
+             (const uint32_t*)gate, (float*)out, costs, bits},
+            (int64_t)n * H * W};
+        return dispatch_batched(op, mail, B, n, H, W, descending,
+                                (cudaStream_t)stream);
+    });
 }
 
 // How B4 runs B lanes of (H, W) planes on the current device: returns the
@@ -643,60 +534,37 @@ int kt_sweep_axis0_batched_plan(int B, int H, int W, int node_mode,
     return plan.form;
 }
 
-// B5. d/out/nc: float32, ok: uint8 (bool), vg: uint32, all (n, H, W)
-// contiguous; nc may be NULL when node_mode is 0, vg and bits9 are both
-// NULL or both given (bits9: nine bit indices in (dy, dz) order). mail:
-// int64 (strips * 4 * W,) for the grid-wide strips (kt_sweep_axis0_plan
-// form 1), zeroed by the caller before every call, else ignored. Returns a
+// B5. d/out/nc: float32, ok: uint8 (bool), gate: uint32 (graph_into
+// words), all (n, H, W) contiguous; nc may be NULL when node_mode is 0,
+// gate and bits9 are both NULL or both given (bits9: the gate bit of each
+// of the nine previous-plane neighbours in (dy, dz) order). mail: int64
+// (strips * 4 * W,) for the grid-wide strips (kt_sweep_axis0_plan form 1),
+// zeroed by the caller before every call, else ignored. Returns a
 // cudaError_t code (0 = success).
 int kt_sweep_axis0(const void* d, const void* ok, const void* nc,
-                   const void* vg, void* mail, void* out, int n, int H, int W,
-                   const float* costs9, const int* bits9, int node_mode,
-                   int clamp, int descending, void* stream) {
+                   const void* gate, void* mail, void* out, int n, int H,
+                   int W, const float* costs9, const int* bits9,
+                   int node_mode, int clamp, int descending, void* stream) {
     if (node_mode && nc == nullptr) return (int)cudaErrorInvalidValue;
-    if ((vg == nullptr) != (bits9 == nullptr)) {
+    if ((gate == nullptr) != (bits9 == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
-    const kt::Costs9 costs = kt::make_costs9(costs9);
+    kt::Costs9 costs;
     Bits9 bits;
-    for (int k = 0; k < 9; ++k) {
-        bits.b[k] = bits9 ? bits9[k] : 0;
-        if (bits.b[k] < 0 || bits.b[k] > 31) return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t st = (cudaStream_t)stream;
-    if (vg != nullptr) {
-        if (node_mode) {
-            return clamp ? dispatch_axis0<true, true, true>(
-                               d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                               descending, st)
-                         : dispatch_axis0<true, false, true>(
-                               d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                               descending, st);
-        }
-        return clamp ? dispatch_axis0<false, true, true>(
-                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                           descending, st)
-                     : dispatch_axis0<false, false, true>(
-                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                           descending, st);
-    }
-    if (node_mode) {
-        return clamp ? dispatch_axis0<true, true, false>(
-                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                           descending, st)
-                     : dispatch_axis0<true, false, false>(
-                           d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                           descending, st);
-    }
-    return clamp ? dispatch_axis0<false, true, false>(
-                       d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                       descending, st)
-                 : dispatch_axis0<false, false, false>(
-                       d, ok, nc, vg, mail, out, n, H, W, costs, bits,
-                       descending, st);
+    const int bad = read_costs_bits(costs9, bits9, &costs, &bits);
+    if (bad) return bad;
+    return by_flags(node_mode, clamp, gate != nullptr,
+                    [&](auto nd, auto cl, auto vg) {
+        const Axis0Op<decltype(nd)::value, decltype(cl)::value,
+                      decltype(vg)::value> op = {
+            (const float*)d, (const uint8_t*)ok, (const float*)nc,
+            (const uint32_t*)gate, (float*)out, costs, bits};
+        return dispatch_axis0(op, mail, n, H, W, descending,
+                              (cudaStream_t)stream);
+    });
 }
 
-// How B5 runs a plane of H x W on the current device (with a voxel graph
+// How B5 runs a plane of H x W on the current device (with a graph gate
 // where has_vg): returns the form (0 per plane, 1 grid-wide strips, 2 one
 // cluster) with its rows per strip and its strips (CTAs).
 int kt_sweep_axis0_plan(int H, int W, int node_mode, int has_vg, int* rows,

@@ -24,8 +24,10 @@ The fallback set equals the JAX engine's; `relax_retries` counts only
 the re-runs made.
 
 Under a voxel graph (self-touch walls) each lane also crops the graph
-with its label: it gates every relaxation (B4's graph-gated form), the
-soma re-EDT's runs and, padded with zeros, the rail chase.
+with its label: the graph gates the soma re-EDT's runs and, padded with
+zeros, the rail chase, and its gate (ops.stencils.graph_into of the
+lanes, built once per lane set) gates every relaxation (B4's
+graph-gated form).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from .ops.chase import RELAX_ROUNDS, chase_batched
 from .ops.edt import AXIS_UNIT, wall_segments
 from .ops.fma import fma_f32
 from .ops.geodesic import _flood6_stage, relax_rounds_batched
-from .ops.stencils import graph_allows, graph_word
+from .ops.stencils import graph_allows, graph_into, graph_word
 from .skeleton import Skeleton
 from .trace import _pdrf_kernel, root_distance
 from .utils import profiling
@@ -133,21 +135,22 @@ def _bcast(flags, ndim=4):
 
 
 def _relax_where(sel, d, ok, nc, anisotropy, rounds, clamp_positive=False,
-                 conv="exact", vg=None):
-    """relax_rounds_batched on the lanes where `sel` holds (with the
-    lanes' voxel graphs `vg`, where given). The other lanes keep `d` and
+                 conv="exact", gate=None):
+    """relax_rounds_batched on the lanes where `sel` holds (gated by the
+    lanes' graph gates `gate`, where given). The other lanes keep `d` and
     report converged: the JAX engine computes them too and selects them
     away."""
     idx = sel.nonzero()[:, 0]
     if idx.numel() == sel.numel():
         return relax_rounds_batched(d, ok, nc, anisotropy, rounds,
-                                    clamp_positive, conv, vg)
+                                    clamp_positive, conv, gate=gate)
     out = d.clone()
     done = torch.ones_like(sel)
     if idx.numel():
         sub, c = relax_rounds_batched(
             d[idx], ok[idx], None if nc is None else nc[idx], anisotropy,
-            rounds, clamp_positive, conv, None if vg is None else vg[idx])
+            rounds, clamp_positive, conv,
+            gate=None if gate is None else gate[idx])
         out[idx] = sub
         done[idx] = c
     return out, done
@@ -255,14 +258,14 @@ def _find_soma_root(dbf, dbf_max):
     return _unravel(torch.argmin(d2.flatten(1), dim=1), shape)
 
 
-def _euclid_field(fg, src, anisotropy, rounds, vg=None):
+def _euclid_field(fg, src, anisotropy, rounds, gate=None):
     """Geodesic euclidean field from one source voxel per lane (gated by
-    the lanes' voxel graphs `vg`, where given). Returns (dist,
+    the lanes' graph gates `gate`, where given). Returns (dist,
     converged)."""
     init = torch.full(fg.shape, INF, dtype=torch.float32, device=fg.device)
     init = _scatter(init, src[:, None, :], 0.0)
     return relax_rounds_batched(init, fg, None, anisotropy, rounds,
-                                voxel_graph=vg)
+                                gate=gate)
 
 
 # --------------------------------------------------------------------------- #
@@ -325,6 +328,11 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
                 dbf[b] = dbf_vol[sl]
                 if vg is not None:
                     vg[b] = vg_vol[sl]
+    # the lanes' graph gates, for every relaxation of this lane set
+    gate = None
+    if vg is not None:
+        with profiling.phase("graph_gate", dev):
+            gate = graph_into(vg)
     lid = t(lids, cc.dtype)
     fg = (lab == _bcast(lid)) & _bcast(lid > 0)
     del lab
@@ -362,7 +370,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     soma_root = _find_soma_root(dbf, dbf_max)
     first_vox = _unravel(torch.argmax(fg.flatten(1).to(torch.uint8), dim=1),
                          shape)
-    d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main, vg)
+    d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main, gate)
     nc_bits |= torch.where(conv_p, 0, 2).int()
     auto_root = _masked_argmax_coords(
         torch.where(torch.isfinite(d_probe), d_probe, -INF), fg)
@@ -374,7 +382,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
 
     # --- DAF + PDRF (reference trace.py:138-148,315-356)
     dbf_inf = torch.where(dbf == 0, INF, dbf)
-    daf, conv_d = _euclid_field(fg, root, anis, r_main, vg)
+    daf, conv_d = _euclid_field(fg, root, anis, r_main, gate)
     nc_bits |= torch.where(conv_d, 0, 4).int()
     daf = torch.where(torch.isfinite(daf), daf, 0.0)
     daf_target = _masked_argmax_coords(daf, fg)
@@ -395,7 +403,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         ok = _scatter(valid, root[:, None, :], True)
         bd, conv_s = _relax_where(soma_mode, init, ok, None, anis, r_ball,
                                   clamp_positive=True, conv="negative",
-                                  vg=vg)
+                                  gate=gate)
         valid = torch.where(_bcast(soma_mode), valid & ~(bd <= 0.0), valid)
         nc_bits |= torch.where(conv_s, 0, 16).int()
         del init, ok, bd
@@ -425,8 +433,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     pdrf = _scatter(pdrf, root[:, None, :], 0.0)
     d0 = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
     d_rail, conv_r = relax_rounds_batched(_scatter(d0, root[:, None, :], 0.0),
-                                          fg, pdrf, anis, r_main,
-                                          voxel_graph=vg)
+                                          fg, pdrf, anis, r_main, gate=gate)
     nc_bits |= torch.where(conv_r, 0, 8).int()
     del d0
 
@@ -442,6 +449,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     pos = torch.arange(L, device=dev)
     # the chase's graph: no permission across the crop's edge
     vg_pad = None if vg is None else F.pad(vg, (1, 1, 1, 1, 1, 1), value=0)
+    del vg
     while True:
         act = (((vc > 0) | (nb > 0) | (na > 0)) & (k < cap) & ~ov
                & (nc == 0) & ~blocked)
@@ -460,7 +468,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         na[a] = torch.where(use_after, na_a - 1, na_a)
 
         d_pad = F.pad(d_rail[a], (1, 1, 1, 1, 1, 1), value=INF)
-        vg_a = None if vg is None else vg[a]
+        gate_a = None if gate is None else gate[a]
         path, plen, reached = chase_batched(
             d_pad, target, L, None if vg_pad is None else vg_pad[a])
         del d_pad
@@ -483,7 +491,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
         inv = vc_a > 0
         bd, conv_b = _relax_where(inv, init, ok_inv, None, anis, r_ball,
                                   clamp_positive=True, conv="negative",
-                                  vg=vg_a)
+                                  gate=gate_a)
         ball = (bd <= 0.0) & _bcast(inv)
         valid[a] = valid_a & ~ball
         vc[a] = vc_a - (ball & valid_a).flatten(1).sum(dim=1)
@@ -495,7 +503,7 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
             pdrf_a = _scatter(pdrf[a], path, 0.0)
             d_warm, conv_w = relax_rounds_batched(
                 _scatter(d_rail[a], path, 0.0), fg[a], pdrf_a, anis, r_warm,
-                voxel_graph=vg_a)
+                gate=gate_a)
             pdrf[a] = pdrf_a
             d_rail[a] = d_warm
             nc_a = nc_a | torch.where(conv_w, 0, 32).int()

@@ -7,7 +7,7 @@ library at import time, so the package imports on machines without a GPU;
 the CPU code paths never call `lib()`.
 
 Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep, ops.xsfetch,
-ops.xsslab, ops.fma, ops.voronoi) adds one to its entry in `LAUNCHES` where
+ops.xsslab, ops.fma, ops.voronoi, ops.stencils) adds one to its entry in `LAUNCHES` where
 it launches its kernel, and nowhere else.
 """
 
@@ -25,7 +25,7 @@ from typing import Dict, Optional
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu",
-            "fma.cu", "voronoi.cu")
+            "fma.cu", "voronoi.cu", "gate.cu")
 _HEADERS = ("plane.cuh",)
 
 NVCC_FLAGS = (
@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
-# F1, V1 and its lane-batched form); the forms gated by a voxel graph (B1,
-# B4, B5) count apart
+# F1, V1 and its lane-batched form, G1); the forms gated by a voxel graph
+# (B1, B4, B5) count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_vg": 0,
@@ -53,6 +53,7 @@ LAUNCHES: Dict[str, int] = {
     "fma_f32": 0,
     "voronoi_sweep": 0,
     "voronoi_sweep_batched": 0,
+    "graph_into": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -174,6 +175,8 @@ def lib() -> ctypes.CDLL:
         so.kt_voronoi_lanes.restype = i
         so.kt_voronoi_lanes_limits.argtypes = [p, p]
         so.kt_voronoi_lanes_limits.restype = i
+        so.kt_graph_into.argtypes = [p, p, ll, i, i, i, p, p]
+        so.kt_graph_into.restype = i
         _LIB = so
     return _LIB
 

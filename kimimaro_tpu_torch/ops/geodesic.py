@@ -19,8 +19,12 @@ is the legacy box-shaped invalidation, slice fills on `device`.
 
 `voxel_graph` (optional, cc3d convention, ops.stencils.GRAPH_BITS): a
 candidate reaching v from u = v + o counts only where u permits the move
-along -o; every sweep reads u's bit through the table of its layout
-(`sweep_bits9`).
+along -o. The sweeps read that permission at v, from v's gate word
+(ops.stencils.graph_into) through the bits of their layout
+(ops.gsweep.gate_bits9): `relax_rounds_batched` builds the gate of its
+lanes once a call (or takes it prebuilt, `gate=`), and a field builds it
+once (or takes a `SweepGate` built once for many fields, as the host
+trace path does for a label).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 
 from ..utils import profiling
 from .fma import fma_f32
-from .stencils import (GRAPH_BITS, as_tensor, graph_allows, graph_word,
+from .gsweep import gate_bits9
+from .stencils import (GRAPH_BITS, as_tensor, graph_allows, graph_into,
                        neighborhood_offsets, shifted)
 from .sweep import sweep_axis0, sweep_axis0_batched
 from .voronoi import voronoi_sweep
@@ -73,13 +78,28 @@ def sweep_bits9(axis: int, descending: bool) -> tuple:
     return tuple(bits)
 
 
+class SweepGate:
+    """A voxel graph's gate (ops.stencils.graph_into) moved to axis 0 of
+    each of the three sweep axes: built once, it serves every sweep of
+    every field of a volume. Any function of this module that takes a
+    `voxel_graph` for its sweeps takes a SweepGate there too."""
+
+    __slots__ = ("views",)
+
+    def __init__(self, voxel_graph):
+        gate = graph_into(voxel_graph)
+        self.views = tuple(torch.movedim(gate, a, 0).contiguous()
+                           for a in range(3))
+
+
 class _SweptViews:
     """The static operands of a relax (the ok mask, the node costs and
-    the voxel graph) moved to axis 0 of each of the three sweep axes,
-    built once per distance field and reused by every sweep of every
-    stage; only the field itself moves per sweep."""
+    the voxel graph's gate) moved to axis 0 of each of the three sweep
+    axes, built once per distance field (the gate once per SweepGate) and
+    reused by every sweep of every stage; only the field itself moves per
+    sweep."""
 
-    __slots__ = ("ok", "nc", "vg")
+    __slots__ = ("ok", "nc", "gate")
 
     def __init__(self, ok, node_cost, voxel_graph=None):
         def moved(t):
@@ -89,8 +109,10 @@ class _SweptViews:
 
         self.ok = moved(ok)
         self.nc = moved(node_cost)
-        self.vg = moved(None if voxel_graph is None
-                        else graph_word(voxel_graph))
+        if voxel_graph is not None and \
+                not isinstance(voxel_graph, SweepGate):
+            voxel_graph = SweepGate(as_tensor(voxel_graph).to(ok.device))
+        self.gate = None if voxel_graph is None else voxel_graph.views
 
 
 def _sweep(dist, views: _SweptViews, axis: int, direction: int, anisotropy,
@@ -102,11 +124,11 @@ def _sweep(dist, views: _SweptViews, axis: int, direction: int, anisotropy,
         float(anisotropy[i]) for i in range(3) if i != axis)
     d2 = torch.movedim(dist, axis, 0).contiguous()
     nc2 = None if views.nc is None else views.nc[axis]
-    vg2 = None if views.vg is None else views.vg[axis]
-    bits = None if vg2 is None else sweep_bits9(axis, direction < 0)
+    gate = None if views.gate is None else views.gate[axis]
+    bits = None if gate is None else gate_bits9(axis, direction < 0)
     out = sweep_axis0(d2, views.ok[axis], nc2, anis_perm, nc2 is not None,
                       bool(clamp_positive), descending=direction < 0,
-                      vg=vg2, bits9=bits)
+                      gate=gate, gate_bits9=bits)
     return torch.movedim(out, 0, axis).contiguous()
 
 
@@ -144,19 +166,26 @@ def _relax_stage(d, views: _SweptViews, anisotropy, clamp_positive: bool,
 
 def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
                          clamp_positive: bool = False, conv: str = "exact",
-                         voxel_graph=None):
+                         voxel_graph=None, gate=None):
     """`rounds` full 6-sweep rounds plus one checking round over a batch
     of (B, X, Y, Z) lanes (counterpart of geodesic.relax_rounds_batchable
     under vmap). Returns (d, converged): converged[b] when lane b's last
     round changed nothing under `conv` ("exact", "reach" or "negative").
-    `voxel_graph`: (B, X, Y, Z) per-lane bitfields gating every move.
+    `voxel_graph`: (B, X, Y, Z) per-lane bitfields gating every move;
+    `gate`: their gate words (ops.stencils.graph_into of the batch),
+    built once by a caller that relaxes the same lanes many times (one of
+    the two at most).
 
     Axes 1 and 2 are swept through permuted contiguous copies (ok, nc and
-    the graph are permuted once per call, d twice per axis and round). The
+    the gate are permuted once per call, d twice per axis and round). The
     loop stops early after a round that changed no value of any lane: the
     field is then a fixpoint, so the values and flags equal a full run's."""
     node_mode = nc is not None
-    vg = None if voxel_graph is None else graph_word(voxel_graph)
+    if voxel_graph is not None:
+        if gate is not None:
+            raise ValueError("relax_rounds_batched: give voxel_graph or "
+                             "gate, not both")
+        gate = graph_into(voxel_graph)
     layouts = []
     for a in range(3):
         h, w = [i for i in range(3) if i != a]
@@ -166,19 +195,19 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
                      float(anisotropy[w]))
         okp = ok.permute(perm).contiguous()
         ncp = nc.permute(perm).contiguous() if node_mode else None
-        vgp = None if vg is None else vg.permute(perm).contiguous()
-        layouts.append((a, perm, inv, anis_perm, okp, ncp, vgp))
+        gp = None if gate is None else gate.permute(perm).contiguous()
+        layouts.append((a, perm, inv, anis_perm, okp, ncp, gp))
 
     changed = torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
     for _ in range(int(rounds) + 1):
         nd = d
-        for a, perm, inv, anis_perm, okp, ncp, vgp in layouts:
+        for a, perm, inv, anis_perm, okp, ncp, gp in layouts:
             dm = nd.permute(perm).contiguous()
             for desc in (False, True):
-                bits = None if vgp is None else sweep_bits9(a, desc)
+                bits = None if gp is None else gate_bits9(a, desc)
                 dm = sweep_axis0_batched(dm, okp, ncp, anis_perm, node_mode,
                                          bool(clamp_positive), desc,
-                                         vg=vgp, bits9=bits)
+                                         gate=gp, gate_bits9=bits)
             nd = dm.permute(inv).contiguous()
         same = not bool((nd != d).any())
         changed = _lane_changed(nd, d, conv)
@@ -205,7 +234,8 @@ def distance_field(ok_mask, init_dist,
     everywhere except the sources. node_cost: if given, the cost of
     entering v is node_cost[v]; else anisotropic euclidean step costs.
     clamp_positive: values > 0 reset to +inf each sweep (invalidation
-    ball). `voxel_graph`: the cc3d-convention bitfield gating every move.
+    ball). `voxel_graph`: the cc3d-convention bitfield gating every move,
+    or a SweepGate built from it.
     `rounds`: run exactly rounds + 1 rounds and return, with no host
     synchronization (the field may be unconverged). Otherwise stages of
     seven rounds run until one changes nothing under `conv` ("exact",
@@ -218,9 +248,7 @@ def distance_field(ok_mask, init_dist,
     d = torch.where(ok, init, INF)
     nc = (None if node_cost is None else
           as_tensor(node_cost).to(device=ok.device, dtype=torch.float32))
-    vg = (None if voxel_graph is None
-          else as_tensor(voxel_graph).to(ok.device))
-    views = _SweptViews(ok, nc, vg)
+    views = _SweptViews(ok, nc, voxel_graph)
     if rounds is not None:
         for _ in range(int(rounds) + 1):
             for axis in range(3):

@@ -3,11 +3,14 @@ kimimaro_tpu.ops.stencils)."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import kernels
 from ..utils.device import resolve_device
 
 
@@ -62,17 +65,51 @@ def graph_allows(voxel_graph: torch.Tensor, offset: Sequence[int]
     return ((graph_word(voxel_graph) >> bit) & 1) > 0
 
 
+def _graph_into_plain(vg: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the G1 kernel: the 26 moves one after
+    another, each a shifted copy of the words."""
+    X, Y, Z = vg.shape[-3:]
+    padded = F.pad(vg, (1, 1, 1, 1, 1, 1))
+    out = torch.zeros_like(vg)
+    for o, bit in GRAPH_BITS.items():
+        back = GRAPH_BITS[tuple(-c for c in o)]
+        u = padded[..., 1 + o[0]:1 + o[0] + X, 1 + o[1]:1 + o[1] + Y,
+                   1 + o[2]:1 + o[2] + Z]
+        out |= ((u >> back) & 1) << bit
+    return out
+
+
+def _offset_bits():
+    """G1's table: the bit of each offset of the 3 x 3 x 3 neighbourhood
+    in (dx, dy, dz) order, then the bit of its reverse (0 at the
+    centre)."""
+    offs = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+    bit = [GRAPH_BITS.get(o, 0) for o in offs]
+    back = [GRAPH_BITS.get(tuple(-c for c in o), 0) for o in offs]
+    return (ctypes.c_int * 54)(*(bit + back))
+
+
 def graph_into(voxel_graph: torch.Tensor) -> torch.Tensor:
     """The permissions of the moves INTO each voxel: bit GRAPH_BITS[o] of
     the result at v is set where the neighbour u = v + o lies in the
     volume and u's bit for -o (the move u -> v) is set. int32, the shape
     of `voxel_graph`; a sweep that relaxes v from u reads this word of v
-    instead of u's."""
-    vg = graph_word(voxel_graph)
-    out = torch.zeros_like(vg)
-    for o, bit in GRAPH_BITS.items():
-        back = GRAPH_BITS[tuple(-c for c in o)]
-        out |= ((shifted(vg, o, 0) >> back) & 1) << bit
+    instead of u's. The moves run along the last three axes: a leading
+    axis is one of lanes, and a lane's words see only its own graph. A
+    CUDA tensor takes one launch of kernel G1 (csrc/gate.cu), a CPU
+    tensor its plain version."""
+    vg = graph_word(voxel_graph).contiguous()
+    if vg.device.type == "cpu":
+        return _graph_into_plain(vg)
+    kernels.require_cuda("graph_into", vg, dtypes=((torch.int32,),))
+    X, Y, Z = vg.shape[-3:]
+    out = torch.empty_like(vg)
+    rc = kernels.lib().kt_graph_into(
+        kernels.ptr(vg), kernels.ptr(out), vg.numel() // max(X * Y * Z, 1),
+        X, Y, Z, _offset_bits(), kernels.stream_ptr(vg.device))
+    kernels.check(rc, "graph_into")
+    kernels.LAUNCHES["graph_into"] += 1
     return out
 
 

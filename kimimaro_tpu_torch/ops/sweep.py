@@ -9,13 +9,20 @@ Torch counterpart of kimimaro_tpu.ops.pallas_sweep (`sweep_axis0`,
   clamp_positive: positives reset to +inf (invalidation balls)
 
 The first plane of the sweep passes through unchanged. `descending` walks
-the planes from the last to the first instead of flipping the data. With a
-voxel graph (`vg`, `bits9`) a candidate from the neighbour u of the
-previous plane counts only where u's bit for the move is set; those forms
-count their launches apart ("sweep_axis0_vg", "sweep_axis0_batched_vg"). For
-CUDA tensors each wrapper launches its kernel of csrc/sweep.cu once a
-sweep, in the form `sweep_axis0_plan` (B5) or `sweep_axis0_batched_plan`
-(B4) names; for CPU tensors it runs the plain version beside it.
+the planes from the last to the first instead of flipping the data.
+
+A voxel graph gates the candidates in one of two forms. `vg`/`bits9` are
+the JAX package's: the source bitfields, and the bit of the neighbour u of
+the previous plane that allows its move into the voxel. `gate`/
+`gate_bits9` is the form the kernels read: a word per voxel (ops.stencils
+.graph_into, built once for many sweeps), and the bit of that word that
+opens the move from each of the nine neighbours (ops.gsweep.gate_bits9).
+Given `vg`, a wrapper builds the gate of its sweep itself
+(`source_gate`). The gated forms count their launches apart
+("sweep_axis0_vg", "sweep_axis0_batched_vg"). For CUDA tensors each
+wrapper launches its kernel of csrc/sweep.cu once a sweep, in the form
+`sweep_axis0_plan` (B5) or `sweep_axis0_batched_plan` (B4) names; for CPU
+tensors it runs the plain version beside it.
 """
 
 from __future__ import annotations
@@ -29,103 +36,159 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .gsweep import _costs9
-from .stencils import pad_const
 
 INF = float("inf")
 
 
-def _graph_operands(name, vg, bits9):
-    """vg as int32 words (uint32 read through a view: the bit tests see
-    the same bits) and bits9 as nine ints in 0..31, or (None, None)."""
-    if (vg is None) != (bits9 is None):
-        raise ValueError(f"{name}: give vg and bits9 together")
-    if vg is None:
-        return None, None
-    vg = vg.view(torch.int32) if vg.dtype == torch.uint32 else vg
+def _bits(name, bits9):
     bits9 = tuple(int(b) for b in bits9)
     if len(bits9) != 9 or not all(0 <= b < 32 for b in bits9):
-        raise ValueError(f"{name}: bad bits9 {bits9}")
-    return vg, bits9
+        raise ValueError(f"{name}: bad bits {bits9}")
+    return bits9
+
+
+def _words(t):
+    """uint32 words read as int32 (a view: the bit tests see the same
+    bits)."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def source_gate(vg, bits9, descending: bool):
+    """The gate of one sweep from the voxel graph's source bitfields
+    (int32 words, (..., n, H, W): the sweep runs along axis -3 of each
+    lane): bit k of the word at v is bit bits9[k] of v's neighbour k on the
+    previous plane, clear where that neighbour lies outside. Returns the
+    gate and its bits, (0, ..., 8)."""
+    n, H, W = vg.shape[-3:]
+    p = F.pad(vg, (1, 1, 1, 1, 1, 1))
+    prev = p[..., 2:n + 2, :, :] if descending else p[..., 0:n, :, :]
+    gate = torch.zeros_like(vg)
+    k = 0
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            u = prev[..., 1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+            gate |= ((u >> bits9[k]) & 1) << k
+            k += 1
+    return gate, tuple(range(9))
+
+
+def _gate_operands(name, descending, vg, bits9, gate, gate_bits9):
+    """The gate a sweep reads and its nine bits, from either form (None,
+    None without a graph)."""
+    if (vg is None) != (bits9 is None) or \
+            (gate is None) != (gate_bits9 is None):
+        raise ValueError(f"{name}: give vg with bits9 and gate with "
+                         f"gate_bits9")
+    if vg is not None and gate is not None:
+        raise ValueError(f"{name}: give vg or gate, not both")
+    if vg is not None:
+        return source_gate(_words(vg), _bits(name, bits9), descending)
+    if gate is None:
+        return None, None
+    return _words(gate), _bits(name, gate_bits9)
 
 
 def _sweep_axis0_plain(d, ok, node_cost, anisotropy, node_mode: bool,
                        clamp_positive: bool, descending: bool, vg=None,
-                       bits9=None):
-    """Plain torch version of the B5 kernel: a Python loop over planes.
-    With `vg`, a candidate from the neighbour u on the previous plane
-    counts only where bit bits9[k] of u's bitfield is set (no permission
-    at the edge)."""
+                       bits9=None, gate=None, gate_bits9=None):
+    """Plain torch version of the B5 kernel, and of B4 (`_sweep_axis0_
+    batched_plain`): a Python loop over the planes of axis -3 of one
+    volume or of a (B, n, H, W) batch of lanes. With `vg`, a candidate
+    from the neighbour u on the previous plane counts only where bit
+    bits9[k] of u's bitfield is set (no permission at the edge); with
+    `gate`, only where bit gate_bits9[k] of the voxel's own gate word is
+    set."""
     costs9 = _costs9(anisotropy)
-    n, H, W = d.shape
+    n, H, W = d.shape[-3:]
     out = torch.empty_like(d)
     order = range(n - 1, -1, -1) if descending else range(n)
-    prev = prev_vg = None
+    prev = None
     for p in order:
-        cur = d[p]
+        cur = d[..., p, :, :]
         if prev is None:
-            new = cur
-        else:
-            pv = pad_const(prev, 1, INF)
-            gv = None if vg is None else pad_const(prev_vg, 1, 0)
-            cand = torch.full_like(cur, INF)
-            for k, ((dy, dz), c) in enumerate(costs9):
-                s = pv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                if gv is not None:
-                    g = gv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                    s = torch.where(((g >> bits9[k]) & 1) > 0, s, INF)
-                cand = torch.minimum(cand, s if node_mode else s + c)
-            if node_mode:
-                cand = cand + node_cost[p]
-            new = torch.where(ok[p], torch.minimum(cur, cand), INF)
-            if clamp_positive:
-                new = torch.where(new > 0.0, INF, new)
-        out[p] = new
-        prev = new
+            out[..., p, :, :] = prev = cur
+            continue
+        pv = F.pad(prev, (1, 1, 1, 1), value=INF)
+        gv = None
         if vg is not None:
-            prev_vg = vg[p]
+            gv = F.pad(vg[..., p + (1 if descending else -1), :, :],
+                       (1, 1, 1, 1))
+        cand = torch.full_like(cur, INF)
+        for k, ((dy, dz), c) in enumerate(costs9):
+            s = pv[..., 1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+            if gv is not None:
+                g = gv[..., 1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+                s = torch.where(((g >> bits9[k]) & 1) > 0, s, INF)
+            if gate is not None:
+                s = torch.where(((gate[..., p, :, :] >> gate_bits9[k]) & 1)
+                                > 0, s, INF)
+            cand = torch.minimum(cand, s if node_mode else s + c)
+        if node_mode:
+            cand = cand + node_cost[..., p, :, :]
+        new = torch.where(ok[..., p, :, :], torch.minimum(cur, cand), INF)
+        if clamp_positive:
+            new = torch.where(new > 0.0, INF, new)
+        out[..., p, :, :] = prev = new
+    return out
+
+
+# B4's plain version: the same loop over a (B, n, H, W) batch of lanes
+_sweep_axis0_batched_plain = _sweep_axis0_plain
+
+
+def _launch(name, fn, d, ok, nc, gate, gate_bits9, anisotropy, node_mode,
+            clamp_positive, descending, plan, lanes, *shape):
+    """One launch of `fn` (kt_sweep_axis0 or kt_sweep_axis0_batched)."""
+    kernels.require_cuda(
+        name, d, ok, nc, gate,
+        dtypes=((torch.float32,), (torch.bool,), (torch.float32,),
+                (torch.int32,)),
+        shape=d.shape)
+    out = torch.empty_like(d)
+    # the grid-wide strips' edge-row mailboxes (two edges, two steps, W
+    # cells a strip, of each lane), zero before every sweep
+    mail = torch.zeros((lanes * plan["ctas"] * 4 * shape[-1],),
+                       dtype=torch.int64, device=d.device) \
+        if plan["form"] == "strips" else None
+    bits = None if gate is None else (ctypes.c_int * 9)(*gate_bits9)
+    rc = fn(kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc),
+            kernels.ptr(gate), kernels.ptr(mail), kernels.ptr(out), *shape,
+            kernels.costs_arg(_costs9(anisotropy)), bits,
+            int(bool(node_mode)), int(bool(clamp_positive)),
+            int(bool(descending)), kernels.stream_ptr(d.device))
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
 def sweep_axis0(d, ok, node_cost, anisotropy: Tuple[float, float, float],
                 node_mode: bool, clamp_positive: bool,
                 descending: bool = False, vg=None,
-                bits9: Optional[Tuple[int, ...]] = None):
+                bits9: Optional[Tuple[int, ...]] = None, gate=None,
+                gate_bits9: Optional[Tuple[int, ...]] = None):
     """One axis-0 directional sweep of an (n, H, W) float32 volume; `ok`
     is a bool volume of the same shape, `node_cost` float32 (read only in
-    node mode, may be None otherwise). `vg`/`bits9` (both or neither): the
-    voxel graph's bitfields (int32 or uint32, same shape) and the nine bit
-    indices of this layout's offsets in (dy, dz) order."""
-    vg, bits9 = _graph_operands("sweep_axis0", vg, bits9)
+    node mode, may be None otherwise). A voxel graph (int32 or uint32
+    words of the same shape), in one form at most: `vg`/`bits9`, the
+    bitfields and the nine bit indices of this layout's offsets in
+    (dy, dz) order; or `gate`/`gate_bits9`, the gate words and the nine
+    bits of this layout and direction."""
+    gate, gate_bits9 = _gate_operands("sweep_axis0", descending, vg, bits9,
+                                      gate, gate_bits9)
     if d.device.type == "cpu":
         return _sweep_axis0_plain(d, ok, node_cost, anisotropy, node_mode,
-                                  clamp_positive, descending, vg, bits9)
+                                  clamp_positive, descending, gate=gate,
+                                  gate_bits9=gate_bits9)
     nc = node_cost if node_mode else None
     if node_mode and nc is None:
         raise ValueError("sweep_axis0: node mode needs node_cost")
-    name = "sweep_axis0" if vg is None else "sweep_axis0_vg"
-    kernels.require_cuda(
-        name, d, ok, nc, vg,
-        dtypes=((torch.float32,), (torch.bool,), (torch.float32,),
-                (torch.int32,)),
-        shape=d.shape)
     n, H, W = d.shape
-    out = torch.empty_like(d)
-    # the grid-wide strips' edge-row mailboxes (two edges, two steps, W
-    # cells a strip), zero before every sweep
-    plan = _axis0_plan(H, W, bool(node_mode), vg is not None,
+    plan = _axis0_plan(H, W, bool(node_mode), gate is not None,
                        d.device.index)
-    mail = torch.zeros((plan["ctas"] * 4 * W,), dtype=torch.int64,
-                       device=d.device) if plan["form"] == "strips" else None
-    bits = None if vg is None else (ctypes.c_int * 9)(*bits9)
-    rc = kernels.lib().kt_sweep_axis0(
-        kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc), kernels.ptr(vg),
-        kernels.ptr(mail), kernels.ptr(out), n, H, W,
-        kernels.costs_arg(_costs9(anisotropy)), bits, int(bool(node_mode)),
-        int(bool(clamp_positive)), int(bool(descending)),
-        kernels.stream_ptr(d.device))
-    kernels.check(rc, name)
-    kernels.LAUNCHES[name] += 1
-    return out
+    return _launch("sweep_axis0" if gate is None else "sweep_axis0_vg",
+                   kernels.lib().kt_sweep_axis0, d, ok, nc, gate, gate_bits9,
+                   anisotropy, node_mode, clamp_positive, descending, plan,
+                   1, n, H, W)
 
 
 _AXIS0_FORMS = ("plane", "strips", "cluster")
@@ -154,85 +217,33 @@ def _axis0_plan(H: int, W: int, node_mode: bool, has_vg: bool,
             "ctas": ctas.value}
 
 
-def _sweep_axis0_batched_plain(d, ok, node_cost, anisotropy, node_mode: bool,
-                               clamp_positive: bool, descending: bool,
-                               vg=None, bits9=None):
-    """Plain torch version of the B4 kernel: a Python loop over the
-    (B, H, W) planes of a (B, n, H, W) batch. With `vg`, a candidate from
-    the neighbour u on the previous plane counts only where bit bits9[k]
-    of u's bitfield is set (zero padding: no permission at the edge)."""
-    costs9 = _costs9(anisotropy)
-    B, n, H, W = d.shape
-    out = torch.empty_like(d)
-    order = range(n - 1, -1, -1) if descending else range(n)
-    prev = prev_vg = None
-    for p in order:
-        cur = d[:, p]
-        if prev is None:
-            new = cur
-        else:
-            pv = F.pad(prev, (1, 1, 1, 1), value=INF)
-            gv = (F.pad(prev_vg, (1, 1, 1, 1), value=0) if vg is not None
-                  else None)
-            cand = torch.full_like(cur, INF)
-            for k, ((dy, dz), c) in enumerate(costs9):
-                s = pv[:, 1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                if gv is not None:
-                    g = gv[:, 1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                    s = torch.where(((g >> bits9[k]) & 1) > 0, s, INF)
-                cand = torch.minimum(cand, s if node_mode else s + c)
-            if node_mode:
-                cand = cand + node_cost[:, p]
-            new = torch.where(ok[:, p], torch.minimum(cur, cand), INF)
-            if clamp_positive:
-                new = torch.where(new > 0.0, INF, new)
-        out[:, p] = new
-        prev = new
-        if vg is not None:
-            prev_vg = vg[:, p]
-    return out
-
-
 def sweep_axis0_batched(d, ok, nc, anisotropy: Tuple[float, float, float],
                         node_mode: bool, clamp_positive: bool,
                         descending: bool = False, vg=None,
-                        bits9: Optional[Tuple[int, ...]] = None):
+                        bits9: Optional[Tuple[int, ...]] = None, gate=None,
+                        gate_bits9: Optional[Tuple[int, ...]] = None):
     """One directed sweep along axis 1 of a (B, n, H, W) float32 batch of
     lanes; `ok` bool of the same shape, `nc` float32 (read only in node
-    mode, may be None otherwise). `vg`/`bits9` (both or neither): per-lane
-    voxel-graph bitfields (int32 or uint32, same shape) and the nine bit
-    indices of this layout's offsets in (dy, dz) order."""
-    vg, bits9 = _graph_operands("sweep_axis0_batched", vg, bits9)
+    mode, may be None otherwise). A voxel graph per lane as in
+    `sweep_axis0`: `vg`/`bits9` or `gate`/`gate_bits9`, (B, n, H, W)
+    words."""
+    gate, gate_bits9 = _gate_operands("sweep_axis0_batched", descending, vg,
+                                      bits9, gate, gate_bits9)
     if d.device.type == "cpu":
         return _sweep_axis0_batched_plain(d, ok, nc, anisotropy, node_mode,
-                                          clamp_positive, descending, vg,
-                                          bits9)
+                                          clamp_positive, descending,
+                                          gate=gate, gate_bits9=gate_bits9)
     nc = nc if node_mode else None
     if node_mode and nc is None:
         raise ValueError("sweep_axis0_batched: node mode needs nc")
-    name = "sweep_axis0_batched" if vg is None else "sweep_axis0_batched_vg"
-    kernels.require_cuda(
-        name, d, ok, nc, vg,
-        dtypes=((torch.float32,), (torch.bool,), (torch.float32,),
-                (torch.int32,)),
-        shape=d.shape)
     B, n, H, W = d.shape
-    out = torch.empty_like(d)
-    bits = None if vg is None else (ctypes.c_int * 9)(*bits9)
-    # the per-lane grid strips' edge-row mailboxes, zero before every sweep
-    plan = _batched_plan(B, H, W, bool(node_mode), vg is not None,
+    plan = _batched_plan(B, H, W, bool(node_mode), gate is not None,
                          d.device.index)
-    mail = torch.zeros((B * plan["ctas"] * 4 * W,), dtype=torch.int64,
-                       device=d.device) if plan["form"] == "strips" else None
-    rc = kernels.lib().kt_sweep_axis0_batched(
-        kernels.ptr(d), kernels.ptr(ok), kernels.ptr(nc), kernels.ptr(vg),
-        kernels.ptr(mail), kernels.ptr(out), B, n, H, W,
-        kernels.costs_arg(_costs9(anisotropy)),
-        bits, int(bool(node_mode)), int(bool(clamp_positive)),
-        int(bool(descending)), kernels.stream_ptr(d.device))
-    kernels.check(rc, name)
-    kernels.LAUNCHES[name] += 1
-    return out
+    return _launch(
+        "sweep_axis0_batched" if gate is None else "sweep_axis0_batched_vg",
+        kernels.lib().kt_sweep_axis0_batched, d, ok, nc, gate, gate_bits9,
+        anisotropy, node_mode, clamp_positive, descending, plan, B, B, n, H,
+        W)
 
 
 def sweep_axis0_batched_plan(B: int, H: int, W: int, node_mode: bool,

@@ -15,7 +15,8 @@ Pipeline per label:
 
 A voxel graph (self-touch walls, cc3d convention) gates every field, the
 re-EDT and the chase; like the JAX package, a label under a graph takes
-the eager loop only, never the fused one.
+the eager loop only, never the fused one. The fields' sweeps read the
+graph's gate (ops.geodesic.SweepGate), built once per label.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .ops.fma import fma_f32
 from .ops.stencils import graph_word
 from .ops.geodesic import (
     OFFSETS26,
+    SweepGate,
     distance_field,
     euclidean_distance_field,
     invalidation_ball,
@@ -41,6 +43,7 @@ from .ops.geodesic import (
     relax_rounds_batched,
 )
 from .skeleton import Skeleton
+from .utils import profiling
 from .utils.device import resolve_device
 
 INF = float("inf")
@@ -227,12 +230,15 @@ def trace(
     paths through the eager loop. The fields are computed on `device`
     (asking for CUDA where there is none raises)."""
     device = resolve_device(device)
-    vg = None
+    vg = gate = None
     if voxel_graph is not None:
         if not torch.is_tensor(voxel_graph):
             voxel_graph = torch.from_numpy(
                 np.ascontiguousarray(voxel_graph, dtype=np.uint32))
         vg = graph_word(voxel_graph.to(device))
+        # the gate of every field's sweeps, built once for the label
+        with profiling.phase("graph_gate", device):
+            gate = SweepGate(vg)
     manual_targets_before = list(manual_targets_before or [])
     manual_targets_after = list(manual_targets_after or [])
     anisotropy = tuple(float(a) for a in anisotropy)
@@ -264,7 +270,7 @@ def trace(
         root = find_soma_root(dbf.to("cpu").numpy(), dbf_max)
         soma_radius = dbf_max * soma_invalidation_scale + soma_invalidation_const
     elif root is None:
-        root = find_root(fg, anisotropy, voxel_graph=vg)
+        root = find_root(fg, anisotropy, voxel_graph=gate)
     else:
         root = tuple(int(c) for c in root)
 
@@ -273,7 +279,7 @@ def trace(
 
     dbf_inf = torch.where(dbf == 0, INF, dbf)
     daf, target = euclidean_distance_field(
-        fg, root, anisotropy, return_max_location=True, voxel_graph=vg)
+        fg, root, anisotropy, return_max_location=True, voxel_graph=gate)
     daf = torch.where(torch.isfinite(daf), daf, 0.0)
     max_daf = daf[target]
     pdrf = _pdrf_kernel(dbf_inf, daf, np.float32(dbf_max),
@@ -283,7 +289,7 @@ def trace(
     if soma_mode:
         ball = invalidation_ball(valid, dbf, [root], soma_invalidation_scale,
                                  soma_invalidation_const, anisotropy,
-                                 voxel_graph=vg)
+                                 voxel_graph=gate)
         valid = valid & ~ball
     elif len(manual_targets_before) == 0:
         manual_targets_before.append(tuple(int(c) for c in target))
@@ -307,7 +313,7 @@ def trace(
             scale, const, anisotropy,
             soma_mode, soma_radius, fix_branching,
             manual_targets_before, manual_targets_after, max_paths,
-            voxel_graph=vg,
+            voxel_graph=vg, gate=gate,
         )
 
     skel = Skeleton.simple_merge(
@@ -428,11 +434,12 @@ def _compute_paths_host(
     scale, const, anisotropy,
     soma_mode, soma_radius, fix_branching,
     manual_targets_before, manual_targets_after, max_paths,
-    voxel_graph=None,
+    voxel_graph=None, gate=None,
 ):
     """The JAX package's eager TEASAR path loop, for the labels whose
     manual targets or paths overflow the fused loop's buffers, and for
-    every label under a voxel graph (which gates each field and chase).
+    every label under a voxel graph (which gates each field and chase;
+    `gate`: its SweepGate, for the fields).
 
     fix_branching=True: maintain a distance-from-rails field D over the
     PDRF node costs. Rails start as {root}; each accepted path is zeroed
@@ -456,14 +463,15 @@ def _compute_paths_host(
 
     vg = voxel_graph
     vg_pad = None if vg is None else np.pad(vg.to("cpu").numpy(), 1)
+    fields_vg = vg if gate is None else gate
     d_init = torch.full(fg.shape, INF, dtype=torch.float32, device=fg.device)
     d_init[root] = 0.0
     if fix_branching:
         d_rail = distance_field(fg, d_init, anisotropy, node_cost=pdrf,
-                                voxel_graph=vg)
+                                voxel_graph=fields_vg)
     else:
         d_root = distance_field(fg, d_init, anisotropy, node_cost=pdrf,
-                                voxel_graph=vg)
+                                voxel_graph=fields_vg)
         parents_host = parent_field(
             d_root, fg, anisotropy, node_cost=pdrf,
             voxel_graph=vg).to("cpu").numpy()
@@ -494,7 +502,7 @@ def _compute_paths_host(
 
         if valid_labels > 0 and len(path):
             ball = invalidation_ball(valid, dbf, path, scale, const,
-                                     anisotropy, voxel_graph=vg)
+                                     anisotropy, voxel_graph=fields_vg)
             n_inv = int((ball & valid).sum())
             valid = valid & ~ball
             valid_labels -= n_inv
@@ -503,7 +511,7 @@ def _compute_paths_host(
             pdrf = _zero_at(pdrf, path)
             d_rail = _zero_at(d_rail, path)
             d_rail = distance_field(fg, d_rail, anisotropy, node_cost=pdrf,
-                                    voxel_graph=vg)
+                                    voxel_graph=fields_vg)
 
         paths.append(path)
 

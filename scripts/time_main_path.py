@@ -12,7 +12,10 @@ JSON line per case: the seconds of the first run and of every timed run
 and their phases (skeletonize) or counters (cross sections). CASES, a
 comma-separated list, defaults to dense,soma,xs-dense,xs-soma;
 host-soma-crop is chip_smoke.py --host-soma's label with the host trace
-path left out (the phases up to the crop engine). Pass the root of another
+path left out (the phases up to the crop engine); self-touch is
+chip_smoke.py phase 10's volume under its voxel graph; gated-sweeps
+times B4 and B5 node sweeps with a graph and without, in turns, on the
+same inputs (`gated_sweeps`), one JSON line a shape. Pass the root of another
 checkout (the parent commit unpacked with git archive) to time its port
 on the same inputs; compare two checkouts only within one call, in turns
 (parent, change, change, parent).
@@ -22,6 +25,50 @@ import json
 import os
 import sys
 import time
+
+
+def gated_sweeps(root):
+    """CUDA-event ms of B4 and B5 node sweeps with a graph and without,
+    in turns (a, b, b, a) on the same random inputs: B4 at the shapes of
+    the self-touch run's most swept voxels, B5 at a 96^3 crop. The graph
+    goes in the form the main path of the port at `root` passes it: a
+    gate where its wrappers take one, else the source bitfields."""
+    import inspect
+
+    import torch
+
+    import chip_smoke
+    from kimimaro_tpu_torch.ops import geodesic, sweep
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    anis = (40.0, 16.0, 16.0)
+    if "gate" in inspect.signature(sweep.sweep_axis0).parameters:
+        from kimimaro_tpu_torch.ops.gsweep import gate_bits9
+        form = {"gate_bits9": gate_bits9(0, False)}
+        key = "gate"
+    else:
+        form = {"bits9": geodesic.sweep_bits9(0, False)}
+        key = "vg"
+    cases = [("B4", s, sweep.sweep_axis0_batched)
+             for s in ((32, 128, 128, 64), (64, 128, 128, 32),
+                       (32, 64, 128, 128), (64, 32, 128, 128))]
+    cases.append(("B5", (96, 96, 96), sweep.sweep_axis0))
+    for name, shape, fn in cases:
+        r = lambda: torch.rand(shape, generator=gen, device="cuda")
+        d = torch.where(r() < 0.25, r() * 10, float("inf")).contiguous()
+        ok, nc = (r() < 0.8).contiguous(), (r() * 3).contiguous()
+        words = torch.randint(0, 1 << 26, shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        kw = dict(form, **{key: words})
+        ta, tb = chip_smoke.turns(
+            lambda: fn(d, ok, nc, anis, True, False, False, **kw),
+            lambda: fn(d, ok, nc, anis, True, False, False), 20)
+        print(json.dumps({"root": root, "case": "gated-sweeps",
+                          "kernel": name, "shape": shape, "form": key,
+                          "gated_ms": [round(t, 4) for t in ta],
+                          "ungated_ms": [round(t, 4) for t in tb]}),
+              flush=True)
 
 
 def main() -> int:
@@ -69,25 +116,42 @@ def main() -> int:
             dust_threshold=1000, fix_borders=True, fix_branching=True,
             fill_holes=False, device="cuda"), "phases")
         del vol
-    if not {"dense", "soma", "xs-dense", "xs-soma"} & set(cases):
+    if "gated-sweeps" in cases:
+        gated_sweeps(root)
+    if not {"dense", "soma", "xs-dense", "xs-soma", "self-touch"} & \
+            set(cases):
         return 0
     dense = chip_smoke.dense_volume(chip_smoke.DENSE_N)
+    if "self-touch" in cases:
+        merged, vg, _, _ = chip_smoke.self_touch_volume(dense)
+        timed("self-touch", lambda: kimimaro_tpu_torch.skeletonize(
+            merged, teasar_params=chip_smoke.TEASAR,
+            anisotropy=chip_smoke.ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, voxel_graph=vg,
+            device="cuda"), "phases")
+        del merged, vg
     vols = {"dense": (dense, {}),
-            "soma": (chip_smoke.hollow_volume(dense),
-                     {"fill_holes": False, "fix_avocados": False})}
+            "soma": (None, {"fill_holes": False, "fix_avocados": False})}
     skels = {}
     for name, (vol, kw) in vols.items():
+        if name not in cases and f"xs-{name}" not in cases:
+            continue
+        if vol is None:
+            vol = chip_smoke.hollow_volume(dense)
+            vols[name] = (vol, kw)
         skels[name] = timed(name, lambda: kimimaro_tpu_torch.skeletonize(
             vol, teasar_params=chip_smoke.TEASAR, anisotropy=chip_smoke.ANIS,
             dust_threshold=1000, fix_borders=True, fix_branching=True,
             device="cuda", **kw), "phases")
-    sel = {"xs-dense": (vols["dense"][0],
-                        chip_smoke.xs_select(skels["dense"])[0]),
-           "xs-soma": (vols["soma"][0],
-                       [skels["soma"][k] for k in sorted(skels["soma"])[-2:]])}
-    for name, (vol, chosen) in sel.items():
+    sel = {"xs-dense": lambda: (vols["dense"][0],
+                                chip_smoke.xs_select(skels["dense"])[0]),
+           "xs-soma": lambda: (vols["soma"][0],
+                               [skels["soma"][k]
+                                for k in sorted(skels["soma"])[-2:]])}
+    for name, select in sel.items():
         if name not in cases:
             continue
+        vol, chosen = select()
         timed(name, lambda: kimimaro_tpu_torch.cross_sectional_area(
             vol, {s.id: s.clone() for s in chosen},
             anisotropy=chip_smoke.ANIS, device="cuda"), "counters")

@@ -16,6 +16,7 @@ from kimimaro_tpu_torch import kernels
 from kimimaro_tpu_torch.ops import crop_argmax as tcrop
 from kimimaro_tpu_torch.ops import geodesic as tgeodesic
 from kimimaro_tpu_torch.ops import gsweep as tgsweep
+from kimimaro_tpu_torch.ops import stencils as tstencils
 from kimimaro_tpu_torch.ops import sweep as tsweep
 from kimimaro_tpu_torch.ops.stencils import GRAPH_BITS
 
@@ -372,16 +373,20 @@ def test_sweep0_vg_plan_follows_the_shape_rule(gen):
         tgsweep.sweep0_plan(64, 64, "euclid", False, True)
 
 
-# B5 with a voxel graph: its forms on each side of their rules (the graph
-# rides the carried-id channel: grid strips up to 848 x 848 in euclid mode
-# and 784 x 784 in node mode)
-B5_VG_FORMS = {False: ((170, "cluster"), (171, "strips"), (848, "strips"),
-                       (864, "plane")),
-               True: ((170, "cluster"), (171, "strips"), (784, "strips"),
-                      (800, "plane"))}
+# B5 with a graph gate: its forms on each side of their rules (the gate is
+# one more word of a voxel's stage, the carried plane holds the field
+# only: grid strips up to 1024 x 1024 in euclid mode and 912 x 912 in node
+# mode)
+B5_VG_FORMS = {False: ((170, "cluster"), (171, "strips"), (1024, "strips"),
+                       (1040, "plane")),
+               True: ((170, "cluster"), (171, "strips"), (912, "strips"),
+                      (928, "plane"))}
 
 
 def _check_axis0_vg(gen, shape, node_mode):
+    """The gated kernel in both forms of the graph: source bitfields (the
+    wrapper builds their gate) against the plain source form, and a gate
+    against the plain gate form."""
     vg = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
                        dtype=torch.int32)
     for clamp in (False, True):
@@ -404,6 +409,13 @@ def _check_axis0_vg(gen, shape, node_mode):
                 _assert_bit_equal((got, again), (want, want))
                 first = -1 if desc else 0
                 assert torch.equal(got[first], d[first])
+                gbits = tgsweep.gate_bits9(axis, desc)
+                got = tsweep.sweep_axis0(d, ok, nc, ANIS, node_mode, clamp,
+                                         desc, gate=vg, gate_bits9=gbits)
+                want = tsweep._sweep_axis0_plain(d, ok, nc, ANIS, node_mode,
+                                                 clamp, desc, gate=vg,
+                                                 gate_bits9=gbits)
+                _assert_bit_equal((got,), (want,))
 
 
 @pytest.mark.parametrize("shape", B5_SHAPES)
@@ -680,6 +692,61 @@ def test_sweep_axis0_batched_plan_follows_the_shape_rule(gen, shape, form,
             want = tsweep._sweep_axis0_batched_plain(
                 d, ok, nc, ANIS, node_mode, False, True, g, b)
             _assert_bit_equal((got,), (want,))
+
+
+# G1: one voxel, lanes of one row, odd widths, lane rows (lanes x X)
+# beyond a grid's z extent, two leading lane axes
+G1_SHAPES = ((1, 1, 1), (3, 1, 5, 7), (2, 9, 1, 33), (17, 40, 24),
+             (70000, 1, 2, 3), (2, 3, 5, 4, 6), (4, 64, 64, 32))
+
+
+@pytest.mark.parametrize("shape", G1_SHAPES)
+def test_graph_into_kernel_matches_plain(gen, shape):
+    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                       device="cuda", dtype=torch.int32)
+    before = kernels.LAUNCHES["graph_into"]
+    got = tstencils.graph_into(vg.view(torch.uint32))
+    assert kernels.LAUNCHES["graph_into"] == before + 1
+    want = tstencils._graph_into_plain(vg)
+    _assert_bit_equal((got, tstencils.graph_into(vg)), (want, want))
+    # a lane's gate is its own graph's
+    if len(shape) == 4:
+        _assert_bit_equal((got[-1],), (tstencils.graph_into(vg[-1]),))
+
+
+# B4 with a graph gate on each side of its plan rule: two lanes of planes
+# too wide for a cluster, per-lane grid strips (66 CTAs a lane) up to
+# 720 x 720 in euclid mode and 640 x 640 in node mode, per plane beyond
+B4_VG_FORMS = ((False, (2, 2, 720, 720), "strips"),
+               (False, (2, 2, 736, 736), "plane"),
+               (True, (2, 2, 640, 640), "strips"),
+               (True, (2, 2, 656, 656), "plane"))
+
+
+@pytest.mark.parametrize("node_mode,shape,form", B4_VG_FORMS)
+def test_sweep_axis0_batched_vg_plan_follows_the_shape_rule(gen, node_mode,
+                                                            shape, form):
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the shapes are those of a 132-SM card")
+    B, n, H, W = shape
+    plan = tsweep.sweep_axis0_batched_plan(B, H, W, node_mode, True)
+    assert plan["form"] == form, plan
+    d = torch.where(_rand(gen, shape) < 0.25, _rand(gen, shape) * 10 - 5,
+                    float("inf"))
+    ok = _rand(gen, shape) < 0.8
+    nc = _rand(gen, shape) * 3
+    gate = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    for desc in (False, True):
+        bits = tgsweep.gate_bits9(1, desc)
+        before = kernels.LAUNCHES["sweep_axis0_batched_vg"]
+        got = tsweep.sweep_axis0_batched(d, ok, nc, ANIS, node_mode, True,
+                                         desc, gate=gate, gate_bits9=bits)
+        assert kernels.LAUNCHES["sweep_axis0_batched_vg"] == before + 1
+        want = tsweep._sweep_axis0_batched_plain(
+            d, ok, nc, ANIS, node_mode, True, desc, gate=gate,
+            gate_bits9=bits)
+        _assert_bit_equal((got,), (want,))
 
 
 def test_fetch_secb_kernel_matches_plain(gen):
