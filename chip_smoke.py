@@ -2585,7 +2585,7 @@ class GateSpy:
                 self.calls += 1
                 key = (tuple(d.shape), bool(desc), tuple(bits9))
                 if key not in self.kept:
-                    self.kept[key] = (d.clone(), cc, gate, tuple(anis))
+                    self.kept[key] = (d.clone(), gate, tuple(anis))
             return inner(d, cc, nodecost, okmask, anis, mode, clamp, desc,
                          gate, bits9)
 
@@ -2597,28 +2597,34 @@ class GateSpy:
         return restore
 
 
-# B1's graph gate on each side of its shape rule on an H100 (132 SMs, 227
-# KB): persistent up to 784 x 784 (a voxel's operands 12 bytes a stage)
-B1_VG_RULE = ((784, True), (800, False))
+# B1-vg on each side of its shape rule on an H100 (132 SMs, 227 KB): the
+# ids alone carried (4 bytes a cell), ids and G1's CCL gate a stage (8
+# bytes a voxel): persistent up to 1056 x 1056
+B1_VG_RULE = ((1056, True), (1072, False))
+
+
+def b1_vg(d, gate, bits, desc, anis=(1.0, 1.0, 1.0)):
+    """One B1-vg sweep (minid on G1's CCL gate)."""
+    from kimimaro_tpu_torch.ops import gsweep
+
+    return gsweep.sweep0(d, None, None, None, anis, "minid", False, desc,
+                         gate, bits)
 
 
 def b1_vg_case(shape, gen, layout, desc):
-    """The graph-gated B1 (minid) against its plain version, twice."""
+    """B1-vg against its plain version, twice, on random ids and random
+    gate words (the move bits and the occupancy bit)."""
     import torch
 
     from kimimaro_tpu_torch.ops import gsweep
 
-    d, cc, _, _ = sweep_inputs(shape, "minid", False, False, gen)
-    gate = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+    d, _, _, _ = sweep_inputs(shape, "minid", False, False, gen)
+    gate = torch.randint(0, 1 << 27, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
     bits = gsweep.gate_bits9(layout, desc)
-    anis = (1.0, 1.0, 1.0)
-    got = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc, gate,
-                        bits)
-    again = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
-                          gate, bits)
-    want = gsweep._sweep0_plain(d, cc, None, None, anis, "minid", False, desc,
-                                gate, bits)
+    got = b1_vg(d, gate, bits, desc)
+    again = b1_vg(d, gate, bits, desc)
+    want = gsweep._sweep0_gate_plain(d, gate, bits, desc)
     name = f"B1-vg layout={layout} desc={desc} {shape}"
     err = require_equal(name, got, want)
     require_equal(name + " run twice", again, got)
@@ -2626,10 +2632,9 @@ def b1_vg_case(shape, gen, layout, desc):
 
 
 def check_b1_vg(spy, gen):
-    """B1's graph-gated form against its plain version at strip-stressing
-    shapes, on each side of its shape rule and on the recorded sweeps of
-    the 512^3 CCL (each twice), timed there. Returns (ms, plain_ms, err,
-    shape)."""
+    """B1-vg against its plain version at strip-stressing shapes, on each
+    side of its shape rule and on the recorded sweeps of the 512^3 CCL
+    (each twice), timed there. Returns (ms, plain_ms, err, shape)."""
     from kimimaro_tpu_torch.ops import gsweep
 
     err = 0.0
@@ -2648,19 +2653,16 @@ def check_b1_vg(spy, gen):
     if not spy.kept:
         raise AssertionError("the self-touch CCL made no graph-gated sweep")
     timed = None
-    for key, (d, cc, gate, anis) in sorted(spy.kept.items()):
+    for key, (d, gate, anis) in sorted(spy.kept.items()):
         shape, desc, bits = key
-        got = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
-                            gate, bits)
-        again = gsweep.sweep0(d, cc, None, None, anis, "minid", False, desc,
-                              gate, bits)
-        want, plain = timed_once(lambda: gsweep._sweep0_plain(
-            d, cc, None, None, anis, "minid", False, desc, gate, bits))
+        got = b1_vg(d, gate, bits, desc, anis)
+        again = b1_vg(d, gate, bits, desc, anis)
+        want, plain = timed_once(lambda: gsweep._sweep0_gate_plain(
+            d, gate, bits, desc))
         err = max(err, require_equal(f"B1-vg recorded {key}", got, want))
         require_equal(f"B1-vg recorded {key} run twice", again, got)
         if timed is None or int(np.prod(shape)) > int(np.prod(timed[3])):
-            ms = cuda_ms(lambda: gsweep.sweep0(
-                d, cc, None, None, anis, "minid", False, desc, gate, bits), 5)
+            ms = cuda_ms(lambda: b1_vg(d, gate, bits, desc, anis), 5)
             timed = (ms, plain, 0.0, shape)
     log(f"[kernels] B1-vg bit-equal on the {len(spy.kept)} recorded sweeps "
         f"of the self-touch CCL (each layout and direction; "
@@ -2801,9 +2803,9 @@ def check_b5_vg(gen):
 
 class G1Spy:
     """While installed, counts G1's calls (ops.stencils.graph_into, as the
-    CCL, the crop engine and the host trace path's fields call it) per
-    shape and keeps the input of the first call of each shape, up to
-    `keep_bytes` of them."""
+    CCL (its CCL form, with labels), the crop engine and the host trace
+    path's fields call it) per (shape, form) and keeps the inputs of the
+    first call of each, up to `keep_bytes` of them."""
 
     MODULES = ("kimimaro_tpu_torch.ops.ccl", "kimimaro_tpu_torch.engine",
                "kimimaro_tpu_torch.ops.geodesic")
@@ -2820,15 +2822,18 @@ class G1Spy:
 
         inner = stencils.graph_into
 
-        def spy(vg):
+        def spy(vg, labels=None):
             if vg.device.type == "cuda":
-                shape = tuple(vg.shape)
-                self.calls[shape] = self.calls.get(shape, 0) + 1
-                held = sum(t.numel() * 4 for t in self.kept.values())
-                if shape not in self.kept and \
-                        held + vg.numel() * 4 <= self.keep_bytes:
-                    self.kept[shape] = stencils.graph_word(vg).clone()
-            return inner(vg)
+                key = (tuple(vg.shape), labels is not None)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                held = sum(t.numel() * 4 for k in self.kept.values()
+                           for t in k if t is not None)
+                need = vg.numel() * (8 if key[1] else 4)
+                if key not in self.kept and held + need <= self.keep_bytes:
+                    self.kept[key] = (
+                        stencils.graph_word(vg).clone(),
+                        None if labels is None else labels.clone())
+            return inner(vg, labels)
 
         mods = [importlib.import_module(m) for m in self.MODULES]
         for m in mods:
@@ -2842,53 +2847,76 @@ class G1Spy:
 
 
 # G1 beyond the main path's shapes: one voxel, lanes of one row, odd
-# widths, more lane rows (lanes x X) than a grid's z extent (65,535)
+# widths, more than 65,535 lanes (a tile each), two leading lane axes, the
+# widths on each side of its z tiles (8, 16, 32)
 G1_STRESS_SHAPES = ((1, 1, 1), (3, 1, 5, 7), (2, 9, 1, 33), (17, 40, 24),
-                    (70000, 1, 2, 3), (2, 3, 5, 4, 6))
+                    (70000, 1, 2, 3), (2, 3, 5, 4, 6), (3, 5, 70, 8),
+                    (2, 7, 37, 9), (2, 4, 33, 16), (1, 300, 11, 65),
+                    (1, 3, 300, 5), (2, 2, 45, 40))
 
 
-def g1_bound(shape):
-    """Least time of one G1 call: the words read once and the gate written
-    once (8 B a voxel) over the HBM rate, against 26 moves of four integer
-    operations a voxel over the 32-bit peak. Returns (ms, by)."""
+def g1_bound(shape, ccl=False):
+    """Least time of one G1 call: the words (and labels) read once and the
+    gate written once (8 B a voxel, 12 with labels) over the HBM rate,
+    against 26 moves of four integer operations a voxel (and a label
+    compare each) over the 32-bit peak. Returns (ms, by)."""
     vox = int(np.prod(shape))
-    t_b, t_o = 8 * vox / HBM_BYTES_PER_S, 104 * vox / ALU_OPS_PER_S
+    t_b = (12 if ccl else 8) * vox / HBM_BYTES_PER_S
+    t_o = (130 if ccl else 104) * vox / ALU_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def check_g1(spy, gen):
-    """G1 against its plain version at its stress shapes (random words,
-    every bit) and on the calls `spy` kept, each made twice. Returns
-    {shape: (ms, plain_ms, bound_ms, bound_by, err)} of the kept calls."""
+def g1_inputs(shape, gen):
+    """Random words (every bit) and labels of three values and 0, two of
+    them negative words."""
     import torch
 
+    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                       device="cuda", dtype=torch.int32)
+    lab = torch.randint(0, 4, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return vg, torch.where(lab == 3, -5, torch.where(lab == 2, -1, lab))
+
+
+def check_g1(spy, gen):
+    """G1 in both forms against its plain version at its stress shapes
+    (random words, every bit; random labels) and on the calls `spy` kept,
+    each made twice. Returns {(shape, ccl): (ms, plain_ms, bound_ms,
+    bound_by, err)} of the kept calls."""
     from kimimaro_tpu_torch.ops import stencils
 
     for shape in G1_STRESS_SHAPES:
-        vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
-                           device="cuda", dtype=torch.int32)
-        got = stencils.graph_into(vg)
-        require_equal(f"G1 {shape}", got, stencils._graph_into_plain(vg))
-        require_equal(f"G1 {shape} run twice", stencils.graph_into(vg), got)
+        vg, lab = g1_inputs(shape, gen)
+        for labels in (None, lab):
+            what = f"G1{' ccl' if labels is not None else ''} {shape}"
+            got = stencils.graph_into(vg, labels)
+            require_equal(what, got, stencils._graph_into_plain(vg, labels))
+            require_equal(what + " run twice",
+                          stencils.graph_into(vg, labels), got)
     out = {}
-    for shape, vg in sorted(spy.kept.items()):
-        got = stencils.graph_into(vg)
-        again = stencils.graph_into(vg)
-        want, plain = timed_once(lambda: stencils._graph_into_plain(vg))
-        err = require_equal(f"G1 call {shape}", got, want)
-        require_equal(f"G1 call {shape} run twice", again, got)
-        ms = cuda_ms(lambda: stencils.graph_into(vg), 5)
-        bms, by = g1_bound(shape)
-        out[shape] = (ms, plain, bms, by, err)
-    if not out:
-        raise AssertionError("the self-touch runs made no G1 call")
-    top = sorted(out, key=lambda k: -spy.calls[k] * int(np.prod(k)))[:4]
-    log(f"[kernels] G1 bit-equal at {len(G1_STRESS_SHAPES)} stress shapes "
-        f"and on the first call of {len(out)} of the {len(spy.calls)} "
-        f"shapes of the self-touch runs ({sum(spy.calls.values())} calls), "
-        f"twice; most voxels: " + "; ".join(
-            f"{k} x {spy.calls[k]}: {out[k][0]:.4f} ms vs plain "
-            f"{out[k][1]:.2f} ms, bound {out[k][2]:.4f} ms" for k in top))
+    for key, (vg, labels) in sorted(spy.kept.items()):
+        got = stencils.graph_into(vg, labels)
+        again = stencils.graph_into(vg, labels)
+        want, plain = timed_once(
+            lambda: stencils._graph_into_plain(vg, labels))
+        err = require_equal(f"G1 call {key}", got, want)
+        require_equal(f"G1 call {key} run twice", again, got)
+        del got, again, want
+        ms = cuda_ms(lambda: stencils.graph_into(vg, labels), 5)
+        bms, by = g1_bound(key[0], key[1])
+        out[key] = (ms, plain, bms, by, err)
+    for form in (False, True):
+        if not any(k[1] == form for k in out):
+            raise AssertionError(f"the self-touch runs made no G1 call "
+                                 f"{'with' if form else 'without'} labels")
+    top = sorted(out, key=lambda k: -spy.calls[k] * int(np.prod(k[0])))[:5]
+    log(f"[kernels] G1 (both forms) bit-equal at {len(G1_STRESS_SHAPES)} "
+        f"stress shapes and on the first call of each of the "
+        f"{len(spy.calls)} (shape, form) of the self-touch runs "
+        f"({sum(spy.calls.values())} calls), twice; most voxels: " +
+        "; ".join(f"{k[0]}{' ccl' if k[1] else ''} x {spy.calls[k]}: "
+                  f"{out[k][0]:.4f} ms vs plain {out[k][1]:.2f} ms, bound "
+                  f"{out[k][2]:.4f} ms" for k in top))
     return out
 
 
@@ -3051,9 +3079,10 @@ def self_touch_phase(dense, gen):
     counts, skeletonize twice (cold, warm) with B1-vg, B4 and B5 recorded,
     the identity against skeletonize(pre, all-ones graph), the 64^3 volume
     card against CPU, then the graph-gated kernels against their plain
-    versions. Returns (launches of the main-path runs, B1-vg timing, B5-vg
-    timing, B4's recorded shapes and calls, the B4-vg rule's error, G1's
-    recorded shapes and calls)."""
+    versions. Returns (launches of the two 512^3 runs, launches of the
+    64^3 card run, B1-vg timing, B5-vg timing, B4's recorded shapes and
+    calls, the B4-vg rule's error, G1's recorded shapes and their calls in
+    the two 512^3 runs)."""
     import torch
 
     import kimimaro_tpu_torch
@@ -3087,11 +3116,21 @@ def self_touch_phase(dense, gen):
     try:
         skels, counters, launches, _ = run_main_path(
             "self-touch", merged, ("gsweep_sweep0_vg",
-                                   "sweep_axis0_batched_vg", "graph_into"),
+                                   "sweep_axis0_batched_vg", "graph_into",
+                                   "graph_into_ccl"),
             voxel_graph=vg)
     finally:
         for restore in reversed(restores[3:]):
             restore()
+    # G1's calls per (shape, form) in the two runs just made: the rows'
+    # launches (the spy stays on through the runs below only to keep their
+    # inputs); each call is one launch, so they sum to the runs' counts
+    g1_calls = dict(g1_spy.calls)
+    for ccl, k in ((False, "graph_into"), (True, "graph_into_ccl")):
+        n = sum(v for key, v in g1_calls.items() if key[1] == ccl)
+        if n != launches[k]:
+            raise AssertionError(f"self-touch: G1Spy saw {n} {k} calls, the "
+                                 f"runs counted {launches[k]} launches")
     if counters.get("gengine_iterations", 0):
         raise AssertionError("self-touch: the global engine traced labels")
     for k in ("gsweep_sweep0_dual", "crop_argmax"):
@@ -3126,8 +3165,6 @@ def self_touch_phase(dense, gen):
     finally:
         for restore in reversed(restores[:3]):
             restore()
-    for k, v in small.items():
-        launches[k] += v
     b1_vg = check_b1_vg(gate_spy, gen)
     log(f"[kernels] gsweep_sweep0_vg: {b1_vg[0]:.3f} ms vs plain "
         f"{b1_vg[1]:.1f} ms (the self-touch CCL's sweep of {b1_vg[3]})")
@@ -3148,8 +3185,9 @@ def self_touch_phase(dense, gen):
             f"{[round(t, 4) for t in tb]} ms without (in turns a, b, b, a):"
             f" x{np.mean(ta) / np.mean(tb):.3f}")
     g1_rows = check_g1(g1_spy, gen)
-    return (launches, b1_vg, (b5_vg[0], b5_vg[1], max(b5_vg[2], b5_err)),
-            b4_rows, dict(calls), b4_err, g1_rows, dict(g1_spy.calls))
+    return (launches, small, b1_vg,
+            (b5_vg[0], b5_vg[1], max(b5_vg[2], b5_err)), b4_rows,
+            dict(calls), b4_err, g1_rows, g1_calls)
 
 
 
@@ -4599,8 +4637,10 @@ def check_b1_recorded(spy):
                             bits)
         again = gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp, desc, gate,
                               bits)
-        want, plain = timed_once(lambda: gsweep._sweep0_plain(
-            d, cc, nc, ok, anis, mode, clamp, desc, gate, bits))
+        want, plain = timed_once(
+            lambda: gsweep._sweep0_plain(d, cc, nc, ok, anis, mode, clamp,
+                                         desc) if gate is None
+            else gsweep._sweep0_gate_plain(d, gate, bits, desc))
         err = require_equal(f"B1 sharded call {key}", got, want)
         require_equal(f"B1 sharded call {key} run twice", again, got)
         del want, again
@@ -4611,7 +4651,8 @@ def check_b1_recorded(spy):
         ms = cuda_ms(lambda: gsweep.sweep0(d, cc, nc, ok, anis, mode, clamp,
                                            desc, gate, bits), 3)
         vox = int(np.prod(shape))
-        per = 12 + 4 * has_nc + 4 * has_gate + (ok is not None)
+        # B1-vg: ids and gate in, ids out; B1: d and cc (and nc, ok) in
+        per = 12 if has_gate else 12 + 4 * has_nc + (ok is not None)
         bms, by = hbm_bound(per * vox, 20 * vox)
         what = f"{mode}{' clamp' if clamp else ''}{' gated' if has_gate else ''}"
         rows[shape] = (0, ms, plain, bms, by, err, what)
@@ -5417,8 +5458,9 @@ def main() -> int:
         b5_err = max(b5_err, check_b5_recorded(b5_fill))
     del b5_fill
     # 10. self-touch: the dense volume under a voxel graph
-    (touch_launches, b1_vg, b5_vg, b4_touch, b4_touch_calls, b4_rule_err,
-     g1_touch, g1_touch_calls) = self_touch_phase(dense, gen)
+    (touch_launches, touch_small_launches, b1_vg, b5_vg, b4_touch,
+     b4_touch_calls, b4_rule_err, g1_touch,
+     g1_touch_calls) = self_touch_phase(dense, gen)
     # 11. the analysis extras on the dense run's skeletons
     (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
      b5_connect) = analysis_phase(dense, dense_skels, gen)
@@ -5455,7 +5497,8 @@ def main() -> int:
             b4_rows[shape][0] += calls.get(shape, 0)
     for part in (dense_launches, soma_launches, xs_launches, fill_launches,
                  small_fill_launches, stream_launches, chunk_launches,
-                 touch_launches, analysis_launches, sharded_launches):
+                 touch_launches, touch_small_launches, analysis_launches,
+                 sharded_launches):
         for k, v in part.items():
             launches[k] += v
     log(f"[main] launches over the main-path runs: {json.dumps(launches)}")
@@ -5581,24 +5624,30 @@ def main() -> int:
                       "plain_ms": round(plain, 4),
                       "bound_ms": round(bms, 4), "bound_by": by,
                       "library_ms": None})
-    # the graph-gated forms (phase 10): B1's at the self-touch CCL's sweep,
-    # B5's at a 96^3 node sweep (B5's row shape), B4's at each shape of the
-    # self-touch runs' most swept voxels
+    # the graph-gated forms (phase 10): B1's at the self-touch CCL's sweep
+    # (the two 512^3 runs' launches), B5's at a 96^3 node sweep (B5's row
+    # shape; only the 64^3 card run's host-path label launches it, so its
+    # launches are that run's and the 512^3 runs'), B4's at each shape of
+    # the self-touch runs' most swept voxels
+    log(f"[kernels] self-touch launches: 512^3 runs "
+        f"{json.dumps(touch_launches)}; 64^3 card run "
+        f"{json.dumps(touch_small_launches)}")
     table.append({"name": "gsweep_sweep0_vg", "route": "cuda",
                   "source": "kimimaro_tpu_torch/csrc/gsweep.cu",
                   "replaces": "kimimaro_tpu/ops/gsweep.py:219",
-                  "launches": launches["gsweep_sweep0_vg"],
+                  "launches": touch_launches["gsweep_sweep0_vg"],
                   "max_abs_err": b1_vg[2], "ms": round(b1_vg[0], 4),
                   "plain_ms": round(b1_vg[1], 4),
-                  "bound_ms": round(bound(16 * int(np.prod(b1_vg[3])),
+                  "bound_ms": round(bound(12 * int(np.prod(b1_vg[3])),
                                          20 * int(np.prod(b1_vg[3])))[0], 4),
-                  "bound_by": bound(16 * int(np.prod(b1_vg[3])),
+                  "bound_by": bound(12 * int(np.prod(b1_vg[3])),
                                     20 * int(np.prod(b1_vg[3])))[1],
                   "library_ms": None})
     table.append({"name": "sweep_axis0_vg", "route": "cuda",
                   "source": "kimimaro_tpu_torch/csrc/sweep.cu",
                   "replaces": "kimimaro_tpu/ops/pallas_sweep.py:117",
-                  "launches": launches["sweep_axis0_vg"],
+                  "launches": touch_launches["sweep_axis0_vg"]
+                  + touch_small_launches["sweep_axis0_vg"],
                   "max_abs_err": b5_vg[2], "ms": round(b5_vg[0], 4),
                   "plain_ms": round(b5_vg[1], 4),
                   "bound_ms": round(bound(17 * 96 ** 3, 12 * 96 ** 3)[0], 4),
@@ -5619,19 +5668,25 @@ def main() -> int:
             "launches": b4_touch_calls[shape], "max_abs_err": touch_err,
             "ms": round(ms, 4), "plain_ms": round(plain, 4),
             "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
-    # G1 at the self-touch runs' shapes of the most voxels (the CCL's
-    # whole volume, the crop engine's largest lane sets)
+    # G1 at the 512^3 self-touch runs' shapes of the most voxels: the crop
+    # engine's largest lane sets, and the CCL form at the CCL's volume; the
+    # launches are those runs' calls of each shape
     g1_err = max(v[4] for v in g1_touch.values())
-    for shape in sorted(g1_touch, key=lambda k: -g1_touch_calls[k]
-                        * int(np.prod(k)))[:3]:
-        ms, plain, bms, by, _ = g1_touch[shape]
-        table.append({
-            "name": f"graph_into {shape}", "route": "cuda",
-            "source": "kimimaro_tpu_torch/csrc/gate.cu",
-            "replaces": "kimimaro_tpu/ops/geodesic.py:444",
-            "launches": g1_touch_calls[shape], "max_abs_err": g1_err,
-            "ms": round(ms, 4), "plain_ms": round(plain, 4),
-            "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None})
+    for ccl, g1_name, g1_rep, top in (
+            (False, "graph_into", "kimimaro_tpu/ops/geodesic.py:444", 3),
+            (True, "graph_into_ccl", "kimimaro_tpu/ops/ccl.py:83", 2)):
+        keys = [k for k in g1_touch
+                if k[1] == ccl and g1_touch_calls.get(k, 0) > 0]
+        for key in sorted(keys, key=lambda k: -g1_touch_calls[k]
+                          * int(np.prod(k[0])))[:top]:
+            ms, plain, bms, by, _ = g1_touch[key]
+            table.append({
+                "name": f"{g1_name} {key[0]}", "route": "cuda",
+                "source": "kimimaro_tpu_torch/csrc/gate.cu",
+                "replaces": g1_rep, "launches": g1_touch_calls[key],
+                "max_abs_err": g1_err, "ms": round(ms, 4),
+                "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
+                "bound_by": by, "library_ms": None})
     table.extend(v1_table(launches, v1, v1_rows, v1_lanes_rows, v1b_err))
     # B5 at phase 11's connect_points shape (512^3), each mode
     table.extend(b5_connect)

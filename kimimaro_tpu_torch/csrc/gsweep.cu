@@ -44,17 +44,19 @@
 // per-plane form and the plain versions carry -1 there instead; both give
 // the same result, also for occupied raw labels of -1 in minid mode.
 //
-// B1 with a voxel graph (minid mode only: the CCL of kimimaro_tpu/ops/ccl.py
-// `_ccl_stage` with `has_vg`, which the JAX package runs as a lax.scan with
-// no Pallas form): a neighbour u on the previous plane also counts only
-// where the graph lets u's id move into the voxel. The carried-id channel
-// already holds the labels, so the gate sits at the target: a per-voxel
-// word `gate` (ops.stencils.graph_into: bit GRAPH_BITS[o] set where the
-// move from v + o into v is open) is one more operand of the stage, read
-// with the voxel's own operands, and `bits` names the bit of each of the
-// nine (dy, dz) neighbours for this layout and direction. Nothing new
-// crosses a strip's halo. It reads 4 bytes a voxel more (16 in all: ids,
-// labels and gate in, ids out; 0.64 ms at 512^3 on the HBM rate).
+// B1 with a voxel graph (B1-vg, minid mode only: the CCL of
+// kimimaro_tpu/ops/ccl.py `_ccl_stage` with `has_vg`, which the JAX package
+// runs as a lax.scan with no Pallas form): a neighbour u on the previous
+// plane counts only where it has the voxel's label and the graph lets u's
+// id move into the voxel. Both tests sit in one word a voxel, G1's CCL
+// form (ops.stencils.graph_into with labels): bit GRAPH_BITS[o] set where
+// the move from v + o into v is open and v + o has v's label, bit 26 where
+// v is occupied. So the sweep reads the ids and that word (`bits` names
+// the bit of each of the nine (dy, dz) neighbours for this layout and
+// direction) and carries the ids alone: no cc operand, no carried-id
+// channel, nine bit tests for the nine id compares. 12 bytes a voxel (ids
+// and gate in, ids out; 0.48 ms at 512^3 on the HBM rate), 4 a carried
+// cell.
 //
 // The f32 operation order is the contract: the step cost is added before
 // the min in euclid mode, the nodecost after the min in node mode. The
@@ -96,15 +98,14 @@ __device__ __forceinline__ T reduce(T a, T b) {
 // ---------------------------------------------------------------------------
 // B1, per plane: the route of planes too large for the strips.
 
-template <int MODE, bool HAS_OK, bool CLAMP, bool VG>
+template <int MODE, bool HAS_OK, bool CLAMP>
 __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
                              const int32_t* __restrict__ cc,
                              const float* __restrict__ nc,
                              const uint8_t* __restrict__ ok,
-                             const uint32_t* __restrict__ gate,
                              typename Field<MODE>::T* __restrict__ out,
                              int H, int W, int64_t plane, int64_t prev,
-                             kt::Costs9 costs, kt::Bits9 bits) {
+                             kt::Costs9 costs) {
     using T = typename Field<MODE>::T;
     const int z = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -122,7 +123,6 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
         nv = occ ? cur : fill;
     } else {
         T cand = fill;
-        const uint32_t g = VG ? gate[i] : 0u;
         int k = 0;
         for (int dy = -1; dy <= 1; ++dy) {
             for (int dz = -1; dz <= 1; ++dz, ++k) {
@@ -134,8 +134,7 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
                     const int32_t pc = cc[j];
                     bool pocc = occupied_id<MODE>(pc);
                     if (HAS_OK) pocc = pocc && (ok[j] != 0);
-                    const bool open = !VG || ((g >> bits.b[k]) & 1u) != 0u;
-                    if ((pocc ? pc : -1) == ccc && open) sv = out[j];
+                    if ((pocc ? pc : -1) == ccc) sv = out[j];
                 }
                 if (MODE == kEuclid) sv = __fadd_rn(sv, costs.c[k]);
                 cand = reduce<MODE>(cand, sv);
@@ -150,21 +149,19 @@ __global__ void sweep0_plane(const typename Field<MODE>::T* __restrict__ d,
     out[i] = nv;
 }
 
-template <int MODE, bool HAS_OK, bool CLAMP, bool VG>
+template <int MODE, bool HAS_OK, bool CLAMP>
 int run_sweep0(const void* d, const void* cc, const void* nc, const void* ok,
-               const void* gate, void* out, int n, int H, int W,
-               const kt::Costs9& costs, const kt::Bits9& bits, int descending,
-               cudaStream_t st) {
+               void* out, int n, int H, int W, const kt::Costs9& costs,
+               int descending, cudaStream_t st) {
     using T = typename Field<MODE>::T;
     const dim3 grid = kt::plane_grid(H, W);
     const dim3 block = kt::plane_block();
     for (int s = 0; s < n; ++s) {
         int64_t plane, prev;
         kt::sweep_planes(s, n, descending, &plane, &prev);
-        sweep0_plane<MODE, HAS_OK, CLAMP, VG><<<grid, block, 0, st>>>(
+        sweep0_plane<MODE, HAS_OK, CLAMP><<<grid, block, 0, st>>>(
             (const T*)d, (const int32_t*)cc, (const float*)nc,
-            (const uint8_t*)ok, (const uint32_t*)gate, (T*)out, H, W, plane,
-            prev, costs, bits);
+            (const uint8_t*)ok, (T*)out, H, W, plane, prev, costs);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
@@ -173,16 +170,15 @@ int run_sweep0(const void* d, const void* cc, const void* nc, const void* ok,
 
 // ---------------------------------------------------------------------------
 // B1, persistent strips: the operator of kt::sweep_strips. Operands in
-// this order: d, cc (, nc) (, gate) words (, ok bytes).
+// this order: d, cc (, nc) words (, ok bytes).
 
-template <int MODE, bool HAS_OK, bool CLAMP, bool VG = false>
+template <int MODE, bool HAS_OK, bool CLAMP>
 struct Sweep0Op {
     using T = typename Field<MODE>::T;
     static constexpr int kFields = 1;
     static constexpr bool kIds = true;
     static constexpr bool kNc = MODE == kNode;
-    static constexpr int kGate = kNc ? 3 : 2;  // gate's operand index
-    static constexpr int kWords = 2 + (kNc ? 1 : 0) + (VG ? 1 : 0);
+    static constexpr int kWords = 2 + (kNc ? 1 : 0);
     static constexpr int kBytes = HAS_OK ? 1 : 0;
 
     const T* d;
@@ -191,8 +187,6 @@ struct Sweep0Op {
     const uint8_t* ok;
     T* out;
     kt::Costs9 costs;
-    const uint32_t* gate;
-    kt::Bits9 bits;
 
     __device__ T fill() const { return Field<MODE>::fill(); }
 
@@ -200,7 +194,6 @@ struct Sweep0Op {
         if (k == 0) return d;
         if (k == 1) return cc;
         if (kNc && k == 2) return nc;
-        if (VG && k == kGate) return gate;
         return ok;
     }
 
@@ -223,15 +216,11 @@ struct Sweep0Op {
             r = occ ? cur : fill;
         } else {
             T cand = fill;
-            uint32_t g = 0u;
-            if constexpr (VG) g = ((const uint32_t*)in.p[kGate])[i];
 #pragma unroll
             for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
                 for (int dz = 0; dz < 3; ++dz) {
-                    const bool open =
-                        !VG || ((g >> bits.b[3 * dy + dz]) & 1u) != 0u;
-                    if (nid[rr + dy][dz] == ccc && open) {
+                    if (nid[rr + dy][dz] == ccc) {
                         T sv = v[0][rr + dy][dz];
                         if (MODE == kEuclid) {
                             sv = __fadd_rn(sv, costs.c[3 * dy + dz]);
@@ -261,30 +250,26 @@ struct Sweep0Op {
 // and a voxel's operands 8 to 13 bytes a stage, so on 132 SMs with 227 KB
 // the strips hold square planes up to 896 x 896 without an okmask in
 // euclid, maxflood and minid mode, 848 x 848 with one, and 784 x 784 in
-// node mode (B2: 656 x 656). The gate word of minid mode with a graph
-// makes a voxel's operands 12 bytes a stage, as node mode's: square planes
-// up to 784 x 784.
-template <int MODE, bool HAS_OK, bool VG = false>
+// node mode (B2: 656 x 656).
+template <int MODE, bool HAS_OK>
 kt::StripPlan plan_sweep0(int H, int W) {
-    return kt::plan_grid_strips<Sweep0Op<MODE, HAS_OK, false, VG>>(H, W);
+    return kt::plan_grid_strips<Sweep0Op<MODE, HAS_OK, false>>(H, W);
 }
 
-template <int MODE, bool HAS_OK, bool CLAMP, bool VG = false>
+template <int MODE, bool HAS_OK, bool CLAMP>
 int run_sweep0_any(const void* d, const void* cc, const void* nc,
-                   const void* ok, const void* gate, void* mail, void* out,
-                   int n, int H, int W, const kt::Costs9& costs,
-                   const kt::Bits9& bits, int descending, cudaStream_t st) {
-    using Op = Sweep0Op<MODE, HAS_OK, CLAMP, VG>;
+                   const void* ok, void* mail, void* out, int n, int H,
+                   int W, const kt::Costs9& costs, int descending,
+                   cudaStream_t st) {
+    using Op = Sweep0Op<MODE, HAS_OK, CLAMP>;
     using T = typename Op::T;
-    const kt::StripPlan plan = plan_sweep0<MODE, HAS_OK, VG>(H, W);
+    const kt::StripPlan plan = plan_sweep0<MODE, HAS_OK>(H, W);
     if (plan.form != kt::kGridStrips) {
-        return run_sweep0<MODE, HAS_OK, CLAMP, VG>(d, cc, nc, ok, gate, out,
-                                                   n, H, W, costs, bits,
-                                                   descending, st);
+        return run_sweep0<MODE, HAS_OK, CLAMP>(d, cc, nc, ok, out, n, H, W,
+                                               costs, descending, st);
     }
     const Op op = {(const T*)d, (const int32_t*)cc, (const float*)nc,
-                   (const uint8_t*)ok, (T*)out, costs,
-                   (const uint32_t*)gate, bits};
+                   (const uint8_t*)ok, (T*)out, costs};
     return kt::run_grid_strips(op, (unsigned long long*)mail, n, H, W,
                                descending, plan, st);
 }
@@ -295,27 +280,161 @@ int dispatch_sweep0(const void* d, const void* cc, const void* nc,
                     int W, const kt::Costs9& costs, int clamp, int descending,
                     cudaStream_t st) {
     if (n <= 0 || H <= 0 || W <= 0) return 0;
-    const kt::Bits9 none = {};
     if (ok != nullptr) {
         return clamp ? run_sweep0_any<MODE, true, true>(
-                           d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
-                           none, descending, st)
+                           d, cc, nc, ok, mail, out, n, H, W, costs,
+                           descending, st)
                      : run_sweep0_any<MODE, true, false>(
-                           d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
-                           none, descending, st);
+                           d, cc, nc, ok, mail, out, n, H, W, costs,
+                           descending, st);
     }
     return clamp ? run_sweep0_any<MODE, false, true>(
-                       d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
-                       none, descending, st)
+                       d, cc, nc, ok, mail, out, n, H, W, costs, descending,
+                       st)
                  : run_sweep0_any<MODE, false, false>(
-                       d, cc, nc, ok, nullptr, mail, out, n, H, W, costs,
-                       none, descending, st);
+                       d, cc, nc, ok, mail, out, n, H, W, costs, descending,
+                       st);
 }
 
 template <int MODE>
 kt::StripPlan plan_sweep0_mode(int H, int W, int has_ok) {
     return has_ok ? plan_sweep0<MODE, true>(H, W)
                   : plan_sweep0<MODE, false>(H, W);
+}
+
+// ---------------------------------------------------------------------------
+// B1-vg: minid mode on G1's CCL gate. The occupancy is the gate's bit 26,
+// a neighbour k of the previous plane counts where bit bits.b[k] is set
+// (which also says that it has the voxel's label), and a voxel that is not
+// occupied takes the fill. First the per-plane form, then the strips
+// (kIds false: the ids are the carried values, the labels ride the gate).
+
+constexpr int kOccBit = 26;
+
+__global__ void sweep0_gate_plane(const int32_t* __restrict__ d,
+                                  const uint32_t* __restrict__ gate,
+                                  int32_t* __restrict__ out, int H, int W,
+                                  int64_t plane, int64_t prev,
+                                  kt::Bits9 bits) {
+    const int z = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (y >= H || z >= W) return;
+    const int64_t HW = (int64_t)H * W;
+    const int64_t i = plane * HW + (int64_t)y * W + z;
+    const uint32_t g = gate[i];
+    const bool occ = ((g >> kOccBit) & 1u) != 0u;
+    const int32_t fill = Field<kMinid>::fill();
+    const int32_t cur = d[i];
+    int32_t nv;
+    if (prev < 0) {
+        nv = occ ? cur : fill;
+    } else {
+        int32_t cand = fill;
+        int k = 0;
+        for (int dy = -1; dy <= 1; ++dy) {
+            for (int dz = -1; dz <= 1; ++dz, ++k) {
+                const int yy = y + dy;
+                const int zz = z + dz;
+                if (yy >= 0 && yy < H && zz >= 0 && zz < W &&
+                    ((g >> bits.b[k]) & 1u) != 0u) {
+                    cand = min(cand, out[prev * HW + (int64_t)yy * W + zz]);
+                }
+            }
+        }
+        nv = occ ? min(cur, cand) : fill;
+    }
+    out[i] = nv;
+}
+
+int run_sweep0_gate(const void* d, const void* gate, void* out, int n, int H,
+                    int W, const kt::Bits9& bits, int descending,
+                    cudaStream_t st) {
+    const dim3 grid = kt::plane_grid(H, W);
+    const dim3 block = kt::plane_block();
+    for (int s = 0; s < n; ++s) {
+        int64_t plane, prev;
+        kt::sweep_planes(s, n, descending, &plane, &prev);
+        sweep0_gate_plane<<<grid, block, 0, st>>>(
+            (const int32_t*)d, (const uint32_t*)gate, (int32_t*)out, H, W,
+            plane, prev, bits);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+
+// Operands in this order: d, gate words.
+struct Sweep0GateOp {
+    using T = int32_t;
+    static constexpr int kFields = 1;
+    static constexpr bool kIds = false;
+    static constexpr int kWords = 2;
+    static constexpr int kBytes = 0;
+
+    const int32_t* d;
+    const uint32_t* gate;
+    int32_t* out;
+    kt::Bits9 bits;
+
+    __device__ int32_t fill() const { return Field<kMinid>::fill(); }
+
+    __device__ const void* operand(int k) const {
+        return k == 0 ? (const void*)d : (const void*)gate;
+    }
+
+    // the arithmetic of `sweep0_gate_plane`; a cell outside the volume
+    // holds the fill
+    __device__ __forceinline__ void relax(
+        bool first, const kt::StageView<kWords + kBytes>& in, int i,
+        const int32_t (&v)[1][kt::kGroup + 2][3],
+        const int32_t (&)[kt::kGroup + 2][3], int rr, int32_t (&nv)[1],
+        int32_t&) const {
+        const uint32_t g = ((const uint32_t*)in.p[1])[i];
+        const bool occ = ((g >> kOccBit) & 1u) != 0u;
+        const int32_t fill = Field<kMinid>::fill();
+        const int32_t cur = ((const int32_t*)in.p[0])[i];
+        if (first) {
+            nv[0] = occ ? cur : fill;
+            return;
+        }
+        int32_t cand = fill;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+            for (int dz = 0; dz < 3; ++dz) {
+                if (((g >> bits.b[3 * dy + dz]) & 1u) != 0u) {
+                    cand = min(cand, v[0][rr + dy][dz]);
+                }
+            }
+        }
+        nv[0] = occ ? min(cur, cand) : fill;
+    }
+
+    __device__ void store(int64_t j, const int32_t (&nv)[1]) const {
+        out[j] = nv[0];
+    }
+};
+
+// How B1-vg runs a plane of H x W: 4 bytes a carried cell and copy and 8
+// bytes of operands a voxel a stage, so on 132 SMs with 227 KB the strips
+// hold square planes up to 1056 x 1056.
+kt::StripPlan plan_sweep0_gate(int H, int W) {
+    return kt::plan_grid_strips<Sweep0GateOp>(H, W);
+}
+
+int dispatch_sweep0_gate(const void* d, const void* gate, void* mail,
+                         void* out, int n, int H, int W,
+                         const kt::Bits9& bits, int descending,
+                         cudaStream_t st) {
+    if (n <= 0 || H <= 0 || W <= 0) return 0;
+    const kt::StripPlan plan = plan_sweep0_gate(H, W);
+    if (plan.form != kt::kGridStrips) {
+        return run_sweep0_gate(d, gate, out, n, H, W, bits, descending, st);
+    }
+    const Sweep0GateOp op = {(const int32_t*)d, (const uint32_t*)gate,
+                             (int32_t*)out, bits};
+    return kt::run_grid_strips(op, (unsigned long long*)mail, n, H, W,
+                               descending, plan, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -526,12 +645,13 @@ int dispatch_dual(const void* da, const void* db, const void* cc,
 extern "C" {
 
 // B1. d/out: float32 (int32 in minid mode); cc: int32; nc: float32 or
-// NULL; ok: uint8 or NULL; gate: uint32 or NULL (minid mode only, with
-// neither ok nor clamp), with bits9 its nine bit indices in (dy, dz) order;
-// all (n, H, W) contiguous. mode: 0 euclid, 1 node, 2 maxflood, 3 minid.
-// mail: int64 (strips * 4 * W,) for the persistent form
-// (kt_gsweep_sweep0_plan), zeroed by the caller before every call: the
-// strips' edge-row mailboxes. Returns a cudaError_t code (0 = success).
+// NULL; ok: uint8 or NULL; all (n, H, W) contiguous. mode: 0 euclid, 1
+// node, 2 maxflood, 3 minid. B1-vg: gate (uint32, G1's CCL form) with
+// bits9 its nine bit indices in (dy, dz) order, minid mode only, with cc,
+// nc and ok NULL and no clamp. mail: int64 (strips * 4 * W,) for the
+// persistent form (kt_gsweep_sweep0_plan), zeroed by the caller before
+// every call: the strips' edge-row mailboxes. Returns a cudaError_t code
+// (0 = success).
 int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
                      const void* ok, const void* gate, void* mail, void* out,
                      int n, int H, int W, const float* costs9,
@@ -543,7 +663,8 @@ int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
         return (int)cudaErrorInvalidValue;
     }
     if (gate != nullptr) {
-        if (mode != kMinid || ok != nullptr || clamp) {
+        if (mode != kMinid || cc != nullptr || nc != nullptr ||
+            ok != nullptr || clamp) {
             return (int)cudaErrorInvalidValue;
         }
         kt::Bits9 bits;
@@ -553,11 +674,10 @@ int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
                 return (int)cudaErrorInvalidValue;
             }
         }
-        if (n <= 0 || H <= 0 || W <= 0) return 0;
-        return run_sweep0_any<kMinid, false, false, true>(
-            d, cc, nc, nullptr, gate, mail, out, n, H, W, costs, bits,
-            descending, st);
+        return dispatch_sweep0_gate(d, gate, mail, out, n, H, W, bits,
+                                    descending, st);
     }
+    if (cc == nullptr) return (int)cudaErrorInvalidValue;
     switch (mode) {
         case kEuclid:
             return dispatch_sweep0<kEuclid>(d, cc, nc, ok, mail, out, n, H, W,
@@ -577,16 +697,16 @@ int kt_gsweep_sweep0(const void* d, const void* cc, const void* nc,
     }
 }
 
-// How B1 runs a plane of H x W in `mode` (with an okmask where has_ok, a
-// graph gate where has_gate: minid mode only) on the current device:
-// returns 1 for the persistent form (and its rows per strip and its
-// strips), 0 for the per-plane form, -1 for a combination it does not run.
+// How B1 runs a plane of H x W in `mode` (with an okmask where has_ok; B1-vg
+// where has_gate: minid mode only) on the current device: returns 1 for the
+// persistent form (and its rows per strip and its strips), 0 for the
+// per-plane form, -1 for a combination it does not run.
 int kt_gsweep_sweep0_plan(int H, int W, int mode, int has_ok, int has_gate,
                           int* rows, int* strips) {
     kt::StripPlan plan = {kt::kPerPlane, {0, 0}, 0, 0};
     if (has_gate) {
         if (mode != kMinid || has_ok) return -1;
-        plan = plan_sweep0<kMinid, false, true>(H, W);
+        plan = plan_sweep0_gate(H, W);
         *rows = plan.strips.rows;
         *strips = plan.strips.count;
         return plan.form == kt::kGridStrips ? 1 : 0;

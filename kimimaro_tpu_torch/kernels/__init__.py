@@ -38,7 +38,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
 # F1, V1 and its lane-batched form, G1); the forms gated by a voxel graph
-# (B1, B4, B5) count apart
+# (B1, B4, B5) and G1's CCL form count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_vg": 0,
@@ -54,6 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "voronoi_sweep": 0,
     "voronoi_sweep_batched": 0,
     "graph_into": 0,
+    "graph_into_ccl": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -175,7 +176,7 @@ def lib() -> ctypes.CDLL:
         so.kt_voronoi_lanes.restype = i
         so.kt_voronoi_lanes_limits.argtypes = [p, p]
         so.kt_voronoi_lanes_limits.restype = i
-        so.kt_graph_into.argtypes = [p, p, ll, i, i, i, p, p]
+        so.kt_graph_into.argtypes = [p, p, p, ll, i, i, i, p, p]
         so.kt_graph_into.restype = i
         _LIB = so
     return _LIB

@@ -8,12 +8,14 @@ unconverged after the first rounds are accelerated by pointer jumps. The
 fixpoint is unique (each component carries its minimum linear index), so
 the schedule does not change the result.
 
-With a voxel graph (cc3d convention, self-touch walls) the sweeps run B1's
-graph-gated form: a neighbour's id moves into a voxel only where the
-neighbour's bit for that move is set (ops.stencils.graph_into holds these
-permissions at the receiving voxel). The fixpoint is still unique: each
-voxel carries the minimum linear index over the voxels that reach it,
-which pointer jumps keep, also for an asymmetric graph.
+With a voxel graph (cc3d convention, self-touch walls) the sweeps run
+B1-vg: a neighbour's id moves into a voxel only where the neighbour has
+the voxel's label and its bit for that move is set. Both tests and the
+voxel's occupancy sit in one word at the receiving voxel, built once by
+G1's CCL form (ops.stencils.graph_into with the labels), so the sweeps
+read the ids and that word and no labels. The fixpoint is still unique:
+each voxel carries the minimum linear index over the voxels that reach
+it, which pointer jumps keep, also for an asymmetric graph.
 """
 
 from __future__ import annotations
@@ -76,13 +78,14 @@ def connected_components(labels, voxel_graph=None,
     labels = label_words(as_tensor(labels, device))
     if labels.ndim != 3:
         raise ValueError("connected_components takes a 3D volume")
-    if voxel_graph is not None:
-        voxel_graph = as_tensor(voxel_graph).to(labels.device)
     fg = labels != 0
     ids = torch.where(fg, _lin(labels.shape, labels.device), BIGID)
-    cc_v = gsweep.MaskViews(labels)
-    gate_v = (None if voxel_graph is None
-              else gsweep.MaskViews(graph_into(voxel_graph)))
+    if voxel_graph is None:
+        cc_v, gate_v = gsweep.MaskViews(labels), None
+    else:
+        voxel_graph = as_tensor(voxel_graph).to(labels.device)
+        cc_v = None
+        gate_v = gsweep.MaskViews(graph_into(voxel_graph, labels))
     anis = (1.0, 1.0, 1.0)
 
     def sweep_round(x):

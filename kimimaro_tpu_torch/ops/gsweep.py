@@ -14,8 +14,9 @@ Modes:
   maxflood: new = max(cur, max9(prev_same_label))
   minid:    int32 CCL ids, occupancy cc != 0
 clamp_positive resets positives to +inf (rolling-ball invalidation);
-`okmask` additionally restricts occupancy. In minid mode a voxel graph
-may gate the moves too (`gate`, `bits9`: the CCL under a graph).
+`okmask` additionally restricts occupancy. In minid mode the CCL under a
+voxel graph reads G1's CCL gate instead of `cc` (`gate`, `bits9`: the
+labels' equality, the graph's moves and the occupancy in one word).
 
 `sweep0` (B1) and `sweep0_dual` (B2) launch the CUDA kernels of
 csrc/gsweep.cu for CUDA tensors (one persistent launch per sweep, or one
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .stencils import GRAPH_BITS, pad_const
+from .stencils import GRAPH_BITS, OCC_BIT, pad_const
 
 INF = float("inf")
 NEG_INF = float("-inf")
@@ -44,6 +45,11 @@ BIGID = 2**31 - 1  # minid mode fill (matches ops.ccl.BIGID)
 _MODES = {"euclid": 0, "node": 1, "maxflood": 2, "minid": 3}
 _KINDS = {"ball_rail": 0, "max2": 1}
 _MASK_DTYPES = (torch.uint8, torch.bool)
+
+
+# the nine (dy, dz) offsets of the previous plane, in the order of the step
+# costs and of a gate's bits9
+_OFFSETS9 = tuple((dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
 
 
 def _costs9(anis_perm) -> list:
@@ -72,13 +78,9 @@ def _fill(mode: str):
 
 
 def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
-                  clamp_positive: bool, descending: bool, gate=None,
-                  bits9=None):
+                  clamp_positive: bool, descending: bool):
     """Plain torch version of the B1 kernel: a Python loop over planes
-    (the JAX package's `_sweep0_scan`). With `gate` (int32 words of
-    ops.stencils.graph_into, the shape of `d`) the neighbour k of the
-    previous plane counts only where bit bits9[k] of the voxel's gate
-    word is set (the JAX package's `_ccl_stage` with a voxel graph)."""
+    (the JAX package's `_sweep0_scan`)."""
     fill = _fill(mode)
     costs9 = _costs9(anis_perm)
     n, H, W = d.shape
@@ -98,13 +100,10 @@ def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
             pv = pad_const(prev_v, 1, fill)
             pc = pad_const(prev_c, 1, -1)
             cand = torch.full_like(cur, fill)
-            for k, ((dy, dz), c) in enumerate(costs9):
+            for (dy, dz), c in costs9:
                 sv = pv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
                 sc = pc[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
-                same = sc == ccc
-                if gate is not None:
-                    same = same & (((gate[p] >> bits9[k]) & 1) > 0)
-                sv = torch.where(same, sv, fill)
+                sv = torch.where(sc == ccc, sv, fill)
                 if mode == "euclid":
                     sv = sv + c
                 if mode == "maxflood":
@@ -124,14 +123,47 @@ def _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode: str,
     return out
 
 
-def _check_gate(mode, okmask, clamp_positive, gate, bits9):
+def _sweep0_gate_plain(d, gate, bits9, descending: bool):
+    """Plain torch version of B1-vg: a minid sweep on G1's CCL gate (int32
+    words of ops.stencils.graph_into with labels, the shape of `d`). A
+    voxel is occupied where its bit OCC_BIT is set; the neighbour k of
+    the previous plane counts where bit bits9[k] is set (the JAX
+    package's `_ccl_stage` with a voxel graph: same label, the move
+    into the voxel open)."""
+    n, H, W = d.shape
+    occ = ((gate >> OCC_BIT) & 1) > 0
+    out = torch.empty_like(d)
+    order = range(n - 1, -1, -1) if descending else range(n)
+    prev_v = None
+    for p in order:
+        cur = d[p]
+        if prev_v is None:
+            new = torch.where(occ[p], cur, BIGID)
+        else:
+            pv = pad_const(prev_v, 1, BIGID)
+            cand = torch.full_like(cur, BIGID)
+            for k, (dy, dz) in enumerate(_OFFSETS9):
+                sv = pv[1 + dy:1 + dy + H, 1 + dz:1 + dz + W]
+                open_ = ((gate[p] >> bits9[k]) & 1) > 0
+                cand = torch.minimum(cand, torch.where(open_, sv, BIGID))
+            new = torch.where(occ[p], torch.minimum(cur, cand), BIGID)
+        out[p] = new
+        prev_v = new
+    return out
+
+
+def _check_gate(mode, cc, nodecost, okmask, clamp_positive, gate, bits9):
     """The graph gate's operands, checked: bits9 as nine ints in 0..31."""
     if (gate is None) != (bits9 is None):
         raise ValueError("sweep0: give gate and bits9 together")
     if gate is None:
+        if cc is None:
+            raise ValueError("sweep0: cc is required without a gate")
         return None
-    if mode != "minid" or okmask is not None or clamp_positive:
-        raise ValueError("sweep0: a graph gate runs in minid mode alone")
+    if mode != "minid" or cc is not None or nodecost is not None \
+            or okmask is not None or clamp_positive:
+        raise ValueError("sweep0: a graph gate runs in minid mode alone, "
+                         "without cc (its labels ride the gate)")
     bits9 = tuple(int(b) for b in bits9)
     if len(bits9) != 9 or not all(0 <= b < 32 for b in bits9):
         raise ValueError(f"sweep0: bad bits9 {bits9}")
@@ -140,13 +172,17 @@ def _check_gate(mode, okmask, clamp_positive, gate, bits9):
 
 def sweep0(d, cc, nodecost, okmask, anis_perm, mode: str,
            clamp_positive: bool, descending: bool, gate=None, bits9=None):
-    """One directed sweep along axis 0 of an (n, H, W) volume (B1); with
-    `gate`/`bits9` (minid mode) the graph-gated form, counted apart as
-    "gsweep_sweep0_vg"."""
-    bits9 = _check_gate(mode, okmask, clamp_positive, gate, bits9)
+    """One directed sweep along axis 0 of an (n, H, W) volume (B1). With
+    `gate`/`bits9` (minid mode, `cc` None) B1-vg: the CCL under a voxel
+    graph on G1's CCL gate (ops.stencils.graph_into with labels), counted
+    apart as "gsweep_sweep0_vg"."""
+    bits9 = _check_gate(mode, cc, nodecost, okmask, clamp_positive, gate,
+                        bits9)
     if d.device.type == "cpu":
+        if gate is not None:
+            return _sweep0_gate_plain(d, gate, bits9, descending)
         return _sweep0_plain(d, cc, nodecost, okmask, anis_perm, mode,
-                             clamp_positive, descending, gate, bits9)
+                             clamp_positive, descending)
     if mode not in _MODES:
         raise ValueError(f"unknown sweep mode {mode!r}")
     if (mode == "node") != (nodecost is not None):
@@ -181,7 +217,7 @@ def sweep0(d, cc, nodecost, okmask, anis_perm, mode: str,
 def sweep0_plan(H: int, W: int, mode: str, has_ok: bool,
                 has_gate: bool = False) -> dict:
     """How the B1 kernel runs an (H, W) plane in `mode` (with an okmask
-    where `has_ok`, a graph gate where `has_gate`) on the current CUDA
+    where `has_ok`; B1-vg where `has_gate`) on the current CUDA
     device: `persistent` (one launch per sweep, `strips` CTAs of `rows`
     rows each) or the per-plane form for planes too large to hold."""
     return dict(_sweep0_plan(int(H), int(W), mode, bool(has_ok),
@@ -367,13 +403,15 @@ def gate_bits9(layout: int, descending: bool) -> tuple:
     return tuple(bits)
 
 
-def one_round(d, cc_v: MaskViews, nc_v: Optional[MaskViews],
+def one_round(d, cc_v: Optional[MaskViews], nc_v: Optional[MaskViews],
               ok_v: Optional[MaskViews], anisotropy, mode: str,
               clamp_positive: bool, gate_v: Optional[MaskViews] = None):
-    """One full round: +-x, +-y, +-z sweeps with layout rotation. `gate_v`:
-    the layouts of a graph_into volume (minid mode), gating every sweep."""
+    """One full round: +-x, +-y, +-z sweeps with layout rotation. `gate_v`
+    (minid mode, `cc_v` None): the layouts of G1's CCL gate (graph_into
+    with labels), read by every sweep instead of cc."""
     ax, ay, az = (float(a) for a in anisotropy)
-    nc, ok, gt = _views(nc_v), _views(ok_v), _views(gate_v)
+    cc, nc, ok, gt = (_views(cc_v), _views(nc_v), _views(ok_v),
+                      _views(gate_v))
 
     def pair(dd, layout, ccv, ncv, okv, anis_perm):
         for desc in (False, True):
@@ -382,11 +420,11 @@ def one_round(d, cc_v: MaskViews, nc_v: Optional[MaskViews],
                         desc, gt[layout], bits)
         return dd
 
-    d = pair(d, 0, cc_v.x, nc[0], ok[0], (ax, ay, az))
+    d = pair(d, 0, cc[0], nc[0], ok[0], (ax, ay, az))
     d = _permute(d, _PERM_TO_Y)
-    d = pair(d, 1, cc_v.y, nc[1], ok[1], (ay, ax, az))
+    d = pair(d, 1, cc[1], nc[1], ok[1], (ay, ax, az))
     d = _permute(d, _PERM_Y_TO_Z)
-    d = pair(d, 2, cc_v.z, nc[2], ok[2], (az, ax, ay))
+    d = pair(d, 2, cc[2], nc[2], ok[2], (az, ax, ay))
     return _permute(d, _PERM_Z_TO_X)
 
 

@@ -4,7 +4,7 @@ kimimaro_tpu.ops.stencils)."""
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,17 +65,30 @@ def graph_allows(voxel_graph: torch.Tensor, offset: Sequence[int]
     return ((graph_word(voxel_graph) >> bit) & 1) > 0
 
 
-def _graph_into_plain(vg: torch.Tensor) -> torch.Tensor:
+# the bit of a CCL gate word (graph_into with labels) that says the voxel
+# is occupied; the 26 move bits are 0-25
+OCC_BIT = 26
+
+
+def _graph_into_plain(vg: torch.Tensor,
+                      labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch version of the G1 kernel: the 26 moves one after
-    another, each a shifted copy of the words."""
+    another, each a shifted copy of the words (and of the labels)."""
     X, Y, Z = vg.shape[-3:]
-    padded = F.pad(vg, (1, 1, 1, 1, 1, 1))
+    pad = (1, 1, 1, 1, 1, 1)
+    padded = F.pad(vg, pad)
+    plab = None if labels is None else F.pad(labels, pad)
     out = torch.zeros_like(vg)
     for o, bit in GRAPH_BITS.items():
         back = GRAPH_BITS[tuple(-c for c in o)]
-        u = padded[..., 1 + o[0]:1 + o[0] + X, 1 + o[1]:1 + o[1] + Y,
-                   1 + o[2]:1 + o[2] + Z]
-        out |= ((u >> back) & 1) << bit
+        at = (..., slice(1 + o[0], 1 + o[0] + X),
+              slice(1 + o[1], 1 + o[1] + Y), slice(1 + o[2], 1 + o[2] + Z))
+        move = (padded[at] >> back) & 1
+        if labels is not None:
+            move = move & (plab[at] == labels).to(torch.int32)
+        out |= move << bit
+    if labels is not None:
+        out = torch.where(labels != 0, out | (1 << OCC_BIT), 0)
     return out
 
 
@@ -90,26 +103,44 @@ def _offset_bits():
     return (ctypes.c_int * 54)(*(bit + back))
 
 
-def graph_into(voxel_graph: torch.Tensor) -> torch.Tensor:
+def graph_into(voxel_graph: torch.Tensor,
+               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The permissions of the moves INTO each voxel: bit GRAPH_BITS[o] of
     the result at v is set where the neighbour u = v + o lies in the
     volume and u's bit for -o (the move u -> v) is set. int32, the shape
     of `voxel_graph`; a sweep that relaxes v from u reads this word of v
     instead of u's. The moves run along the last three axes: a leading
-    axis is one of lanes, and a lane's words see only its own graph. A
-    CUDA tensor takes one launch of kernel G1 (csrc/gate.cu), a CPU
-    tensor its plain version."""
+    axis is one of lanes, and a lane's words see only its own graph.
+
+    With `labels` (int32 words of the same shape, as ops.ccl.label_words
+    gives them: equality and != 0 are what count) the CCL's form: each
+    move bit is kept only where labels[u] == labels[v] != 0, and bit
+    OCC_BIT is set where labels[v] != 0 (the word is 0 elsewhere).
+
+    A CUDA tensor takes one launch of kernel G1 (csrc/gate.cu; counted as
+    "graph_into", or "graph_into_ccl" with labels), a CPU tensor its plain
+    version."""
     vg = graph_word(voxel_graph).contiguous()
+    if labels is not None:
+        if labels.dtype != torch.int32 or labels.shape != vg.shape:
+            raise ValueError(
+                f"graph_into: labels must be int32 words of the graph's "
+                f"shape {tuple(vg.shape)}, got {labels.dtype} "
+                f"{tuple(labels.shape)}")
+        labels = labels.contiguous()
     if vg.device.type == "cpu":
-        return _graph_into_plain(vg)
-    kernels.require_cuda("graph_into", vg, dtypes=((torch.int32,),))
+        return _graph_into_plain(vg, labels)
+    name = "graph_into" if labels is None else "graph_into_ccl"
+    kernels.require_cuda(name, vg, labels,
+                         dtypes=((torch.int32,), (torch.int32,)))
     X, Y, Z = vg.shape[-3:]
     out = torch.empty_like(vg)
     rc = kernels.lib().kt_graph_into(
-        kernels.ptr(vg), kernels.ptr(out), vg.numel() // max(X * Y * Z, 1),
-        X, Y, Z, _offset_bits(), kernels.stream_ptr(vg.device))
-    kernels.check(rc, "graph_into")
-    kernels.LAUNCHES["graph_into"] += 1
+        kernels.ptr(vg), kernels.ptr(labels), kernels.ptr(out),
+        vg.numel() // max(X * Y * Z, 1), X, Y, Z, _offset_bits(),
+        kernels.stream_ptr(vg.device))
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 

@@ -497,7 +497,7 @@ def sharded_ccl_rounds(labels, mesh: Mesh, rounds: Optional[int] = None,
     (0 on background). `rounds=None` iterates to the global fixpoint (at
     most `max_rounds`, 0: sum of extents + 8): per round each slab,
     extended by its halo planes, takes one round of B1's minid sweeps
-    (the graph-gated form under a voxel graph) and local pointer jumps.
+    (B1-vg on G1's CCL gate under a voxel graph) and local pointer jumps.
     An integer `rounds` runs that many of the JAX package's stencil
     rounds instead, giving its values at any count."""
     labels = shard_volume(labels, mesh)
@@ -518,7 +518,9 @@ def sharded_ccl_rounds(labels, mesh: Mesh, rounds: Optional[int] = None,
 
     if max_rounds <= 0:
         max_rounds = int(sum(labels.shape)) + 8
-    # the static operands of each slab's extended sweeps
+    # the static operands of each slab's extended sweeps: the labels, or
+    # under a graph G1's CCL gate of the extended labels and graph (halo
+    # planes carry their own labels; the ids are what cross halos)
     prev_l, next_l = comm.halos([x[0] for x in labs], [x[-1] for x in labs],
                                 mesh, 0)
     if vgs is not None:
@@ -528,12 +530,16 @@ def sharded_ccl_rounds(labels, mesh: Mesh, rounds: Optional[int] = None,
     for i in range(n):
         p = prev_l[i] if i > 0 else None
         q = next_l[i] if i < n - 1 else None
-        lab_v.append(gsweep.MaskViews(_ext(p, labs[i], q)))
+        lab = _ext(p, labs[i], q)
         top.append(0 if p is None else 1)
-        if vgs is not None:
+        if vgs is None:
+            lab_v.append(gsweep.MaskViews(lab))
+            gate_v.append(None)
+        else:
             g = _ext(prev_g[i] if i > 0 else None, vgs[i],
                      next_g[i] if i < n - 1 else None)
-            gate_v.append(gsweep.MaskViews(graph_into(g)))
+            lab_v.append(None)
+            gate_v.append(gsweep.MaskViews(graph_into(g, lab)))
     ids = [torch.where(f, x, BIGID) for f, x in zip(fg, lin)]
     anis = (1.0, 1.0, 1.0)
     for _ in range(int(max_rounds)):
@@ -544,7 +550,7 @@ def sharded_ccl_rounds(labels, mesh: Mesh, rounds: Optional[int] = None,
             ext = _ext(prev[i] if i > 0 else None, ids[i],
                        nxt[i] if i < n - 1 else None)
             ext = gsweep.one_round(ext, lab_v[i], None, None, anis, "minid",
-                                   False, None if vgs is None else gate_v[i])
+                                   False, gate_v[i])
             x = ext[top[i]:top[i] + labels.h]
             x = torch.where(x == BIGID, 0, x)
             x = _local_jump(x, i * size)

@@ -15,7 +15,10 @@ host-soma-crop is chip_smoke.py --host-soma's label with the host trace
 path left out (the phases up to the crop engine); self-touch is
 chip_smoke.py phase 10's volume under its voxel graph; gated-sweeps
 times B4 and B5 node sweeps with a graph and without, in turns, on the
-same inputs (`gated_sweeps`), one JSON line a shape. Pass the root of another
+same inputs (`gated_sweeps`), one JSON line a shape; ccl-kernels times
+G1 (both forms where the port has them) and B1-vg on the self-touch
+volume's CCL and at the crop engine's largest lane sets, and the CCL
+under the graph as a whole (`ccl_kernels`). Pass the root of another
 checkout (the parent commit unpacked with git archive) to time its port
 on the same inputs; compare two checkouts only within one call, in turns
 (parent, change, change, parent).
@@ -71,6 +74,81 @@ def gated_sweeps(root):
               flush=True)
 
 
+def cuda_ms(fn, reps):
+    """CUDA-event mean ms of `reps` calls after one warm-up call."""
+    import torch
+
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return round(a.elapsed_time(b) / reps, 4)
+
+
+def ccl_kernels(root, merged, vg, runs):
+    """G1 and B1-vg as the CCL under a voxel graph calls them at 512^3
+    (chip_smoke.py phase 10's self-touch volume), G1 at the crop engine's
+    two largest lane-set shapes on random words, and
+    `connected_components` under the graph end to end. The port at
+    `root` decides the forms: G1's CCL form and B1-vg on (ids, its gate)
+    where `graph_into` takes labels, else the graph's gate and B1-vg on
+    (ids, cc, gate)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from kimimaro_tpu_torch.ops import ccl, gsweep, stencils
+
+    folded = "labels" in inspect.signature(stencils.graph_into).parameters
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {"root": root, "case": "ccl-kernels",
+           "form": "ccl-gate" if folded else "cc+gate"}
+    for shape in ((32, 128, 128, 64), (64, 128, 128, 32)):
+        words = torch.randint(0, 1 << 26, shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        out[f"g1_ms {shape}"] = cuda_ms(lambda: stencils.graph_into(words),
+                                        20)
+        del words
+    labels = torch.from_numpy(merged.view(np.int32)).cuda()
+    vgt = torch.from_numpy(vg.view(np.int32)).cuda()
+    out["g1_ms 512^3"] = cuda_ms(lambda: stencils.graph_into(vgt), 20)
+    if folded:
+        out["g1_ccl_ms 512^3"] = cuda_ms(
+            lambda: stencils.graph_into(vgt, labels), 20)
+        gate = stencils.graph_into(vgt, labels)
+        cc = None
+    else:
+        gate, cc = stencils.graph_into(vgt), labels
+    n = labels.numel()
+    ids = torch.where(labels != 0, torch.arange(
+        1, n + 1, dtype=torch.int32, device="cuda").reshape(labels.shape),
+        2**31 - 1)
+    anis = (1.0, 1.0, 1.0)
+    for desc in (False, True):
+        bits = gsweep.gate_bits9(0, desc)
+        out[f"b1_vg_ms desc={desc}"] = cuda_ms(
+            lambda: gsweep.sweep0(ids, cc, None, None, anis, "minid", False,
+                                  desc, gate, bits), 20)
+    del gate, ids
+    secs = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ccl.connected_components(labels, voxel_graph=vgt)
+        torch.cuda.synchronize()
+        secs.append(round(time.perf_counter() - t0, 4))
+    out["ccl_first_s"], out["ccl_s"] = secs[0], secs[1:]
+    print(json.dumps(out), flush=True)
+    del labels, vgt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     runs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
@@ -118,17 +196,21 @@ def main() -> int:
         del vol
     if "gated-sweeps" in cases:
         gated_sweeps(root)
-    if not {"dense", "soma", "xs-dense", "xs-soma", "self-touch"} & \
-            set(cases):
+    if not {"dense", "soma", "xs-dense", "xs-soma", "self-touch",
+            "ccl-kernels"} & set(cases):
         return 0
     dense = chip_smoke.dense_volume(chip_smoke.DENSE_N)
-    if "self-touch" in cases:
+    if {"self-touch", "ccl-kernels"} & set(cases):
         merged, vg, _, _ = chip_smoke.self_touch_volume(dense)
+    if "ccl-kernels" in cases:
+        ccl_kernels(root, merged, vg, runs)
+    if "self-touch" in cases:
         timed("self-touch", lambda: kimimaro_tpu_torch.skeletonize(
             merged, teasar_params=chip_smoke.TEASAR,
             anisotropy=chip_smoke.ANIS, dust_threshold=1000,
             fix_borders=True, fix_branching=True, voxel_graph=vg,
             device="cuda"), "phases")
+    if {"self-touch", "ccl-kernels"} & set(cases):
         del merged, vg
     vols = {"dense": (dense, {}),
             "soma": (None, {"fill_holes": False, "fix_avocados": False})}

@@ -5,7 +5,11 @@ form), bit for bit on the CPU.
 The gate of a voxel v (ops.stencils.graph_into) holds, at bit
 GRAPH_BITS[o], whether the move from u = v + o into v is open; a sweep
 reads it through the bits of its layout and direction
-(ops.gsweep.gate_bits9). The source form reads bit sweep_bits9[k] of the
+(ops.gsweep.gate_bits9). The CCL's form of the gate (graph_into with the
+labels) keeps a move only where u has v's label, and sets bit OCC_BIT
+where v is occupied: checked against the graph's gate and the label
+equality built apart, and B1-vg's plain version on it (the ids and that
+word) against the sweep that read the labels beside the graph's gate. The source form reads bit sweep_bits9[k] of the
 neighbour u's own bitfield (ops.geodesic.sweep_bits9). Checked here:
 the plain B5 and B4 in both forms over all three layouts, both
 directions, node and euclid, with and without clamp; lanes of unequal
@@ -25,9 +29,12 @@ from kimimaro_tpu_torch import engine as tengine
 from kimimaro_tpu_torch import trace as ttrace
 from kimimaro_tpu_torch.ops import edt as tedt
 from kimimaro_tpu_torch.ops import geodesic as tgeo
+from kimimaro_tpu_torch.ops import gsweep as tgsweep
 from kimimaro_tpu_torch.ops import sweep as tsweep
+from kimimaro_tpu_torch.ops.ccl import label_words
 from kimimaro_tpu_torch.ops.gsweep import gate_bits9
-from kimimaro_tpu_torch.ops.stencils import GRAPH_BITS, graph_into
+from kimimaro_tpu_torch.ops.stencils import (GRAPH_BITS, OCC_BIT, graph_into,
+                                             pad_const)
 from kimimaro_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -184,6 +191,118 @@ def test_relax_rounds_batched_gate_matches_source_bitfields(node):
     with pytest.raises(ValueError):
         tgeo.relax_rounds_batched(init, ok, nc, ANIS, 2, voxel_graph=vg,
                                   gate=graph_into(vg))
+
+
+# --------------------------------------------------------------------------- #
+# the CCL's gate: label equality and occupancy folded into the word
+
+
+def same_label_bits(labels):
+    """numpy: bit GRAPH_BITS[o] at v where v + o lies in the volume (the
+    last three axes) and has v's label, and v's label is not 0."""
+    lead = labels.ndim - 3
+    out = np.zeros(labels.shape, dtype=np.int64)
+    for o, b in GRAPH_BITS.items():
+        dst, src = _pairs(labels.shape[lead:], o)
+        dst, src = (slice(None),) * lead + dst, (slice(None),) * lead + src
+        same = (labels[dst] == labels[src]) & (labels[dst] != 0)
+        out[dst] |= same.astype(np.int64) << b
+    return out
+
+
+# (shape, label values (0 among them), dtype): lanes, odd and one-voxel
+# shapes, raw labels that bitcast to negative words, 64-bit labels that
+# agree modulo 2^32 or are multiples of it (label_words renumbers them)
+CCL_GATE_CASES = (
+    ((9, 11, 7), (0, 5), np.int32),
+    ((5, 6, 4), (0, 1, 2**31 + 3, 2**32 - 1, 7), np.uint32),
+    ((3, 7, 5, 6), (0, 2, 9), np.int32),
+    ((1, 1, 1), (0, 4), np.int32),
+    ((1, 9, 1), (0, 1, 2, 3), np.uint8),
+    ((2, 1, 1, 13), (0, 3, 4), np.uint16),
+    ((7, 5, 9), (0, 2**33, 2**33 + 1, 1), np.int64),
+    ((2, 2, 3, 4, 5), (0, 6, 2**40 + 6), np.uint64),
+)
+
+
+@pytest.mark.parametrize("case", range(len(CCL_GATE_CASES)))
+def test_ccl_gate_is_the_graph_gate_and_the_label_equality(case):
+    shape, values, dtype = CCL_GATE_CASES[case]
+    rng = np.random.RandomState(120 + case)
+    vg = random_words(rng, shape, p=0.2)
+    labels = np.asarray(values, dtype=dtype)[
+        rng.randint(0, len(values), size=shape)]
+    got = graph_into(vg, label_words(labels)).numpy().astype(np.int64)
+    want = (graph_into(vg).numpy().astype(np.int64)
+            & same_label_bits(labels)) \
+        | np.where(labels != 0, 1 << OCC_BIT, 0)
+    np.testing.assert_array_equal(got, want)
+    if len(shape) == 4:  # a lane's gate is its own volume's
+        np.testing.assert_array_equal(
+            graph_into(vg[-1], label_words(labels[-1])).numpy(), got[-1])
+    with pytest.raises(ValueError):
+        graph_into(vg, torch.from_numpy(labels.astype(np.int64)))
+
+
+def cc_form_sweep(d, cc, gate, bits9, descending):
+    """B1-vg's minid sweep as it ran before the gate held the labels: cc
+    (raw labels as int32 words) beside the graph's gate, a neighbour of
+    the previous plane counting where its carried id (its label where it
+    is occupied, -1 elsewhere) equals the voxel's label and the gate's
+    bit is set."""
+    n, H, W = d.shape
+    fill = 2**31 - 1
+    occ = cc != 0
+    cc_eff = torch.where(occ, cc, -1)
+    out = torch.empty_like(d)
+    prev_v = prev_c = None
+    for p in (range(n - 1, -1, -1) if descending else range(n)):
+        if prev_v is None:
+            new = torch.where(occ[p], d[p], fill)
+        else:
+            pv, pc = pad_const(prev_v, 1, fill), pad_const(prev_c, 1, -1)
+            cand = torch.full_like(d[p], fill)
+            k = 0
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    at = (slice(1 + dy, 1 + dy + H), slice(1 + dz, 1 + dz + W))
+                    same = (pc[at] == cc[p]) & \
+                        (((gate[p] >> bits9[k]) & 1) > 0)
+                    cand = torch.minimum(cand, torch.where(same, pv[at],
+                                                           fill))
+                    k += 1
+            new = torch.where(occ[p], torch.minimum(d[p], cand), fill)
+        out[p] = new
+        prev_v, prev_c = new, cc_eff[p]
+    return out
+
+
+@pytest.mark.parametrize("layout", (0, 1, 2))
+@pytest.mark.parametrize("desc", (False, True))
+def test_b1_on_the_ccl_gate_matches_the_cc_form(layout, desc):
+    """B1-vg's plain version on (ids, the CCL gate) against the sweep that
+    read cc beside the graph's gate, and the wrapper on the CPU; ids at
+    background and raw labels of -1 (an unoccupied neighbour's carried id
+    in the cc form) included."""
+    rng = np.random.RandomState(140 + 2 * layout + desc)
+    shape = (9, 11, 7)
+    vg = random_words(rng, shape, p=0.25)
+    labels = torch.from_numpy(np.array([0, 3, -1, -7], dtype=np.int32)[
+        rng.randint(0, 4, size=shape)])
+    ids = torch.from_numpy(rng.randint(1, 999, size=shape).astype(np.int32))
+    bits = gate_bits9(layout, desc)
+    d, cc, gate, ccl_gate = (in_layout(t, layout) for t in (
+        ids, labels, graph_into(vg), graph_into(vg, labels)))
+    want = cc_form_sweep(d, cc, gate, bits, desc)
+    got = tgsweep._sweep0_gate_plain(d, ccl_gate, bits, desc)
+    assert torch.equal(got, want)
+    assert torch.equal(tgsweep.sweep0(d, None, None, None, anis_of(layout),
+                                      "minid", False, desc, ccl_gate, bits),
+                       want)
+    # the gate carries the labels: cc beside it is refused
+    with pytest.raises(ValueError):
+        tgsweep.sweep0(d, cc, None, None, anis_of(layout), "minid", False,
+                       desc, ccl_gate, bits)
 
 
 # --------------------------------------------------------------------------- #

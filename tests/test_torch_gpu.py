@@ -316,42 +316,44 @@ def test_sweep_axis0_batched_kernel_matches_plain(gen, node_mode):
                 _assert_bit_equal((got,), (want,))
 
 
-# B1 with a graph gate (minid, the CCL under a voxel graph): the shapes of
-# B1_SHAPES, and the square planes on each side of its shape rule on a
-# 132-SM card with 227 KB a block (the gate word makes a voxel's operands
-# 12 bytes a stage: persistent up to 784 x 784)
-B1_VG_SIDES = ((784, True), (800, False))
+# B1-vg (minid on G1's CCL gate, the CCL under a voxel graph): the shapes
+# of B1_SHAPES, and the square planes on each side of its shape rule on a
+# 132-SM card with 227 KB a block (the ids alone carried, ids and gate a
+# stage: persistent up to 1056 x 1056)
+B1_VG_SIDES = ((1056, True), (1072, False))
 
 
 def _sweep0_vg_inputs(gen, shape):
-    d, cc, _, _ = _sweep0_inputs(gen, shape, "minid")
-    gate = torch.randint(0, 1 << 26, shape, generator=gen, device="cuda",
+    d, _, _, _ = _sweep0_inputs(gen, shape, "minid")
+    # random move bits and occupancy (bit 26)
+    gate = torch.randint(0, 1 << 27, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
-    return d, cc, gate
+    return d, gate
 
 
 def _check_sweep0_vg(gen, shape):
-    d, cc, gate = _sweep0_vg_inputs(gen, shape)
+    d, gate = _sweep0_vg_inputs(gen, shape)
     for layout in (0, 1, 2):
         for desc in (False, True):
             bits = tgsweep.gate_bits9(layout, desc)
             before = dict(kernels.LAUNCHES)
-            got = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False,
+            got = tgsweep.sweep0(d, None, None, None, ANIS, "minid", False,
                                  desc, gate, bits)
             assert kernels.LAUNCHES["gsweep_sweep0_vg"] == \
                 before["gsweep_sweep0_vg"] + 1
             assert kernels.LAUNCHES["gsweep_sweep0"] == \
                 before["gsweep_sweep0"]
-            again = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False,
+            again = tgsweep.sweep0(d, None, None, None, ANIS, "minid", False,
                                    desc, gate, bits)
-            want = tgsweep._sweep0_plain(d, cc, None, None, ANIS, "minid",
-                                         False, desc, gate, bits)
+            want = tgsweep._sweep0_gate_plain(d, gate, bits, desc)
             _assert_bit_equal((got, again), (want, want))
-    # an all-open gate is the ungated sweep
-    full = torch.full_like(gate, (1 << 26) - 1)
-    got = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False, False,
+    # an all-open gate of an occupied volume is the ungated sweep of one
+    # label
+    full = torch.full_like(gate, (1 << 27) - 1)
+    got = tgsweep.sweep0(d, None, None, None, ANIS, "minid", False, False,
                          full, tgsweep.gate_bits9(0, False))
-    want = tgsweep.sweep0(d, cc, None, None, ANIS, "minid", False, False)
+    want = tgsweep.sweep0(d, torch.ones_like(d), None, None, ANIS, "minid",
+                          False, False)
     _assert_bit_equal((got,), (want,))
 
 
@@ -465,7 +467,8 @@ def test_skeletonize_self_touch_cuda_matches_cpu(gen):
               extra_targets_before=pts)
     before = dict(kernels.LAUNCHES)
     a = kimimaro_tpu_torch.skeletonize(merged, device="cuda", **kw)
-    for k in ("gsweep_sweep0_vg", "sweep_axis0_batched_vg", "sweep_axis0_vg"):
+    for k in ("gsweep_sweep0_vg", "sweep_axis0_batched_vg", "sweep_axis0_vg",
+              "graph_into", "graph_into_ccl"):
         assert kernels.LAUNCHES[k] > before[k], k
     # the global engine takes no label under a graph (the ungated B1
     # still runs the border faces' CCL)
@@ -694,16 +697,29 @@ def test_sweep_axis0_batched_plan_follows_the_shape_rule(gen, shape, form,
             _assert_bit_equal((got,), (want,))
 
 
-# G1: one voxel, lanes of one row, odd widths, lane rows (lanes x X)
-# beyond a grid's z extent, two leading lane axes
+# G1: one voxel, lanes of one row, odd widths, more than 65,535 lanes (a
+# tile each), two leading lane axes, the widths on each side of its z
+# tiles (32, 16 and 8 voxels: Z = 8, 9, 16, 17), and lanes of more rows
+# than one tile holds
 G1_SHAPES = ((1, 1, 1), (3, 1, 5, 7), (2, 9, 1, 33), (17, 40, 24),
-             (70000, 1, 2, 3), (2, 3, 5, 4, 6), (4, 64, 64, 32))
+             (70000, 1, 2, 3), (2, 3, 5, 4, 6), (4, 64, 64, 32),
+             (3, 5, 70, 8), (2, 7, 37, 9), (2, 4, 33, 16), (1, 6, 20, 17),
+             (1, 300, 11, 65), (1, 3, 300, 5), (2, 2, 45, 40))
+
+
+def _g1_inputs(gen, shape):
+    """Random words (every bit) and labels of three values and 0, two of
+    them negative words."""
+    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                       device="cuda", dtype=torch.int32)
+    lab = torch.randint(0, 4, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return vg, torch.where(lab == 3, -5, torch.where(lab == 2, -1, lab))
 
 
 @pytest.mark.parametrize("shape", G1_SHAPES)
 def test_graph_into_kernel_matches_plain(gen, shape):
-    vg = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
-                       device="cuda", dtype=torch.int32)
+    vg, _ = _g1_inputs(gen, shape)
     before = kernels.LAUNCHES["graph_into"]
     got = tstencils.graph_into(vg.view(torch.uint32))
     assert kernels.LAUNCHES["graph_into"] == before + 1
@@ -712,6 +728,20 @@ def test_graph_into_kernel_matches_plain(gen, shape):
     # a lane's gate is its own graph's
     if len(shape) == 4:
         _assert_bit_equal((got[-1],), (tstencils.graph_into(vg[-1]),))
+
+
+@pytest.mark.parametrize("shape", G1_SHAPES)
+def test_graph_into_ccl_kernel_matches_plain(gen, shape):
+    vg, lab = _g1_inputs(gen, shape)
+    before = dict(kernels.LAUNCHES)
+    got = tstencils.graph_into(vg.view(torch.uint32), lab)
+    assert kernels.LAUNCHES["graph_into_ccl"] == before["graph_into_ccl"] + 1
+    assert kernels.LAUNCHES["graph_into"] == before["graph_into"]
+    want = tstencils._graph_into_plain(vg, lab)
+    _assert_bit_equal((got, tstencils.graph_into(vg, lab)), (want, want))
+    if len(shape) == 4:
+        _assert_bit_equal((got[-1],), (tstencils.graph_into(vg[-1],
+                                                            lab[-1]),))
 
 
 # B4 with a graph gate on each side of its plan rule: two lanes of planes

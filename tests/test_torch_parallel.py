@@ -30,6 +30,7 @@ from kimimaro_tpu_torch.trace import integer_pow
 
 from test_sharded_gengine import ANIS, TEASAR, _prep
 from test_torch_fma import _fma_volume
+from test_torch_voxel_graph import blob_volume, self_touch
 
 torch.set_num_threads(1)
 
@@ -158,6 +159,30 @@ def test_sharded_edt_and_ccl_with_a_voxel_graph_match_jax():
         _equal(_host(ts.sharded_ccl_rounds(labels, tm, rounds,
                                            voxel_graph=vg)),
                js.sharded_ccl_rounds(lab_j, m, rounds, voxel_graph=vg_j))
+
+
+@pytest.mark.parametrize("n", (4, 8))
+def test_sharded_self_touch_ccl_matches_jax_and_the_single_device(n):
+    """The sharded CCL to its fixpoint under the pre-merge graph of a
+    self-touch volume (each slab's gate built from its labels and graph
+    extended by the halo planes) against JAX's sharded function and the
+    single-device CCL: the pre-merge components."""
+    pre = blob_volume(6, shape=(16, 12, 10), n_seeds=6)
+    merged, vg, _ = self_touch(pre)
+    merged = merged.astype(np.int32)
+    m = _jmesh(n)
+    want = js.sharded_ccl_rounds(
+        js.shard_volume(jnp.asarray(merged), m), m, None,
+        voxel_graph=js.shard_volume(jnp.asarray(vg), m))
+    got = _host(ts.sharded_ccl_rounds(merged, _tmesh(n), None,
+                                      voxel_graph=vg))
+    _equal(got, want)
+    single = connected_components(torch.from_numpy(merged),
+                                  torch.from_numpy(vg), device="cpu")
+    _equal(got, single.numpy())
+    assert len(np.unique(got)) == len(np.unique(
+        connected_components(torch.from_numpy(pre.astype(np.int32)),
+                             device="cpu").numpy()))
 
 
 @pytest.mark.parametrize("n,rounds", [(4, None), (4, 10), (8, 3)])

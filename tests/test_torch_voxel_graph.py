@@ -1,7 +1,7 @@
 """The port under a voxel graph (self-touch walls, cc3d convention: bit
 GRAPH_BITS[o] at v permits leaving v along o) against the JAX package on
-the CPU, bit for bit: the CCL, the EDT's walls (3-D and 2-D), the plain
-graph-gated B1 and B5, the host trace path's fields, the chase, the crop
+the CPU, bit for bit: the CCL (on G1's CCL gate), the EDT's walls (3-D
+and 2-D), the plain graph-gated B1 and B5, the host trace path's fields, the chase, the crop
 engine, trace.trace and skeletonize as a whole (fix_borders and
 fix_branching on and off, a label that reaches the host trace path, the
 host stages, 2-D input), and the self-touch identity: walls that follow a
@@ -217,20 +217,21 @@ def test_compute_cc_labels_matches_jax():
 @pytest.mark.parametrize("descending", (False, True))
 def test_graph_gated_b1_plain_matches_jax_stage(layout, descending):
     """One directed graph-gated minid sweep of the plain B1 on a layout
-    (the gate: graph_into's words, bits of gsweep.gate_bits9) against the
-    JAX package's `_ccl_stage` sweep of the same axis and direction, both
-    from the same random ids."""
+    (B1-vg: the ids and G1's CCL gate, graph_into of the graph with the
+    labels, bits of gsweep.gate_bits9) against the JAX package's
+    `_ccl_stage` sweep of the same axis and direction, both from the same
+    random ids."""
     rng = np.random.RandomState(layout + 3 * descending)
     labels = rng.randint(0, 3, size=(7, 9, 8)).astype(np.int32)
     vg = random_graph(labels.shape, 9 + layout)
     ids = np.where(labels != 0, rng.randint(1, 500, size=labels.shape),
                    2**31 - 1).astype(np.int32)
     perm = ((0, 1, 2), (1, 0, 2), (2, 0, 1))[layout]
-    gate = graph_into(torch.from_numpy(vg)).permute(*perm).contiguous()
+    gate = graph_into(torch.from_numpy(vg), torch.from_numpy(labels))
     got = tgsweep.sweep0(
-        torch.from_numpy(ids).permute(*perm).contiguous(),
-        torch.from_numpy(labels).permute(*perm).contiguous(), None, None,
-        (1.0, 1.0, 1.0), "minid", False, descending, gate,
+        torch.from_numpy(ids).permute(*perm).contiguous(), None, None, None,
+        (1.0, 1.0, 1.0), "minid", False, descending,
+        gate.permute(*perm).contiguous(),
         tgsweep.gate_bits9(layout, descending))
     got = got.permute(*np.argsort(perm)).numpy()
     # the JAX stage's sweep along the original axis perm[0]: one phase-1
