@@ -1786,14 +1786,22 @@ def check_xs_small(gen):
         "windows on the faces, z outside the volume, absent labels")
     never = 0
     forms = {}
-    # the dilation in shared and device memory; the sweep on each side of
+    # the dilation on each side of its rule: one warp a lane with the
+    # window in registers (one cell, a row narrower than a warp, 32 x 32,
+    # one row or column past a warp: two columns a thread, the per-label
+    # rung's 64 x 64 at its 96 rounds), one CTA a lane beyond (65 x 3, and
+    # 100 x 97 in device memory); the sweep on each side of
     # section_flood_plan's rule: one CTA of a warp per 32 columns a lane up
     # to 256 columns in shared memory (13 ... 200), one cluster a lane
     # (256 x 256, 250 x 250 and the W = 512 window), one CTA a lane with
     # the window in device memory (a row of 4100 columns, beyond the
     # cluster's 16 warps x 8)
     for method, Wx, Wy, rounds in (
-            ("dilate", 13, 10, 1), ("dilate", 32, 29, 36),
+            ("dilate", 1, 1, 0), ("dilate", 5, 31, 1), ("dilate", 32, 32, 36),
+            ("dilate", 33, 17, 36), ("dilate", 17, 33, 2),
+            ("dilate", 64, 64, 96), ("dilate", 64, 33, 1),
+            ("dilate", 65, 3, 4), ("dilate", 13, 10, 1),
+            ("dilate", 32, 29, 36),
             ("dilate", 100, 97, 8), ("sweep", 13, 10, 0),
             ("sweep", 64, 61, 6), ("sweep", 128, 125, 2),
             ("sweep", 200, 197, 1), ("sweep", 250, 250, 1),
@@ -1826,8 +1834,15 @@ def check_xs_small(gen):
         never += int(got[1].sum())
     if never == 0:
         raise AssertionError("X1 small checks: no lane ran out of rounds")
+    want = {("dilate", 64, 64): "lane_warp", ("dilate", 65, 3): "lane_cta",
+            ("dilate", 100, 97): "lane_cta"}
+    for (method, Wx, Wy), form in want.items():
+        got_form = xsslab.section_flood_plan(Wx, Wy, method)[0]
+        if got_form != form:
+            raise AssertionError(f"X1 {method} {(Wx, Wy)}: form {got_form}, "
+                                 f"expected {form}")
     log(f"[xs] X1 bit-equal, twice, at small shapes and on each side of "
-        f"section_flood_plan's rule (forms {json.dumps(forms)}), zb out of "
+        f"section_flood_plan's rules (forms {json.dumps(forms)}), zb out of "
         f"int16 in empty columns; {never} lanes ran out of rounds")
     return err
 
@@ -3200,6 +3215,11 @@ def self_touch_phase(dense, gen):
 # beyond
 V1_RULE = ((170, "cluster"), (171, "strips"), (840, "strips"),
            (880, "plane"))
+# V1 at its edges: sweeps of 1, 2, 7 and 9 planes, planes of one, three
+# and 17 rows, a cluster whose last strip is short, a plane that several
+# strips share, a 512 x 512 plane in grid-wide strips
+V1_EDGES = tuple((n, H, 6) for n in (1, 2, 7, 9) for H in (1, 3, 17)) \
+    + ((17, 130, 121), (33, 301, 48), (18, 512, 512))
 # one V1 sweep a voxel: d, f and ok read, d and f written; nine adds,
 # nine compares and nine selects
 V1_BYTES, V1_OPS = 17, 27
@@ -3278,12 +3298,13 @@ def check_v1(gen):
 
     anis = (40.0, 16.0, 16.0)
     err = 0.0
-    for shape in ((11, 9, 8), *B5_STRESS_SHAPES, (96, 96, 96)):
+    for shape in ((11, 9, 8), *B5_STRESS_SHAPES, (96, 96, 96),
+                  *V1_EDGES):
         for ties in (False, True):
             err = max(err, v1_case(shape, gen, (1.0, 1.0, 1.0) if ties
                                    else anis, ties))
-        log(f"[kernels] V1 bit-equal on {shape} (form "
-            f"{voronoi.voronoi_plan(shape[1], shape[2])['form']}): both "
+        log(f"[kernels] V1 bit-equal on {shape} (plan "
+            f"{json.dumps(voronoi.voronoi_plan(shape[1], shape[2]))}): both "
             f"directions, with and without ties, twice; distance = B5's")
     for side, form in V1_RULE:
         plan = voronoi.voronoi_plan(side, side)
@@ -3304,19 +3325,20 @@ def check_v1(gen):
         d, f, ok, costs, False, flag))
     bms, by = v1_bound((n, n, n))
     plan = voronoi.voronoi_plan(n, n)
-    log(f"[kernels] V1 at {n}^3 with ties (form {plan['form']}, "
-        f"{plan['ctas']} CTAs of {plan['rows']} rows): bit-equal; "
-        f"{ms:.3f} ms vs plain {plain:.1f} ms, bound {bms:.3f} ms ({by})")
+    log(f"[kernels] V1 at {n}^3 with ties (plan {json.dumps(plan)}): "
+        f"bit-equal; {ms:.4f} ms vs plain {plain:.1f} ms, bound {bms:.3f} "
+        f"ms ({by})")
     del d, f, ok
     return ms, plain, err
 
 
 class V1Spy:
-    """While installed, counts the V1 calls per shape; with `want` (a set
-    of shapes), keeps the arguments of the first call of each."""
+    """While installed, counts the calls of V1's single form per shape and
+    keeps the arguments of the first call of each shape in `want` (every
+    shape where `want` is None)."""
 
-    def __init__(self, want=()):
-        self.want = set(want)
+    def __init__(self, want=None):
+        self.want = None if want is None else set(want)
         self.kept = {}
         self.calls = {}
 
@@ -3329,7 +3351,8 @@ class V1Spy:
             if d.device.type == "cuda":
                 shape = tuple(d.shape)
                 self.calls[shape] = self.calls.get(shape, 0) + 1
-                if shape in self.want and shape not in self.kept:
+                if (self.want is None or shape in self.want) and \
+                        shape not in self.kept:
                     self.kept[shape] = (d.clone(), f.clone(), ok.clone(),
                                         tuple(costs9), bool(descending))
             return inner(d, f, ok, costs9, descending, changed)
@@ -3342,7 +3365,7 @@ class V1Spy:
         return restore
 
 
-def check_v1_recorded(spy):
+def check_v1_recorded(spy, tag="oversegment"):
     """V1 against its plain version on the calls a run made, each twice.
     Returns {shape: (ms, plain ms, bound ms, bound by, err)}."""
     import torch
@@ -3358,16 +3381,16 @@ def check_v1_recorded(spy):
                                       torch.zeros_like(flag))
         want, plain = timed_once(lambda: voronoi._voronoi_sweep_plain(
             d, f, ok, costs, desc, want_flag))
-        err = require_equal(f"V1 oversegment call {shape}", got, want)
-        require_equal(f"V1 oversegment call {shape} run twice", again, got)
-        require_equal(f"V1 oversegment call {shape} flag", flag, want_flag)
+        err = require_equal(f"V1 {tag} call {shape}", got, want)
+        require_equal(f"V1 {tag} call {shape} run twice", again, got)
+        require_equal(f"V1 {tag} call {shape} flag", flag, want_flag)
         ms = cuda_ms(lambda: voronoi.voronoi_sweep(d, f, ok, costs, desc,
                                                    flag), 5)
         out[shape] = (ms, plain) + v1_bound(shape) + (err,)
         plan = voronoi.voronoi_plan(shape[1], shape[2])
-        log(f"[kernels] V1 {shape} ({spy.calls.get(shape, 0)} calls, form "
-            f"{plan['form']}, {plan['ctas']} CTAs): {ms:.4f} ms vs plain "
-            f"{plain:.2f} ms, bound {out[shape][2]:.4f} ms")
+        log(f"[kernels] V1 {tag} {shape} ({spy.calls.get(shape, 0)} calls, "
+            f"plan {json.dumps(plan)}): {ms:.4f} ms vs plain {plain:.2f} "
+            f"ms, bound {out[shape][2]:.4f} ms")
     return out
 
 
@@ -4051,16 +4074,19 @@ def synapse_phase(dense, slcs):
     return launches
 
 
-def analysis_phase(dense, dense_skels, gen):
+def analysis_phase(dense, dense_skels, gen, hollow=None, soma_skels=None):
     """Phase 11: V1 and its batched form against their plain versions;
     oversegment of the dense volume with its skeletons (downsample 0 and
     5, each a first and a warm run on the batched route, then the per-crop
-    route, every composite and segment equal) with its checks; the
-    batched V1 on the calls a run made, V1 on the per-crop runs' most
-    swept shapes; connect_points on a 512^3 neurite; synapses_to_targets
-    through skeletonize. Returns (launches of those runs, V1 at 512^3,
-    V1's rows by shape with their calls, the batched V1's recorded calls,
-    its max abs error, B5's table rows of connect_points)."""
+    route, every composite and segment equal) with its checks, and of the
+    soma volume with its skeletons where given; the batched V1 on the
+    calls a run made, V1's single form on every shape the batched runs
+    sent it (the crops with a plane beyond one CTA); connect_points on a
+    512^3 neurite; synapses_to_targets through skeletonize. Returns
+    (launches of those runs but the per-crop reference route's, V1 at
+    512^3, V1's rows by (run, shape) with their calls, the batched V1's
+    recorded calls, its max abs error, B5's table rows of
+    connect_points)."""
     import scipy.ndimage
 
     from kimimaro_tpu_torch.ops import voronoi
@@ -4075,6 +4101,7 @@ def analysis_phase(dense, dense_skels, gen):
             total[k] = total.get(k, 0) + v
 
     batched = {}
+    single = {}
     for ds in (0, 5):
         counting = V1LaneSpy() if ds == 0 else None
         labels, out, launches = oversegment_run("first run", dense,
@@ -4082,7 +4109,12 @@ def analysis_phase(dense, dense_skels, gen):
         add(launches)
         check_oversegment(dense, slcs, dense_skels, labels, out, ds)
         del labels, out
-        batched[ds] = oversegment_run("warm run", dense, dense_skels, ds)
+        # the crops that take V1's single form on the user's route
+        if ds == 0:
+            single["dense"] = V1Spy()
+        batched[ds] = oversegment_run("warm run", dense, dense_skels, ds,
+                                      single.get("dense") if ds == 0
+                                      else None)
         add(batched[ds][2])
         if ds == 0:
             log(f"[oversegment] batched V1 calls by (batch, axis): "
@@ -4095,46 +4127,57 @@ def analysis_phase(dense, dense_skels, gen):
                 f"bytes a cell), by layout: (lanes, of live lanes, their "
                 f"voxels, of all voxels) "
                 f"{json.dumps({str(k): v for k, v in lose.items()})}")
+    if hollow is not None:
+        single["soma"] = V1Spy()
+        labels, out, launches = oversegment_run(
+            "soma run", hollow, soma_skels, 0, single["soma"])
+        add(launches)
+        check_oversegment(hollow, scipy.ndimage.find_objects(hollow),
+                          soma_skels, labels, out, 0, n_cpu=4)
+        del labels, out
     recording = V1LaneSpy(keep=True)
     oversegment_run("recorded run", dense, dense_skels, 0, recording)
     lanes_rows = check_v1_lanes_recorded(recording)
     del recording
     v1b_err = max([v1b_err] + [v[4] for v in lanes_rows.values()])
-    counting = V1Spy()
+    per_crop = 0
     for ds in (0, 5):
         got = batched.pop(ds)
         per = oversegment_run("per-crop run", dense, dense_skels, ds,
-                              counting if ds == 0 else None, per_crop=True)
-        add(per[2])
+                              per_crop=True)
+        per_crop += per[2]["voronoi_sweep"]
         require_same_oversegment(f"downsample={ds} batched against per "
                                  f"crop", got[:2], per[:2])
         log(f"[oversegment] downsample={ds}: the batched route's composite "
             f"and the segments of all {len(per[1])} skeletons equal the "
             f"per-crop route's")
         del got, per
-    top = sorted(counting.calls, key=lambda k: counting.calls[k]
-                 * int(np.prod(k)))[-6:]
-    keeping = V1Spy(want=top)
-    oversegment_run("per-crop run, recorded", dense, dense_skels, 0, keeping,
-                    per_crop=True)
-    rows = check_v1_recorded(keeping)
-    log(f"[kernels] V1 on the dense per-crop oversegment's "
-        f"{len(counting.calls)} sweep shapes, "
-        f"{sum(counting.calls.values())} calls a run; the six of the most "
-        f"swept voxels bit-equal, twice")
+    log(f"[oversegment] V1 single-form launches: {total['voronoi_sweep']} "
+        f"on the user's (batched) route, {per_crop} on the per-crop "
+        f"reference route (a cross-check, left out of the kernel table)")
+    rows = {}
+    for tag, spy in single.items():
+        if not spy.kept:
+            raise AssertionError(f"oversegment {tag}: no crop took V1's "
+                                 f"single form")
+        for shape, row in check_v1_recorded(spy, tag).items():
+            rows[(tag, shape)] = (spy.calls[shape], row)
+    log(f"[kernels] V1's single form on every shape the batched runs sent "
+        f"it: {json.dumps({f'{t} {s}': c for (t, s), (c, _) in rows.items()})}"
+        f" (calls a run), each bit-equal to its plain version, twice")
     launches, b5_rows = connect_points_phase()
     add(launches)
     add(synapse_phase(dense, slcs))
-    return (total, v1, {k: (counting.calls[k], v) for k, v in rows.items()},
-            lanes_rows, v1b_err, b5_rows)
+    return total, v1, rows, lanes_rows, v1b_err, b5_rows
 
 
 def v1_table(launches, v1, rows, lanes_rows, v1b_err):
     """The kernel table's V1 rows: a 512^3 sweep with all of the main
-    path's single-form V1 launches (the per-crop route), each recorded
-    per-crop shape with its calls of a run, the batched form with all of
-    its launches, and each of its recorded calls (batch, axis, direction)
-    with the calls of its batch and axis in a run."""
+    path's single-form V1 launches (the batched route's crops with a plane
+    beyond one CTA), each shape those crops gave with its calls of a run,
+    the batched form with all of its launches, and each of its recorded
+    calls (batch, axis, direction) with the calls of its batch and axis in
+    a run."""
     n = DENSE_N
     ms, plain, err = v1
     err = max([err] + [v[4] for _, v in rows.values()])
@@ -4145,8 +4188,10 @@ def v1_table(launches, v1, rows, lanes_rows, v1b_err):
               "launches": launches["voronoi_sweep"], "max_abs_err": err,
               "ms": round(ms, 4), "plain_ms": round(plain, 4),
               "bound_ms": round(bms, 4), "bound_by": by, "library_ms": None}]
-    for shape, (calls, (ms, plain, bms, by, _)) in sorted(rows.items()):
-        table.append({"name": f"voronoi_sweep {shape}", "route": "cuda",
+    for (tag, shape), (calls, (ms, plain, bms, by, _)) in sorted(
+            rows.items()):
+        table.append({"name": f"voronoi_sweep {tag} {shape}",
+                      "route": "cuda",
                       "source": "kimimaro_tpu_torch/csrc/voronoi.cu",
                       "replaces": "kimimaro_tpu/ops/geodesic.py:727",
                       "launches": calls, "max_abs_err": err,
@@ -5290,10 +5335,15 @@ def main() -> int:
         skels = kimimaro_tpu_torch.skeletonize(
             dense, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
             fix_borders=True, fix_branching=True, device="cuda")
-        log(f"[analysis] {len(skels)} dense skeletons "
-            f"({time.perf_counter() - t0:.1f} s, set-up)")
+        hollow = hollow_volume(dense)
+        soma_skels = kimimaro_tpu_torch.skeletonize(
+            hollow, teasar_params=TEASAR, anisotropy=ANIS,
+            dust_threshold=1000, fix_borders=True, fix_branching=True,
+            fill_holes=False, fix_avocados=False, device="cuda")
+        log(f"[analysis] {len(skels)} dense and {len(soma_skels)} soma "
+            f"skeletons ({time.perf_counter() - t0:.1f} s, set-up)")
         (launches, v1, rows, lanes_rows, v1b_err,
-         b5_rows) = analysis_phase(dense, skels, gen)
+         b5_rows) = analysis_phase(dense, skels, gen, hollow, soma_skels)
         log(f"[analysis] launches: {json.dumps(launches)}")
         print(json.dumps({"kernels": v1_table(launches, v1, rows, lanes_rows,
                                               v1b_err) + b5_rows}))
@@ -5463,7 +5513,8 @@ def main() -> int:
      g1_touch_calls) = self_touch_phase(dense, gen)
     # 11. the analysis extras on the dense run's skeletons
     (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
-     b5_connect) = analysis_phase(dense, dense_skels, gen)
+     b5_connect) = analysis_phase(dense, dense_skels, gen, hollow,
+                                  soma_skels)
 
     # 12. the multi-device path over four shards of the card
     sharded_launches, sharded_rows = sharded_phase(

@@ -46,8 +46,10 @@
 //   * one CTA per lane over the window in device memory (the first form), for
 //     windows neither of the others holds.
 //
-// The dilation keeps the first form, one CTA per lane (shared memory up to
-// W = 64).
+// The dilation: one warp a lane with the window in registers (`xs_dilate_
+// warp`, windows up to 64 x 64), the first form beyond. What bounds it:
+// its integer operations (about 40 a cell and round in the lane-warp form)
+// and the rounds its slowest lanes run.
 //
 // Every cell whose section word is 0 keeps the word 0 for ever (the seed
 // is within the section and every step ANDs with it), so its zb never
@@ -62,6 +64,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace {
 
@@ -639,9 +642,190 @@ xs_sweep_packed(const int32_t* __restrict__ seed,
 }
 
 // ---------------------------------------------------------------------------
+// The dilation's lane-warp form: one warp a lane, the window in registers.
+//
+// A thread owns COLS columns y of the window and holds their cells, up to
+// NX of them along x, in registers, one 32-bit word a cell (`pack_cell`:
+// the word, the section word, zb as int16): windows up to 32 x 32 take one
+// column a thread, up to 64 x 64 two. A round walks the rows x of
+// registers in order; the cells of the rows before and after come from
+// the thread's own registers (the row before from a copy taken before it
+// was overwritten), the neighbour columns' by warp shuffles (up and down,
+// of a cell's zb and its shifted word). No barrier and no shared memory.
+//
+// The dilation commutes with OR: r | kd(r) | OR_n kd(vshift(r_n, d_n)) is
+// kd(r | OR_n vshift(r_n, d_n)), so a cell ORs its neighbours' re-based
+// words and dilates once. A row's cells enter the rows before, at and
+// after as (zb, r << 8), so that a neighbour's re-based word is one shift:
+//   (r_n << 8) >> ((zb + 8) - zb_n)
+// taken as a 32-bit shift of unsigned amount: an amount of 32 or more (a
+// delta beyond the word's reach either way) gives 0, as it must, and bits
+// below zb fall off before the dilation, as in `var_shift`. Bits above the
+// section word's 5 fall to the final & sb.
+//
+// A cell whose 3 x 3 neighbourhood (itself included) did not change in a
+// round computes the same word in the next: each round ORs the rows that
+// changed over the warp (one __reduce_or_sync), and the next round
+// relaxes only the rows within one of them. The first round relaxes all;
+// a round that changes nothing ends the lane, with the same kept, changed
+// and rounds run as the first form.
+// one lane a CTA (a CTA's registers go free as soon as its lane is done;
+// four lanes a CTA were 10% slower on the H100) and room for 128
+// registers a thread (64 spilled)
+constexpr int kDilateWarps = 1;
+
+__device__ __forceinline__ uint32_t shr_clamped(uint32_t v, uint32_t s) {
+    uint32_t out;
+    asm("shr.b32 %0, %1, %2;" : "=r"(out) : "r"(v), "r"(s));
+    return out;
+}
+
+// the rows of a window of NX rows as a bit mask
+template <int NX>
+using RowMask = typename std::conditional<(NX > 32), unsigned long long,
+                                          unsigned>::type;
+
+template <class M>
+__device__ __forceinline__ M warp_or(M v) {
+    if constexpr (sizeof(M) == 8) {
+        const unsigned lo = __reduce_or_sync(0xffffffffu, (unsigned)v);
+        const unsigned hi = __reduce_or_sync(0xffffffffu, (unsigned)(v >> 32));
+        return ((M)hi << 32) | lo;
+    } else {
+        return __reduce_or_sync(0xffffffffu, v);
+    }
+}
+
+// Lane-warp dilation of the (B, Wx, Wy) windows: warp w of CTA b floods
+// lane b * kDilateWarps + w; thread t owns the columns y = t * COLS + c
+// and their cells x < NX.
+template <int NX, int COLS>
+__global__ void __launch_bounds__(kDilateWarps * 32,
+                                  NX * COLS <= 64 ? 16 : 8)
+xs_dilate_warp(const int32_t* __restrict__ seed,
+               const int32_t* __restrict__ secb,
+               const int32_t* __restrict__ zb, int32_t* __restrict__ kept,
+               int32_t* __restrict__ changed, int32_t* __restrict__ nrun,
+               int B, int Wx, int Wy, int rounds) {
+    using Mask = RowMask<NX>;
+    const int lane = blockIdx.x * kDilateWarps + (threadIdx.x >> 5);
+    if (lane >= B) return;
+    const int t = threadIdx.x & 31;
+    const int n = Wx, m = Wy;
+    const int64_t base = (int64_t)lane * Wx * Wy;
+    uint32_t cell[COLS][NX];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        const int j = t * COLS + c;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            uint32_t w = 0;
+            if (i < n && j < m) {
+                const int64_t g = base + (int64_t)i * Wy + j;
+                const uint32_t sb = (uint32_t)secb[g];
+                w = pack_cell((uint32_t)seed[g], sb, sb ? zb[g] : 0);
+            }
+            cell[c][i] = w;
+        }
+    }
+
+    // the neighbour columns beyond the warp's first and last offer nothing
+    const uint32_t left = t > 0 ? ~0u : 0u, right = t < 31 ? ~0u : 0u;
+    const Mask rows = n >= 8 * (int)sizeof(Mask) ? ~(Mask)0
+                                                  : (((Mask)1 << n) - 1);
+    Mask active = rows;
+    int ch = 1;
+    int run = 0;
+    for (int it = 0; it <= rounds; ++it) {
+        Mask dirty = 0;
+        // zb and r << 8 of the rows before (p), at (q) and after (r) the
+        // row relaxed: [0] the left neighbour column, [1 .. COLS] the
+        // thread's own, [COLS + 1] the right neighbour column
+        int pz[COLS + 2], qz[COLS + 2], rz[COLS + 2];
+        uint32_t pw[COLS + 2], qw[COLS + 2], rw[COLS + 2];
+        auto load_row = [&](int i, int (&z)[COLS + 2],
+                            uint32_t (&w)[COLS + 2]) {
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) {
+                z[c + 1] = (int)cell[c][i] >> 16;
+                w[c + 1] = (cell[c][i] & 0xffu) << 8;
+            }
+            z[0] = __shfl_up_sync(0xffffffffu, z[COLS], 1);
+            w[0] = __shfl_up_sync(0xffffffffu, w[COLS], 1) & left;
+            z[COLS + 1] = __shfl_down_sync(0xffffffffu, z[1], 1);
+            w[COLS + 1] = __shfl_down_sync(0xffffffffu, w[1], 1) & right;
+        };
+#pragma unroll
+        for (int c = 0; c < COLS + 2; ++c) {
+            pz[c] = qz[c] = rz[c] = 0;
+            pw[c] = qw[c] = rw[c] = 0u;
+        }
+        if (active & 3) load_row(0, qz, qw);
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            if (i >= n) break;
+            // row i + 1 serves the rows i, i + 1 and i + 2
+            if (i + 1 < NX && ((active >> i) & 7)) {
+                load_row(i + 1, rz, rw);
+            } else if (i + 1 >= NX) {
+#pragma unroll
+                for (int c = 0; c < COLS + 2; ++c) rw[c] = 0u;
+            }
+            if ((active >> i) & 1) {
+#pragma unroll
+                for (int c = 0; c < COLS; ++c) {
+                    const uint32_t w = cell[c][i];
+                    const int zp = ((int)w >> 16) + 8;
+                    uint32_t x = cell_r(w);
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) {
+                        x |= shr_clamped(pw[c + k], (uint32_t)(zp - pz[c + k]));
+                        x |= shr_clamped(rw[c + k], (uint32_t)(zp - rz[c + k]));
+                    }
+                    x |= shr_clamped(qw[c], (uint32_t)(zp - qz[c]));
+                    x |= shr_clamped(qw[c + 2], (uint32_t)(zp - qz[c + 2]));
+                    const uint32_t v = kdilate(x) & cell_sb(w);
+                    if (v != cell_r(w)) {
+                        dirty |= (Mask)1 << i;
+                        cell[c][i] = (w & 0xffffff00u) | v;
+                    }
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < COLS + 2; ++c) {
+                pz[c] = qz[c];
+                pw[c] = qw[c];
+                qz[c] = rz[c];
+                qw[c] = rw[c];
+            }
+        }
+        const Mask moved = warp_or(dirty);
+        ch = moved != 0;
+        ++run;
+        if (!ch) break;
+        active = (moved | (moved << 1) | (moved >> 1)) & rows;
+    }
+
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        const int j = t * COLS + c;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            if (i < n && j < m) {
+                kept[base + (int64_t)i * Wy + j] = (int32_t)cell_r(cell[c][i]);
+            }
+        }
+    }
+    if (t == 0) {
+        changed[lane] = ch;
+        nrun[lane] = run;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // the shape rule
 
-enum FloodForm { kLaneCta = 0, kWarps = 1, kCluster = 2 };
+enum FloodForm { kLaneCta = 0, kWarps = 1, kCluster = 2, kLaneWarp = 3 };
 
 struct FloodPlan {
     int form;
@@ -720,8 +904,35 @@ inline FloodPlan plan_sweep(int Wx, int Wy) {
     return lane_cta_plan(Wx, Wy, true);
 }
 
+// The dilation's lane-warp form for a (Wx, Wy) window: the cells a
+// column (NX) and the columns a thread (COLS), 32 x 1 up to 32 x 32 and
+// 64 x 2 up to 64 x 64; nx = 0 beyond.
+struct DilatePlan {
+    int nx, cols;
+};
+
+inline DilatePlan dilate_warp_plan(int Wx, int Wy) {
+    if (Wx <= 32 && Wy <= 32) return {32, 1};
+    if (Wx <= 64 && Wy <= 64) return {64, 2};
+    return {0, 0};
+}
+
+int run_dilate_warp(const DilatePlan& dp, const void* seed, const void* secb,
+                    const void* zb, void* kept, void* changed, void* nrun,
+                    int B, int Wx, int Wy, int rounds, cudaStream_t st) {
+    const auto kern =
+        dp.nx == 32 ? xs_dilate_warp<32, 1> : xs_dilate_warp<64, 2>;
+    kern<<<(B + kDilateWarps - 1) / kDilateWarps, kDilateWarps * 32, 0, st>>>(
+        (const int32_t*)seed, (const int32_t*)secb, (const int32_t*)zb,
+        (int32_t*)kept, (int32_t*)changed, (int32_t*)nrun, B, Wx, Wy, rounds);
+    return (int)cudaGetLastError();
+}
+
 inline FloodPlan cached_plan(int Wx, int Wy, bool sweep) {
-    if (!sweep) return lane_cta_plan(Wx, Wy, false);
+    if (!sweep) {
+        if (dilate_warp_plan(Wx, Wy).nx > 0) return {kLaneWarp, 1, 32, 0};
+        return lane_cta_plan(Wx, Wy, false);
+    }
     static std::mutex lock;
     static std::map<std::tuple<int, int, int>, FloodPlan> plans;
     int dev = 0;
@@ -771,7 +982,8 @@ int run_packed(const FloodPlan& plan, const void* seed, const void* secb,
 extern "C" {
 
 // seed, secb, zb, kept, scratch: (B, Wx, Wy) int32 contiguous (scratch is
-// used by the dilation only and may be NULL for the sweep); changed, nrun:
+// used by the dilation's first form only and may be NULL for the other
+// forms: kt_xs_flood_plan); changed, nrun:
 // (B,) int32. secb and seed hold K-bit words; where secb is not 0, zb fits
 // int16 (the packed forms store it so). Returns a cudaError_t code (0 =
 // success).
@@ -782,15 +994,18 @@ int kt_xs_flood(const void* seed, const void* secb, const void* zb,
         return (int)cudaErrorInvalidValue;
     }
     const int64_t cells = (int64_t)Wx * Wy;
-    if (cells > (1 << 28) || (!sweep && scratch == nullptr)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (cells > (1 << 28)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const FloodPlan plan = cached_plan(Wx, Wy, sweep != 0);
+    if (plan.form == kLaneWarp) {
+        return run_dilate_warp(dilate_warp_plan(Wx, Wy), seed, secb, zb,
+                               kept, changed, nrun, B, Wx, Wy, rounds, st);
+    }
     if (plan.form != kLaneCta) {
         return run_packed(plan, seed, secb, zb, kept, changed, nrun, B, Wx,
                           Wy, rounds, st);
     }
+    if (!sweep && scratch == nullptr) return (int)cudaErrorInvalidValue;
     if (sweep) {
         return launch<true>(seed, secb, zb, kept, scratch, changed, nrun, B,
                             Wx, Wy, rounds, plan.threads, plan.smem, st);
@@ -801,8 +1016,9 @@ int kt_xs_flood(const void* seed, const void* secb, const void* zb,
 
 // How X1 runs a (Wx, Wy) window on the current device: returns the form (0
 // one CTA a lane, 1 one CTA of a warp per 32 columns a lane, 2 one cluster
-// a lane) with the CTAs a lane and whether the window lies in shared
-// memory.
+// a lane, 3 one warp a lane, the dilation's window in registers) with the
+// CTAs a lane and whether the window stays on chip (in shared memory or
+// registers).
 int kt_xs_flood_plan(int Wx, int Wy, int sweep, int* ctas, int* in_smem) {
     if (Wx < 1 || Wy < 1) return -1;
     const FloodPlan plan = cached_plan(Wx, Wy, sweep != 0);

@@ -35,7 +35,7 @@ _METHODS = ("dilate", "sweep")
 # the packed forms of X1 keep zb as int16
 ZB_MIN, ZB_MAX = -(1 << 15), (1 << 15) - 1
 # X1's forms (csrc/xsflood.cu `FloodForm`)
-FLOOD_FORMS = ("lane_cta", "warps", "cluster")
+FLOOD_FORMS = ("lane_cta", "warps", "cluster", "lane_warp")
 
 
 def _kdilate(bits):
@@ -170,11 +170,13 @@ def check_zb(secb, zb) -> None:
 
 def section_flood_plan(Wx: int, Wy: int, method: str = "sweep"):
     """How X1 runs a (Wx, Wy) window on the current CUDA device: (form,
-    CTAs a lane, whether the window lies in shared memory), the form one
-    of FLOOD_FORMS ("warps": one CTA a lane of a warp per 32 columns, the
-    packed window in shared memory; "cluster": one thread-block cluster a
-    lane, each CTA a band of window rows; "lane_cta": one CTA a lane, in
-    shared memory while it fits, else in device memory)."""
+    CTAs a lane, whether the window stays on chip), the form one of
+    FLOOD_FORMS ("warps": the sweep, one CTA a lane of a warp per 32
+    columns, the packed window in shared memory; "cluster": the sweep, one
+    thread-block cluster a lane, each CTA a band of window rows;
+    "lane_warp": the dilation up to 64 x 64, one warp a lane, the packed
+    window in registers; "lane_cta": one CTA a lane, in shared memory while
+    it fits, else in device memory)."""
     if method not in _METHODS:
         raise ValueError(f"section_flood_plan: unknown method {method!r}")
     ctas, smem = ctypes.c_int(0), ctypes.c_int(0)

@@ -18,7 +18,11 @@ times B4 and B5 node sweeps with a graph and without, in turns, on the
 same inputs (`gated_sweeps`), one JSON line a shape; ccl-kernels times
 G1 (both forms where the port has them) and B1-vg on the self-touch
 volume's CCL and at the crop engine's largest lane sets, and the CCL
-under the graph as a whole (`ccl_kernels`). Pass the root of another
+under the graph as a whole (`ccl_kernels`); single-kernels times V1's
+single-volume form (a 512^3 sweep and the sweeps that the dense and soma
+oversegment runs send to it), X1's dilation on the dense cross
+sections' recorded (32, 32) call, and B1, B2 and B5 at chip_smoke.py's
+timed shapes (`single_kernels`). Pass the root of another
 checkout (the parent commit unpacked with git archive) to time its port
 on the same inputs; compare two checkouts only within one call, in turns
 (parent, change, change, parent).
@@ -149,6 +153,113 @@ def ccl_kernels(root, merged, vg, runs):
     torch.cuda.empty_cache()
 
 
+class FirstCalls:
+    """While installed, counts the calls of `module.name` by the shape of
+    their first argument and keeps the arguments of each shape's first
+    call (cloned, for the tensors)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls, self.kept = {}, {}
+
+    def __enter__(self):
+        import torch
+
+        inner = self.inner = getattr(self.module, self.name)
+
+        def spy(*args):
+            shape = tuple(args[0].shape)
+            self.calls[shape] = self.calls.get(shape, 0) + 1
+            if shape not in self.kept:
+                self.kept[shape] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            return inner(*args)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def single_kernels(root, dense, runs):
+    """CUDA-event ms of V1's single-volume form and X1's dilation as the
+    port at `root` runs them, and of B1, B2 and B5 beside them: V1 on a
+    512^3 sweep with ties and on the first call of each shape that the
+    dense and soma oversegment runs send to V1's single form (calls
+    counted by shape), X1 on the dense cross sections' (32, 32) dilation
+    call, B1 (euclid, okmask, clamp) and B2 (ball_rail) at 512^3 and B5
+    (node) at 96^3 on chip_smoke.py's inputs. One JSON line."""
+    import torch
+
+    import chip_smoke
+    import kimimaro_tpu_torch
+    from kimimaro_tpu_torch.ops import geodesic, gsweep, sweep, voronoi
+    from kimimaro_tpu_torch.ops import xsslab
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {"root": root, "case": "single-kernels"}
+    n = chip_smoke.DENSE_N
+    iso = (1.0, 1.0, 1.0)
+    d, f, ok = chip_smoke.v1_inputs((n, n, n), gen, True)
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    costs = geodesic.plane_costs(0, False, iso)
+    out["v1_ms 512^3"] = cuda_ms(
+        lambda: voronoi.voronoi_sweep(d, f, ok, costs, False, flag), 20)
+    del d, f, ok
+    anis = (16.0, 16.0, 40.0)
+    d, cc, _, ok = chip_smoke.sweep_inputs((n, n, n), "euclid", True, True,
+                                           gen)
+    out["b1_ms 512^3"] = cuda_ms(lambda: gsweep.sweep0(
+        d, cc, None, ok, anis, "euclid", True, False), 20)
+    del d, cc, ok
+    da, db, cc, nc, ok = chip_smoke.b2_inputs((n, n, n), "ball_rail", gen)
+    out["b2_ms 512^3"] = cuda_ms(lambda: gsweep.sweep0_dual(
+        da, db, cc, nc, ok, anis, "ball_rail", False), 20)
+    del da, db, cc, nc, ok
+    d, ok, nc = chip_smoke.b5_inputs((96, 96, 96), False, gen)
+    out["b5_ms 96^3"] = cuda_ms(lambda: sweep.sweep_axis0(
+        d, ok, nc, (40.0, 16.0, 16.0), True, False, False), 20)
+    del d, ok, nc
+    torch.cuda.empty_cache()
+
+    kw = dict(teasar_params=chip_smoke.TEASAR, anisotropy=chip_smoke.ANIS,
+              dust_threshold=1000, fix_borders=True, fix_branching=True,
+              device="cuda")
+    skels = kimimaro_tpu_torch.skeletonize(dense, **kw)
+    with FirstCalls(xsslab, "section_flood") as xs:
+        kimimaro_tpu_torch.cross_sectional_area(
+            dense, {s.id: s.clone() for s in chip_smoke.xs_select(skels)[0]},
+            anisotropy=chip_smoke.ANIS, device="cuda")
+    seed, secb, zb, rounds, method = xs.kept[max(
+        k for k in xs.kept if xs.kept[k][4] == "dilate")]
+    out["x1_dilate"] = {"lanes": seed.shape[0], "window":
+                        list(seed.shape[1:]), "rounds": rounds,
+                        "ms": cuda_ms(lambda: xsslab.section_flood(
+                            seed, secb, zb, rounds, method), runs * 10)}
+    del seed, secb, zb
+    hollow = chip_smoke.hollow_volume(dense)
+    soma = kimimaro_tpu_torch.skeletonize(hollow, fill_holes=False,
+                                          fix_avocados=False, **kw)
+    out["v1_single"] = {}
+    for tag, vol, sk in (("dense", dense, skels), ("soma", hollow, soma)):
+        with FirstCalls(geodesic, "voronoi_sweep") as v1:
+            kimimaro_tpu_torch.oversegment(vol, sk,
+                                           anisotropy=chip_smoke.ANIS,
+                                           device="cuda")
+        for shape, (d, f, ok, costs9, desc, _) in sorted(v1.kept.items()):
+            flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+            out["v1_single"][f"{tag} {shape}"] = {
+                "calls": v1.calls[shape], "ms": cuda_ms(
+                    lambda: voronoi.voronoi_sweep(d, f, ok, costs9, desc,
+                                                  flag), runs * 10)}
+    print(json.dumps(out), flush=True)
+    del hollow
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     runs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
@@ -197,9 +308,11 @@ def main() -> int:
     if "gated-sweeps" in cases:
         gated_sweeps(root)
     if not {"dense", "soma", "xs-dense", "xs-soma", "self-touch",
-            "ccl-kernels"} & set(cases):
+            "ccl-kernels", "single-kernels"} & set(cases):
         return 0
     dense = chip_smoke.dense_volume(chip_smoke.DENSE_N)
+    if "single-kernels" in cases:
+        single_kernels(root, dense, runs)
     if {"self-touch", "ccl-kernels"} & set(cases):
         merged, vg, _, _ = chip_smoke.self_touch_volume(dense)
     if "ccl-kernels" in cases:

@@ -106,6 +106,29 @@ def test_voronoi_feature_field_matches_jax(case):
     np.testing.assert_array_equal(tf.numpy(), jf)
 
 
+# V1 at its edge shapes: sweeps of 1, 2, 7 and 9 planes, planes of one,
+# three and 17 rows
+V1_EDGES = [(n, H) for n in (1, 2, 7, 9) for H in (1, 3, 17)]
+
+
+@pytest.mark.parametrize("n,H", V1_EDGES)
+def test_voronoi_feature_field_edges_match_jax(n, H):
+    """voronoi_feature_field on (n, H, 6) masks, once with isotropic steps
+    and integer-spaced seeds (so that steps tie) and once anisotropic,
+    against the JAX package's."""
+    rng = np.random.RandomState(100 * n + H)
+    ok = rng.rand(n, H, 6) < 0.8
+    ok[0, 0, 0] = ok[-1, -1, -1] = True
+    pts = np.argwhere(ok)
+    seeds = pts[rng.choice(len(pts), size=min(4, len(pts)), replace=False)]
+    for anis in ((1.0, 1.0, 1.0), (3.7, 1.3, 2.9)):
+        jd, jf = jgeo.voronoi_feature_field(ok, seeds, anis)
+        td, tf = tgeo.voronoi_feature_field(torch.from_numpy(ok), seeds,
+                                            anis, device="cpu")
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+
+
 def test_voronoi_ties_take_the_first_offset():
     """Two seeds at equal isotropic distance from a whole plane: every tie
     goes to the first of the nine offsets, as JAX's strict compare

@@ -569,17 +569,24 @@ def _xs_windows(seed, B, Wx, Wy, density=0.7):
     return [torch.from_numpy(a).cuda() for a in (seed_w & secb, secb, zb)]
 
 
-@pytest.mark.parametrize("method,W,rounds", [
-    ("dilate", 13, 2), ("dilate", 32, 36), ("dilate", 100, 8),
-    ("dilate", 130, 4), ("sweep", 13, 0), ("sweep", 64, 6),
-    ("sweep", 128, 6), ("sweep", 200, 3)])
-def test_section_flood_kernel_matches_plain(gen, method, W, rounds):
-    """X1's dilation in shared memory (small windows) and in device memory
-    (above 64), its sweep in shared memory, lanes that converge and lanes
-    that run out of rounds."""
+X1_DILATE_EDGES = [(w, r) for w in ((1, 1), (5, 31), (32, 32), (33, 17),
+                                    (64, 64)) for r in (0, 1, 36, 96)]
+
+
+@pytest.mark.parametrize("method,window,rounds", [
+    ("dilate", (13, 10), 2), ("dilate", (32, 29), 36),
+    ("dilate", (100, 97), 8), ("dilate", (130, 127), 4),
+    ("sweep", (13, 10), 0), ("sweep", (64, 61), 6),
+    ("sweep", (128, 125), 6), ("sweep", (200, 197), 3)]
+    + [("dilate", w, r) for w, r in X1_DILATE_EDGES])
+def test_section_flood_kernel_matches_plain(gen, method, window, rounds):
+    """X1's dilation in registers (windows up to 64 x 64, one warp a lane)
+    and in device memory (above), its sweep in shared memory, lanes that
+    converge and lanes that run out of rounds."""
     from kimimaro_tpu_torch.ops import xsslab
 
-    seed, secb, zb = _xs_windows(W, 5, W, W - 3)
+    Wx, Wy = window
+    seed, secb, zb = _xs_windows(Wx + Wy, 5, Wx, Wy)
     before = kernels.LAUNCHES["section_flood"]
     got = xsslab.section_flood(seed, secb, zb, rounds, method)
     assert kernels.LAUNCHES["section_flood"] == before + 1
@@ -638,6 +645,32 @@ def test_section_flood_plan_follows_the_shape_rule(gen, Wx, Wy, form):
     got = xsslab.section_flood(seed, secb, zb, rounds, "sweep")
     assert kernels.LAUNCHES["section_flood"] == before + 1
     want = xsslab._section_flood_plain(seed, secb, zb, rounds, "sweep")
+    _assert_bit_equal(got, want)
+
+
+# the dilation's windows on each side of its lane-warp rule: one warp a
+# lane while one axis has at most 64 columns and the other at most 64
+# cells, one CTA a lane beyond
+X1_DILATE_FORMS = ((1, 1, "lane_warp"), (3, 64, "lane_warp"),
+                   (64, 64, "lane_warp"), (65, 3, "lane_cta"),
+                   (64, 65, "lane_cta"))
+
+
+@pytest.mark.parametrize("Wx,Wy,form", X1_DILATE_FORMS)
+def test_section_flood_dilate_plan_follows_the_shape_rule(gen, Wx, Wy, form):
+    """Each form of the dilation bit-equal to the plain one, with zb far
+    beyond int16 in the empty columns (the lane-warp form never reads it
+    there)."""
+    from kimimaro_tpu_torch.ops import xsslab
+
+    plan = xsslab.section_flood_plan(Wx, Wy, "dilate")
+    assert plan[0] == form, plan
+    seed, secb, zb = _xs_windows(Wx * 3 + Wy, 4, Wx, Wy)
+    zb = torch.where(secb != 0, zb, zb - (1 << 24))
+    before = kernels.LAUNCHES["section_flood"]
+    got = xsslab.section_flood(seed, secb, zb, 5, "dilate")
+    assert kernels.LAUNCHES["section_flood"] == before + 1
+    want = xsslab._section_flood_plain(seed, secb, zb, 5, "dilate")
     _assert_bit_equal(got, want)
 
 
@@ -1040,6 +1073,11 @@ def test_streamed_upload_cuda_matches_plain(gen, dtype):
 # beyond
 V1_FORMS = ((170, "cluster"), (171, "strips"), (840, "strips"),
             (880, "plane"))
+# V1 at its edges: a sweep of one and two planes, 7 and 9 planes, planes
+# of one, three and 17 rows, a cluster whose last strip is short, a plane
+# that several strips share, a 512 x 512 plane in grid-wide strips
+V1_EDGES = tuple((n, H, 6) for n in (1, 2, 7, 9) for H in (1, 3, 17)) \
+    + ((17, 130, 121), (33, 301, 48), (18, 512, 512))
 
 
 def _voronoi_inputs(gen, shape, ties):
@@ -1088,7 +1126,7 @@ def _check_voronoi(gen, shape, anis, ties=False):
         assert torch.equal(got[0][first], d[first])
 
 
-@pytest.mark.parametrize("shape", B5_SHAPES)
+@pytest.mark.parametrize("shape", B5_SHAPES + V1_EDGES)
 @pytest.mark.parametrize("ties", (False, True))
 def test_voronoi_sweep_kernel_matches_plain(gen, shape, ties):
     _check_voronoi(gen, shape, (1.0, 1.0, 1.0) if ties else ANIS, ties)

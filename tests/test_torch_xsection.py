@@ -143,6 +143,31 @@ def test_section_flood_plain_bit_equal(method, rounds):
         assert not changed.all()
 
 
+# the dilation's windows at the edges of X1's lane-warp form: one cell, a
+# row narrower than a warp, a warp's width, one row past it (registers of
+# 64 cells or two columns a thread), the per-label rung's 64 x 64; rounds
+# 0 (one round run), 1, the dense rung's 36 and the per-label rung's 96
+X1_DILATE_EDGES = [(w, r) for w in ((1, 1), (5, 31), (32, 32), (33, 17),
+                                    (64, 64)) for r in (0, 1, 36, 96)]
+
+
+@pytest.mark.parametrize("window,rounds", X1_DILATE_EDGES)
+def test_section_flood_dilate_edges_match_jax(window, rounds):
+    Wx, Wy = window
+    seed, secb, zb = _random_windows(Wx * 97 + Wy + rounds, B=3, Wx=Wx,
+                                     Wy=Wy)
+    fn = jax.vmap(lambda s, b, z: _jax_dilate(s, b, z, rounds))
+    wk, wc = fn(jnp.asarray(seed, jnp.uint32), jnp.asarray(secb, jnp.uint32),
+                jnp.asarray(zb))
+    kept, changed, run = txsslab.section_flood(
+        torch.from_numpy(seed), torch.from_numpy(secb), torch.from_numpy(zb),
+        rounds, "dilate")
+    np.testing.assert_array_equal(kept.numpy().astype(np.uint32),
+                                  np.asarray(wk))
+    np.testing.assert_array_equal(changed.numpy(), np.asarray(wc))
+    assert ((run.numpy() >= 1) & (run.numpy() <= rounds + 1)).all()
+
+
 def test_fetch_plain_matches_xsfetch_kernel(monkeypatch):
     """The plain B6 against the Pallas kernel in interpret mode on windows
     it accepts (128-aligned y starts), on the bits the kernel defines."""
