@@ -25,16 +25,20 @@ Phases (any failure exits non-zero):
      with phase times, skeleton and launch counts, and 8 labels traced by
      the global engine cross-checked against the host trace path (both
      engines with the global engine's PDRF formula: the reference's
-     engines round it differently); then B3 bit-equal
+     engines round it differently); its routing counters (the global
+     engine's iterations, the labels its selective bail hands to the crop
+     engine, which must be some, either engine's jobs); then B3 bit-equal
      to its plain version on calls that run made (its row of the kernel
      table);
   6. the soma volume at real size: bench.py's hollow variant of that
      volume (carved holes, nested pits, two soma-scale balls that the
      global engine hands to the crop engine), run twice, with phase
      times, counters, launches and the peak device memory;
-  7. cross-check: 64 labels of the dense run, from one crop bucket,
-     traced by the crop engine at full lane width on the card (with the
-     global engine's PDRF formula) equal their global-engine skeletons;
+  7. cross-check: the global engine with the bail off traces the dense
+     run's other labels bit-equal; 64 labels of the dense run, from one
+     crop bucket, and the labels the bail handed back, traced by the crop
+     engine on the card (with the global engine's PDRF formula) equal
+     their global-engine skeletons;
      then B4 bit-equal to its plain version on the calls the soma run,
      the per-label path and this cross-check made, with a kernel-table
      row for each shape of the main path's runs;
@@ -42,10 +46,11 @@ Phases (any failure exits non-zero):
      shapes; cross_sectional_area on the dense run's largest skeletons
      (bench.py's selection, >= 12,000 vertices) and on the soma volume's
      two balls (W = 512 rungs), each run twice, with ms/vertex, rung
-     counters, launches and peak memory, each equal to the CPU on a
+     counters, launches and peak memory, the card equal to the CPU on a
      subset (the smallest dense skeletons up to 300 vertices, the smaller
-     ball); the per-label path (cross_sectional_area_single, fill_holes,
-     zero normals on the dense rung: B4) CUDA against CPU; then B6 and X1
+     ball, each downsampled by 4); the per-label path
+     (cross_sectional_area_single, fill_holes, zero normals on the dense
+     rung: B4) CUDA against CPU; then B6 and X1
      bit-equal to their plain versions on the inputs those runs handed
      them, with times and bounds, B6's scalar path on the dense run's
      calls with the volume cut to tz - 1 and tz - 2, and a kernel-table
@@ -53,7 +58,7 @@ Phases (any failure exits non-zero):
      version on the calls phases 4 to 6 and 8 handed it (`F1Spy`), timed
      beside torch.addcmul, with a kernel-table row for each route;
   9. the host-stage path: the soma volume through skeletonize with
-     fill_holes and fix_avocados (bench.py's fill stage), run twice, with
+     fill_holes and fix_avocados (bench.py's fill stage), run once, with
      phase times and counters; its filled volume equal to a serial
      oracle (scipy's binary_fill_holes per label in label order), the
      avocado output's invariants, a skeleton for every label above the
@@ -98,7 +103,7 @@ Phases (any failure exits non-zero):
      and the lanes a two-stage prefetch would push out of one CTA's
      shared memory): a uint64 composite, every voxel of a
      skeletonized label in a segment, as many segments as distinct seed
-     voxels, a segment per vertex, card = CPU on the crops of 16 labels;
+     voxels, a segment per vertex, card = CPU on the crops of 6 labels;
      the batched V1 on the first round's calls of a run's first and last
      batches, each twice (a kernel-table row each); then the per-crop
      route (voronoi_feature_field on each crop) at downsample 0 and 5,
@@ -117,7 +122,9 @@ Phases (any failure exits non-zero):
      and the preamble step of a 64^3 cut card = CPU; skeletonize_sharded
      of the dense volume twice (first, warm) and of the soma volume, with
      phases, launches, exchanges and peak memory, every label's SWC
-     against phases 5 and 6 (a label may differ only where its DBF
+     against phases 5 and 6's volumes on one device with the global
+     engine's bail off, as the sharded engine runs (a label may differ
+     only where its DBF
      differs or where the runs traced one of its components with
      different engines, both counted); a 64^3 blob volume at 3 shards and
      the 64^3 self-touch volume at 4 shards, card = CPU; then B1, B3, B4,
@@ -187,6 +194,7 @@ seconds, phases, counters and launches.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1365,13 +1373,14 @@ def hollow_volume(dense, seed=4):
     return vol
 
 
-def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
-    """skeletonize(vol) on CUDA twice, the launch counts reset just before
-    each run and read just after it; each run must launch every kernel in
-    `require`. Returns (skeletons and counters of the second run, launches
-    summed over both runs, and with `capture` the global engine's inputs
-    and results of the second run). `b3_spy` is installed for the first
-    run."""
+def run_main_path(tag, vol, require, capture=False, b3_spy=None,
+                  runs=("first", "second"), **kwargs):
+    """skeletonize(vol) on CUDA once per entry of `runs` (by default twice:
+    cold, warm), the launch counts reset just before each run and read
+    just after it; each run must launch every kernel in `require`. Returns
+    (skeletons and counters of the last run, launches summed over the
+    runs, and with `capture` the global engine's inputs and results of the
+    second run). `b3_spy` is installed for the first run."""
     import torch
 
     import kimimaro_tpu_torch
@@ -1383,11 +1392,12 @@ def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
 
     def spy(cc_dev, dbf_dev, jobs, *args, **kw):
         results, leftover = trace_global(cc_dev, dbf_dev, jobs, *args, **kw)
-        captured.append((cc_dev, dbf_dev, jobs, results))
+        # a copy: the caller adds the crop engine's results to the dict
+        captured.append((cc_dev, dbf_dev, jobs, dict(results)))
         return results, leftover
 
     total = {k: 0 for k in kernels.LAUNCHES}
-    for run in ("first", "second"):
+    for run in runs:
         if capture and run == "second":
             gengine.trace_global = spy
         restore_b3 = b3_spy.install() if (b3_spy is not None
@@ -1437,6 +1447,17 @@ def run_main_path(tag, vol, require, capture=False, b3_spy=None, **kwargs):
                                              else None)
 
 
+ROUTING = ("gengine_iterations", "gengine_taint_capacity", "gengine_jobs",
+           "crop_engine_jobs")
+
+
+def log_routing(tag, counters):
+    """The global engine's iterations, the labels its selective bail
+    handed to the crop engine, and the jobs of either engine."""
+    log(f"[{tag}] routing: " + ", ".join(f"{k} {counters.get(k, 0)}"
+                                         for k in ROUTING))
+
+
 def dense_main_path(vol):
     """Returns (skeletons, the global engine's inputs and results, launches,
     the B3 calls recorded in the first run)."""
@@ -1447,6 +1468,12 @@ def dense_main_path(vol):
         capture=True, b3_spy=b3_spy)
     if len(skels) < 0.9 * DENSE_LABELS * (n / 512) ** 3:
         raise AssertionError(f"dense run: only {len(skels)} skeletons")
+    log_routing("dense", counters)
+    # more than 500 live labels: the selective bail hands the lock-step
+    # loop's last active labels to the crop engine
+    if counters.get("gengine_taint_capacity", 0) == 0:
+        raise AssertionError("dense run: the global engine handed no label "
+                             "back (gengine_taint_capacity 0)")
     # one B3 call per grouped argmax: the root selection and one per path
     # iteration, whatever the number of crop tiers
     want = 2 * (counters["gengine_iterations"] + 1)
@@ -1464,6 +1491,7 @@ def hollow_main_path(vol):
     skels, counters, launches, _ = run_main_path(
         "soma", vol, ("sweep_axis0_batched",), fill_holes=False,
         fix_avocados=False)
+    log_routing("soma", counters)
     if counters.get("crop_engine_jobs", 0) < 2:
         raise AssertionError(f"soma volume: crop_engine_jobs "
                              f"{counters.get('crop_engine_jobs', 0)} < 2")
@@ -1545,20 +1573,58 @@ def cross_check(captured):
         f"formula)")
 
 
+@contextlib.contextmanager
+def bail_off():
+    """The global engine without its selective bail (gengine.BAIL_ACTIVE
+    0) inside the block."""
+    from kimimaro_tpu_torch import gengine
+
+    bail = gengine.BAIL_ACTIVE
+    gengine.BAIL_ACTIVE = 0
+    try:
+        yield
+    finally:
+        gengine.BAIL_ACTIVE = bail
+
+
+def same_paths(a, b):
+    """Two labels' global-engine paths equal bit for bit."""
+    return b is not None and len(a) == len(b) and all(
+        np.array_equal(va, vb) and np.array_equal(ra, rb)
+        for (va, ra), (vb, rb) in zip(a, b))
+
+
 def crop_cross_check(captured):
-    """64 dense labels of one crop bucket through the crop engine on the
-    card (B4 at full lane width on real crops) against their
-    global-engine skeletons. Labels with a voxel in the 3x3x3 block at
-    their crop's far corner are left out: padding rows of the crop
-    engine's path buffer address that corner (the JAX engine's wrapped
-    negative indices, kept by the port), so the two engines may differ
-    there."""
-    from kimimaro_tpu_torch import engine
+    """64 dense labels of one crop bucket, and the labels the global
+    engine's selective bail handed to the crop engine, through the crop
+    engine on the card (B4 at full lane width on real crops) against their
+    global-engine skeletons. Those of the handed-back labels come from the
+    global engine run again with the bail off, whose paths of every other
+    label must equal the dense run's bit for bit. Labels with a voxel in
+    the 3x3x3 block at their crop's far corner are left out: padding rows
+    of the crop engine's path buffer address that corner (the JAX engine's
+    wrapped negative indices, kept by the port), so the two engines may
+    differ there."""
+    from kimimaro_tpu_torch import engine, gengine
     from kimimaro_tpu_torch.skeleton import Skeleton
 
     cc_dev, dbf_dev, jobs, results = captured
     vol_shape = np.asarray(cc_dev.shape)
     cc = cc_dev.cpu().numpy()
+
+    t0 = time.perf_counter()
+    with bail_off():
+        full, _ = gengine.trace_global(cc_dev, dbf_dev, jobs, TEASAR, ANIS,
+                                       True)
+    secs_full = time.perf_counter() - t0
+    for s, paths in results.items():
+        if not same_paths(paths, full.get(s)):
+            raise AssertionError(f"label {s}: the global engine's paths "
+                                 f"differ with the bail off")
+    bailed = sorted(s for s in full if s not in results)
+    if not bailed:
+        raise AssertionError("the dense run's global engine handed no "
+                             "label back that it traces with the bail off")
 
     def bshape(job):
         return tuple(min(engine._bucket_dim(int(s)), int(v))
@@ -1580,6 +1646,9 @@ def crop_cross_check(captured):
     rng = np.random.RandomState(0)
     picks = [clear[i] for i in sorted(rng.choice(len(clear), size=64,
                                                  replace=False))]
+    handed = [j for j in jobs if j["segid"] in set(bailed)]
+    handed_clear = [j for j in handed if corner_clear(j)]
+    picks += handed_clear
     spy = B4Spy("crop cross-check")
     restore = spy.install()
     restore_pdrf = global_pdrf_formula()
@@ -1597,12 +1666,17 @@ def crop_cross_check(captured):
     for j in picks:
         s = j["segid"]
         a = engine.paths_to_skeleton(got[s], ANIS)
-        b = engine.paths_to_skeleton(results[s], ANIS)
+        b = engine.paths_to_skeleton(full[s], ANIS)
         if not Skeleton.equivalent(a, b):
             raise AssertionError(f"label {s}: crop engine and global engine "
                                  f"disagree")
+    log(f"[crop] the global engine with the bail off ({secs_full:.2f} s) "
+        f"traces the {len(results)} labels of the dense run bit-equal and "
+        f"the {len(bailed)} it handed back")
     log(f"[crop] 64 dense labels of bucket {common} ({len(shapes[common])} "
         f"in it, {len(shapes[common]) - len(clear)} left out at the crop "
+        f"corner) and {len(handed_clear)} of the {len(handed)} handed-back "
+        f"labels ({len(handed) - len(handed_clear)} left out at the crop "
         f"corner) traced by the crop engine in {secs:.2f} s equal their "
         f"global-engine skeletons (the global engine's PDRF formula)")
     return spy
@@ -1912,15 +1986,19 @@ def xs_run(tag, vol, sel, spy=None):
     return skels, counters, secs, total
 
 
-def xs_equal_cpu(tag, vol, sel, got):
-    """The same call on the CPU (plain versions of every kernel) equals
-    the card's: contacts exact, areas within rtol 1e-5 (f32 sums taken in
-    another order)."""
+def xs_equal_cpu(tag, vol, sel, factor=4):
+    """The same call on the card and on the CPU (plain versions of every
+    kernel) agree: contacts exact, areas within rtol 1e-5 (f32 sums taken
+    in another order). Both take the skeletons downsampled by `factor`:
+    the same section widths at fewer vertices, for the plain floods are
+    Python loops of window rows."""
     import kimimaro_tpu_torch
 
     t0 = time.perf_counter()
-    want = kimimaro_tpu_torch.cross_sectional_area(
-        vol, {s.id: s.clone() for s in sel}, anisotropy=ANIS, device="cpu")
+    sel = [s.downsample(factor) for s in sel]
+    got, want = (kimimaro_tpu_torch.cross_sectional_area(
+        vol, {s.id: s.clone() for s in sel}, anisotropy=ANIS, device=device)
+        for device in ("cuda", "cpu"))
     for s in sel:
         a, b = got[s.id], want[s.id]
         np.testing.assert_allclose(a.cross_sectional_area,
@@ -2057,7 +2135,7 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen, f1_spy):
 
     sel, nv = xs_select(dense_skels)
     dspy = XsSpy("dense")
-    got, counters, secs, launches = xs_run("xs-dense", dense, sel, dspy)
+    _, counters, secs, launches = xs_run("xs-dense", dense, sel, dspy)
     log(f"[xs-dense] ms/vertex {1000 * secs / nv:.4f} over {nv} vertices of "
         f"{len(sel)} skeletons (warm run {secs:.3f} s)")
     # the CPU subset: the selection's smallest skeletons up to 300
@@ -2068,18 +2146,18 @@ def cross_sections(dense, dense_skels, hollow, soma_skels, gen, f1_spy):
             break
         small.append(s)
         nsmall += len(s)
-    xs_equal_cpu("xs-dense", dense, small, got)
 
     balls = [soma_skels[k] for k in sorted(soma_skels)[-2:]]
     sspy = XsSpy("soma")
-    sgot, scount, ssecs, slaunches = xs_run("xs-soma", hollow, balls, sspy)
+    _, scount, ssecs, slaunches = xs_run("xs-soma", hollow, balls, sspy)
     if scount.get("xsb_rung3_queries", 0) <= 0:
         raise AssertionError(f"soma balls: no query reached rung 3 "
                              f"({scount})")
-    xs_equal_cpu("xs-soma", hollow, [min(balls, key=len)], sgot)
 
     llaunches, lspy, b4_label = per_label_path()
     restore_f1()
+    xs_equal_cpu("xs-dense", dense, small)
+    xs_equal_cpu("xs-soma", hollow, [min(balls, key=len)])
     for part in (slaunches, llaunches):
         for k, v in part.items():
             launches[k] += v
@@ -2227,16 +2305,16 @@ def check_avocado(cc_in, remap_in, cc_out, remap_out):
 
 def fill_main_path(vol):
     """The fill path at full size: skeletonize(fill_holes=True,
-    fix_avocados=True) of the hollow volume twice, then its filled volume
+    fix_avocados=True) of the hollow volume once (a second run took as
+    long), then its filled volume
     against the serial oracle, the avocado invariants, and a skeleton for
-    every label above the dust threshold. Returns the launches summed
-    over both runs."""
+    every label above the dust threshold. Returns the run's launches."""
     spy = HostStageSpy()
     restore = spy.install()
     try:
         skels, counters, launches, _ = run_main_path(
             "fill", vol, ("gsweep_sweep0", "sweep_axis0_batched", "fma_f32"),
-            fill_holes=True, fix_avocados=True)
+            runs=("first",), fill_holes=True, fix_avocados=True)
     finally:
         restore()
     if counters.get("gengine_iterations", 0):
@@ -3752,7 +3830,7 @@ def require_same_oversegment(tag, got, want):
                              f"labels {bad[:10]}")
 
 
-def check_oversegment(vol, slcs, skels, labels, out, downsample, n_cpu=16):
+def check_oversegment(vol, slcs, skels, labels, out, downsample, n_cpu=6):
     """The composite: uint64 of the volume's shape, background 0, every
     voxel of a skeletonized label in a segment, as many segments as
     distinct seed voxels, a segment per vertex; and on the crops of
@@ -4887,6 +4965,28 @@ def run_sharded(tag, vol, mesh, runs=("first",), **kw):
     return skels, stats["counters"], total
 
 
+def single_device_without_bail(tag, vol, single, **kw):
+    """skeletonize(vol) on the card with the global engine's selective bail
+    off: the sharded engine has no bail (nor has the JAX package's), so it
+    traces in lock-step the labels that the single-device run hands to the
+    crop engine, whose PDRF formula differs (ROADMAP Queue C 7). Logs how
+    many labels differ from `single`, the single-device run with the
+    bail."""
+    import kimimaro_tpu_torch
+
+    t0 = time.perf_counter()
+    with bail_off():
+        out = kimimaro_tpu_torch.skeletonize(
+            vol, teasar_params=TEASAR, anisotropy=ANIS, dust_threshold=1000,
+            fix_borders=True, fix_branching=True, device="cuda", **kw)
+    differ = sorted(k for k in out if k not in single
+                    or out[k].to_swc() != single[k].to_swc())
+    log(f"[sharded] {tag}: the single-device run with the bail off "
+        f"({time.perf_counter() - t0:.2f} s) differs from the one with it "
+        f"on {len(differ)} of {len(out)} labels ({differ[:12]})")
+    return out
+
+
 def compare_sharded(tag, single, sharded, dbf_labels):
     """Every label's SWC of the sharded run against the single-device
     run's: a label may differ only where its DBF differs (the ring EDT's
@@ -4985,7 +5085,9 @@ def sharded_phase(dense, dense_skels, hollow, soma_skels):
     """Phase 12: the multi-device path over make_mesh(4, "cuda") (every
     shard on the one card): the preamble at 512^3 against the
     single-device CCL and EDT; skeletonize_sharded on the dense volume
-    twice and the soma volume once, every label against phases 5 and 6;
+    twice and the soma volume once, every label against phases 5 and 6's
+    volumes on one device with the global engine's bail off (the sharded
+    engine has none);
     card = CPU on small volumes; B1, B3, B4, B5 and F1 bit-equal to their
     plain versions on the calls the sharded runs made. Returns (launches
     of the sharded runs, kernel-table rows)."""
@@ -4994,6 +5096,7 @@ def sharded_phase(dense, dense_skels, hollow, soma_skels):
     from kimimaro_tpu_torch import kernels
     from kimimaro_tpu_torch.parallel import make_mesh
 
+    dense_ref = single_device_without_bail("dense", dense, dense_skels)
     mesh = make_mesh(SHARDS, "cuda")
     log(f"[sharded] mesh {mesh}")
     cc1, labels_dev, dbf_labels = sharded_preamble("dense", dense, mesh)
@@ -5015,8 +5118,8 @@ def sharded_phase(dense, dense_skels, hollow, soma_skels):
         raise AssertionError("sharded dense: the warm run differs from the "
                              "first")
     del skels2
-    compare_sharded("dense", dense_skels, skels, dbf_labels)
-    del skels, cc1, labels_dev
+    compare_sharded("dense", dense_ref, skels, dbf_labels)
+    del skels, cc1, labels_dev, dense_ref
 
     cc1, labels_dev, dbf_labels = sharded_preamble("soma", hollow, mesh)
     b4_spy, b5_spy = B4Spy("sharded soma"), B5Spy()
@@ -5030,7 +5133,9 @@ def sharded_phase(dense, dense_skels, hollow, soma_skels):
         restore_f1()
     for k, v in soma_launches.items():
         launches[k] += v
-    compare_sharded("soma", soma_skels, soma, dbf_labels)
+    compare_sharded("soma", single_device_without_bail(
+        "soma", hollow, soma_skels, fill_holes=False, fix_avocados=False),
+        soma, dbf_labels)
     if soma_counters.get("crop_engine_jobs", 0) < 2:
         raise AssertionError("sharded soma: the crop engine took fewer than "
                              "2 jobs")
@@ -5387,6 +5492,10 @@ def main() -> int:
 
     # 1. device
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.0f} s")
+
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -5447,6 +5556,7 @@ def main() -> int:
         log(f"[kernels] {k}: {ms:.3f} ms vs plain {plain:.3f} ms ({what}), "
             f"max abs err {err}")
 
+    mark("phase 3 (kernels against their plain versions)")
     # 4 to 7. the main path; the counts cover exactly its runs. The calls
     # of B5 (the host trace path's eager loop) and of B4 (the crop engine
     # and the host trace path's fused loop) in phases 4 and 5 are
@@ -5458,11 +5568,13 @@ def main() -> int:
     restore_b4 = b4_spy.install()
     restore_f1 = f1_main.install()
     launches = small_main_path()
+    mark("phase 4 (the small path)")
     t0 = time.perf_counter()
     dense = dense_volume(n)
     log(f"[dense] volume {dense.shape}, {len(np.unique(dense))} labels, made "
         f"in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
     dense_skels, captured, dense_launches, b3_spy = dense_main_path(dense)
+    mark("phase 5 (dense)")
     # B3 at the shapes the dense run handed it: the kernel table's row
     b3 = check_b3_recorded(b3_spy)
     del b3_spy
@@ -5474,6 +5586,7 @@ def main() -> int:
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
     soma_skels, soma_launches = hollow_main_path(hollow)
+    mark("phase 6 (soma)")
     restore_f1()
     # B4's calls on the main path (phase 4's runs)
     b4_main_calls = dict(b4_spy.calls)
@@ -5484,12 +5597,14 @@ def main() -> int:
     del b5_spy
     b4_crop = crop_cross_check(captured)
     del captured
+    mark("phase 7 (cross-checks)")
 
     # 8. cross sections: the dense and soma volumes' skeletons, the
     # per-label path, and B6/X1 at the shapes those runs handed them
     f1_xs = F1Spy("cross sections")
     xs_launches, xs_rep, xs_err, b4_label = cross_sections(
         dense, dense_skels, hollow, soma_skels, gen, f1_xs)
+    mark("phase 8 (cross sections)")
     # 9. the host-stage path at full size and at 64^3 against the CPU,
     # with B4, B5 and F1 recorded; postprocess, streaming and chunked
     b4_fill = B4Spy("fill path", keep=4096, per_shape=True)
@@ -5497,6 +5612,7 @@ def main() -> int:
     restores = [b4_fill.install(), b5_fill.install(), f1_fill.install()]
     try:
         fill_launches = fill_main_path(hollow)
+        mark("phase 9 (the fill path)")
         small_fill_launches = small_fill_path()
     finally:
         for restore in reversed(restores):
@@ -5504,6 +5620,7 @@ def main() -> int:
     postprocess_phase(dense_skels)
     stream_launches = streaming_phase(dense, dense_skels)
     chunk_launches = chunked_phase(dense, dense_skels)
+    mark("phase 9 (small fill, postprocess, streaming, chunked)")
     if b5_fill.kept:
         b5_err = max(b5_err, check_b5_recorded(b5_fill))
     del b5_fill
@@ -5511,16 +5628,20 @@ def main() -> int:
     (touch_launches, touch_small_launches, b1_vg, b5_vg, b4_touch,
      b4_touch_calls, b4_rule_err, g1_touch,
      g1_touch_calls) = self_touch_phase(dense, gen)
+    mark("phase 10 (self-touch)")
     # 11. the analysis extras on the dense run's skeletons
     (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
      b5_connect) = analysis_phase(dense, dense_skels, gen, hollow,
                                   soma_skels)
+    mark("phase 11 (analysis)")
 
     # 12. the multi-device path over four shards of the card
     sharded_launches, sharded_rows = sharded_phase(
         dense, dense_skels, hollow, soma_skels)
+    mark("phase 12 (sharded)")
     # 13. the command line
     cli_phase(dense, dense_skels)
+    mark("phase 13 (cli)")
 
     # F1 on the calls of phases 4 to 6, 8 and 9
     f1_rows, f1_err = check_f1_recorded((f1_main, f1_xs, f1_fill))

@@ -43,6 +43,17 @@ NEG_INF = float("-inf")
 T_CAP = 16     # manual-target slots per label
 K_ITER = 24    # lock-step path iterations per path-buffer segment
 MAX_SEGS = 16  # segments before the remaining actives are handed back
+# Selective bail (kimimaro_tpu.gengine's defaults): with more than
+# BAIL_MIN_LIVE live labels, once an iteration has BAIL_ACTIVE or fewer
+# labels active, the labels still active after the next one leave for
+# the crop engine (a lock-step iteration sweeps the full volume however
+# few labels remain). Only labels whose gather crop fits BAIL_CROP a
+# side may leave; if the others' crops fill BAIL_KEEP_FRAC of the volume
+# or more, the small ones leave, once, and the others keep iterating.
+BAIL_ACTIVE = 100
+BAIL_MIN_LIVE = 500
+BAIL_CROP = 128
+BAIL_KEEP_FRAC = 0.25
 EXTRA_ROUND_STAGES = 3  # escalation stages before a label is tainted
 EXTRA_ROUNDS = 4        # rounds per escalation stage
 _CHASE_CHECK = 16       # chase steps between all-lanes-done checks
@@ -553,6 +564,11 @@ def trace_global(
     before_d, after_d, mp_d = dev(before_stack), dev(after_stack), \
         dev(max_paths_arr)
 
+    bail_n = BAIL_ACTIVE if n_live > BAIL_MIN_LIVE else 0
+    bail_ok = live & np.all(crop_of <= BAIL_CROP, axis=1)
+    taint_bail = np.zeros(N, dtype=bool)
+    bailed = purged = False
+
     taint_nc = np.zeros(N, dtype=bool)
     t_overflow = np.zeros(N, dtype=bool)
     per_lane: Dict[int, List[Tuple[np.ndarray, np.ndarray]]] = {}
@@ -604,6 +620,7 @@ def trace_global(
                                         device=device)
             seg_rows = 0
             for it_w in range(K_ITER):
+                n_prev = n_act
                 n_act, ball_mask, rail_mask = _iteration(
                     st, it, it_w, daf, dbf, cc_v, offs_d, lids_d, roots,
                     before_d, after_d, mp_d, scale, const, crops_d, boxes_d,
@@ -616,10 +633,26 @@ def trace_global(
                     if m is not None and bool(m.any()):
                         taint_nc[:] |= _lanes_touched(m, cc_v.x, lids_d,
                                                       live)
+                # the bail reads the previous iteration's active count in
+                # this segment and the labels still active after this one,
+                # as kimimaro_tpu.gengine's pipelined loop does: it lands
+                # each iteration's count while the next one runs
+                if (bail_n and not purged and it_w >= 1 and it >= 3
+                        and n_prev <= bail_n):
+                    act = live & ~st["done"].to("cpu").numpy()
+                    bigs = act & ~bail_ok
+                    big_vol = float(np.prod(crop_of[bigs], axis=1).sum())
+                    if big_vol < BAIL_KEEP_FRAC * float(np.prod(vol_shape)):
+                        bailed = True
+                        break
+                    purged = True
+                    smalls = act & bail_ok
+                    taint_bail |= smalls
+                    st["done"] = st["done"] | dev(smalls)
                 if n_act == 0:
                     break
             last_actives = _drain_segment()
-            if n_act == 0:
+            if n_act == 0 or bailed:
                 break
             seg += 1
             if seg >= MAX_SEGS:
@@ -631,9 +664,9 @@ def trace_global(
     t_setup = setup_taint & live
     t_nonconv = taint_nc & live
     t_over = t_overflow & live
-    t_capacity = np.zeros(N, dtype=bool)
-    if n_act > 0:
-        # still active when the loop stopped (MAX_SEGS exhausted)
+    t_capacity = taint_bail & live
+    if bailed or n_act > 0:
+        # still active when the loop stopped (bail or MAX_SEGS exhausted)
         t_capacity |= last_actives[max(seg_rows, 1) - 1] & live
     tainted = t_setup | t_nonconv | t_over | t_capacity
 

@@ -9,7 +9,8 @@ checkout at ROOT, on the card.
 
 Runs each case RUNS times (default 3) after one first run and prints one
 JSON line per case: the seconds of the first run and of every timed run
-and their phases (skeletonize) or counters (cross sections). CASES, a
+and their phases, routing counters and kernel launches (skeletonize) or
+counters (cross sections). CASES, a
 comma-separated list, defaults to dense,soma,xs-dense,xs-soma;
 host-soma-crop is chip_smoke.py --host-soma's label with the host trace
 path left out (the phases up to the crop engine); self-touch is
@@ -32,6 +33,11 @@ import json
 import os
 import sys
 import time
+
+# the global engine's iterations, the labels it hands to the crop engine,
+# and either engine's jobs
+ROUTING = ("gengine_iterations", "gengine_taint_capacity", "gengine_jobs",
+           "crop_engine_jobs")
 
 
 def gated_sweeps(root):
@@ -279,20 +285,27 @@ def main() -> int:
     kernels.build()
 
     def timed(name, fn, what):
-        secs, stats = [], []
+        secs, stats, routing, launches = [], [], [], []
         for run in range(runs + 1):
             profiling.reset_stats()
             profiling.collect(True)
             torch.cuda.synchronize()
+            kernels.reset_launches()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             profiling.collect(False)
             secs.append(round(time.perf_counter() - t0, 3))
-            st = profiling.get_stats()[what]
-            stats.append({k: round(v, 3) for k, v in st.items()})
-        print(json.dumps({"root": root, "case": name, "first": secs[0],
-                          "seconds": secs[1:], what: stats}), flush=True)
+            st = profiling.get_stats()
+            stats.append({k: round(v, 3) for k, v in st[what].items()})
+            routing.append({k: st["counters"].get(k, 0) for k in ROUTING})
+            launches.append({k: v for k, v in kernels.LAUNCHES.items() if v})
+        line = {"root": root, "case": name, "first": secs[0],
+                "seconds": secs[1:], what: stats}
+        if what == "phases":
+            line["routing"] = routing
+            line["launches"] = launches
+        print(json.dumps(line), flush=True)
         return out
 
     if "host-soma-crop" in cases:
