@@ -140,7 +140,7 @@ def _relax_where(sel, d, ok, nc, anisotropy, rounds, clamp_positive=False,
     lanes' graph gates `gate`, where given). The other lanes keep `d` and
     report converged: the JAX engine computes them too and selects them
     away."""
-    idx = sel.nonzero()[:, 0]
+    idx = profiling.host(sel, torch.nonzero)[:, 0]
     if idx.numel() == sel.numel():
         return relax_rounds_batched(d, ok, nc, anisotropy, rounds,
                                     clamp_positive, conv, gate=gate)
@@ -306,136 +306,139 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    if crop_source is not None:
-        got = crop_source(np.asarray(offs, dtype=np.int64), B, shape)
-        if has_vg and len(got) < 3:
-            raise ValueError("trace_batched: a voxel graph with a "
-                             "crop_source needs (cc, dbf, vg) lane crops")
-        lab = got[0].to(dev)
-        dbf = got[1].to(device=dev, dtype=torch.float32)
-        vg = graph_word(got[2].to(dev)) if has_vg else None
-    else:
-        lab = torch.zeros((B,) + shape, dtype=cc.dtype, device=dev)
-        dbf = torch.zeros((B,) + shape, dtype=torch.float32, device=dev)
-        # each lane's crop of the voxel graph rides with its label
-        vg = (None if vg_vol is None else
-              torch.zeros((B,) + shape, dtype=torch.int32, device=dev))
-        for b in range(B):
-            if lids[b] > 0:
-                sl = tuple(slice(int(o), int(o) + s)
-                           for o, s in zip(offs[b], shape))
-                lab[b] = cc[sl]
-                dbf[b] = dbf_vol[sl]
-                if vg is not None:
-                    vg[b] = vg_vol[sl]
-    # the lanes' graph gates, for every relaxation of this lane set
-    gate = None
-    if vg is not None:
-        with profiling.phase("graph_gate", dev):
-            gate = graph_into(vg)
-    lid = t(lids, cc.dtype)
-    fg = (lab == _bcast(lid)) & _bcast(lid > 0)
-    del lab
-    dbf = torch.where(fg, dbf, 0.0)
-    lane_active = fg.flatten(1).any(dim=1)
-    dbf_max = dbf.flatten(1).amax(dim=1)
-    nc_bits = torch.zeros(B, dtype=torch.int32, device=dev)
+    # the lanes' crops, soma refill, root, DAF, PDRF and the first rails
+    with profiling.span("crop_fields"):
+        if crop_source is not None:
+            got = crop_source(np.asarray(offs, dtype=np.int64), B, shape)
+            if has_vg and len(got) < 3:
+                raise ValueError("trace_batched: a voxel graph with a "
+                                 "crop_source needs (cc, dbf, vg) lane crops")
+            lab = got[0].to(dev)
+            dbf = got[1].to(device=dev, dtype=torch.float32)
+            vg = graph_word(got[2].to(dev)) if has_vg else None
+        else:
+            lab = torch.zeros((B,) + shape, dtype=cc.dtype, device=dev)
+            dbf = torch.zeros((B,) + shape, dtype=torch.float32, device=dev)
+            # each lane's crop of the voxel graph rides with its label
+            vg = (None if vg_vol is None else
+                  torch.zeros((B,) + shape, dtype=torch.int32, device=dev))
+            for b in range(B):
+                if lids[b] > 0:
+                    sl = tuple(slice(int(o), int(o) + s)
+                               for o, s in zip(offs[b], shape))
+                    lab[b] = cc[sl]
+                    dbf[b] = dbf_vol[sl]
+                    if vg is not None:
+                        vg[b] = vg_vol[sl]
+        # the lanes' graph gates, for every relaxation of this lane set
+        gate = None
+        if vg is not None:
+            with profiling.phase("graph_gate", dev):
+                gate = graph_into(vg)
+        lid = t(lids, cc.dtype)
+        fg = (lab == _bcast(lid)) & _bcast(lid > 0)
+        del lab
+        dbf = torch.where(fg, dbf, 0.0)
+        lane_active = fg.flatten(1).any(dim=1)
+        dbf_max = dbf.flatten(1).amax(dim=1)
+        nc_bits = torch.zeros(B, dtype=torch.int32, device=dev)
 
-    # --- soma detection: hole fill + re-EDT (reference trace.py:104-119)
-    refill = dbf_max > prm["sdt"]
-    ridx = refill.nonzero()[:, 0]
-    if ridx.numel():
-        fg_r = fg[ridx]
-        filled, conv_f = _crop_fill(fg_r, r_main)
-        take = filled.flatten(1).sum(dim=1) > fg_r.flatten(1).sum(dim=1)
-        dsq, edt_ok = _crop_edtsq_banded(
-            filled.to(torch.uint8), anis, filled.flatten(1).all(dim=1),
-            None if vg is None else vg[ridx])
-        dbf1 = torch.where(filled, torch.sqrt(dsq.double()).float(), 0.0)
-        fg[ridx] = torch.where(_bcast(take), filled, fg_r)
-        dbf[ridx] = torch.where(_bcast(take), dbf1, dbf[ridx])
-        nc_bits[ridx] |= (torch.where(conv_f, 0, 1)
-                          | torch.where(edt_ok | ~take, 0, 64)).int()
-        del filled, dsq, dbf1
-    dbf_max = dbf.flatten(1).amax(dim=1)
-    if soma_possible:
-        soma_mode = dbf_max > prm["sat"]
-    else:
-        # the host knows every DBF max is below both thresholds
-        soma_mode = torch.zeros(B, dtype=torch.bool, device=dev)
-    soma_radius = torch.where(
-        soma_mode, fma_f32(dbf_max, prm["sis"], prm["sic"]), 0.0)
+        # --- soma detection: hole fill + re-EDT (reference trace.py:104-119)
+        refill = dbf_max > prm["sdt"]
+        ridx = profiling.host(refill, torch.nonzero)[:, 0]
+        if ridx.numel():
+            fg_r = fg[ridx]
+            filled, conv_f = _crop_fill(fg_r, r_main)
+            take = filled.flatten(1).sum(dim=1) > fg_r.flatten(1).sum(dim=1)
+            dsq, edt_ok = _crop_edtsq_banded(
+                filled.to(torch.uint8), anis, filled.flatten(1).all(dim=1),
+                None if vg is None else vg[ridx])
+            dbf1 = torch.where(filled, torch.sqrt(dsq.double()).float(), 0.0)
+            fg[ridx] = torch.where(_bcast(take), filled, fg_r)
+            dbf[ridx] = torch.where(_bcast(take), dbf1, dbf[ridx])
+            nc_bits[ridx] |= (torch.where(conv_f, 0, 1)
+                              | torch.where(edt_ok | ~take, 0, 64)).int()
+            del filled, dsq, dbf1
+        dbf_max = dbf.flatten(1).amax(dim=1)
+        if soma_possible:
+            soma_mode = dbf_max > prm["sat"]
+        else:
+            # the host knows every DBF max is below both thresholds
+            soma_mode = torch.zeros(B, dtype=torch.bool, device=dev)
+        soma_radius = torch.where(
+            soma_mode, fma_f32(dbf_max, prm["sis"], prm["sic"]), 0.0)
 
-    # --- root selection (reference trace.py:121-134)
-    soma_root = _find_soma_root(dbf, dbf_max)
-    first_vox = _unravel(torch.argmax(fg.flatten(1).to(torch.uint8), dim=1),
-                         shape)
-    d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main, gate)
-    nc_bits |= torch.where(conv_p, 0, 2).int()
-    auto_root = _masked_argmax_coords(
-        torch.where(torch.isfinite(d_probe), d_probe, -INF), fg)
-    del d_probe
-    root_in = t(root_in)
-    has_root = t(has_root, torch.bool)
-    root = torch.where(soma_mode[:, None], soma_root,
-                       torch.where(has_root[:, None], root_in, auto_root))
+        # --- root selection (reference trace.py:121-134)
+        soma_root = _find_soma_root(dbf, dbf_max)
+        first_vox = _unravel(
+            torch.argmax(fg.flatten(1).to(torch.uint8), dim=1), shape)
+        d_probe, conv_p = _euclid_field(fg, first_vox, anis, r_main, gate)
+        nc_bits |= torch.where(conv_p, 0, 2).int()
+        auto_root = _masked_argmax_coords(
+            torch.where(torch.isfinite(d_probe), d_probe, -INF), fg)
+        del d_probe
+        root_in = t(root_in)
+        has_root = t(has_root, torch.bool)
+        root = torch.where(soma_mode[:, None], soma_root,
+                           torch.where(has_root[:, None], root_in, auto_root))
 
-    # --- DAF + PDRF (reference trace.py:138-148,315-356)
-    dbf_inf = torch.where(dbf == 0, INF, dbf)
-    daf, conv_d = _euclid_field(fg, root, anis, r_main, gate)
-    nc_bits |= torch.where(conv_d, 0, 4).int()
-    daf = torch.where(torch.isfinite(daf), daf, 0.0)
-    daf_target = _masked_argmax_coords(daf, fg)
-    max_daf = _gather(daf, daf_target[:, None, :], 0.0)[:, 0]
-    pdrf = _pdrf_kernel(dbf_inf, daf,
-                        _bcast(torch.clamp(dbf_max, min=1e-30)),
-                        np.float32(prm["pdrf_scale"]), prm["pdrf_exponent"],
-                        _bcast(max_daf))
+        # --- DAF + PDRF (reference trace.py:138-148,315-356)
+        dbf_inf = torch.where(dbf == 0, INF, dbf)
+        daf, conv_d = _euclid_field(fg, root, anis, r_main, gate)
+        nc_bits |= torch.where(conv_d, 0, 4).int()
+        daf = torch.where(torch.isfinite(daf), daf, 0.0)
+        daf_target = _masked_argmax_coords(daf, fg)
+        max_daf = _gather(daf, daf_target[:, None, :], 0.0)[:, 0]
+        pdrf = _pdrf_kernel(dbf_inf, daf,
+                            _bcast(torch.clamp(dbf_max, min=1e-30)),
+                            np.float32(prm["pdrf_scale"]),
+                            prm["pdrf_exponent"], _bcast(max_daf))
 
-    # --- soma-mode root ball (reference trace.py:160-168); `valid` is
-    # updated in place by the path loop, `fg` must stay
-    valid = fg.clone()
-    if soma_possible:
-        r = fma_f32(_gather(dbf, root[:, None, :], 0.0), prm["sis"],
-                    prm["sic"])
-        init = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
-        init = _scatter(init, root[:, None, :], -r)
-        ok = _scatter(valid, root[:, None, :], True)
-        bd, conv_s = _relax_where(soma_mode, init, ok, None, anis, r_ball,
-                                  clamp_positive=True, conv="negative",
-                                  gate=gate)
-        valid = torch.where(_bcast(soma_mode), valid & ~(bd <= 0.0), valid)
-        nc_bits |= torch.where(conv_s, 0, 16).int()
-        del init, ok, bd
-    valid_count = valid.flatten(1).sum(dim=1)
+        # --- soma-mode root ball (reference trace.py:160-168); `valid` is
+        # updated in place by the path loop, `fg` must stay
+        valid = fg.clone()
+        if soma_possible:
+            r = fma_f32(_gather(dbf, root[:, None, :], 0.0), prm["sis"],
+                        prm["sic"])
+            init = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
+            init = _scatter(init, root[:, None, :], -r)
+            ok = _scatter(valid, root[:, None, :], True)
+            bd, conv_s = _relax_where(soma_mode, init, ok, None, anis, r_ball,
+                                      clamp_positive=True, conv="negative",
+                                      gate=gate)
+            valid = torch.where(_bcast(soma_mode), valid & ~(bd <= 0.0), valid)
+            nc_bits |= torch.where(conv_s, 0, 16).int()
+            del init, ok, bd
+        valid_count = valid.flatten(1).sum(dim=1)
 
-    # --- target bookkeeping: slot 0 holds either the user root (soma mode:
-    # popped last, reference trace.py:121-123) or the DAF target (popped
-    # first when there are no manual targets, trace.py:170-172); pops run
-    # b_{nb-1}..b_0, then slot 0
-    n_before = t(n_before)
-    use_root_slot = soma_mode & has_root
-    slot0_used = use_root_slot | (~soma_mode & (n_before == 0))
-    slot0 = torch.where(use_root_slot[:, None], root_in, daf_target)
-    slot0_i = slot0_used.long()
-    before_ext = torch.cat((slot0[:, None, :], t(before)), dim=1)
-    after = t(after)
-    nb = torch.where(lane_active,
-                     torch.where(slot0_used, n_before + 1, n_before), 0)
-    na = torch.where(lane_active, t(n_after), 0)
-    vc = torch.where(lane_active, valid_count, 0)
-    mp = t(max_paths_in)
-    max_paths = torch.where(mp > 0, mp, torch.clamp(vc, min=1))
-    # reference compute_paths early-out (trace.py:217-218)
-    blocked = (nb + na) >= max_paths
+        # --- target bookkeeping: slot 0 holds either the user root (soma mode:
+        # popped last, reference trace.py:121-123) or the DAF target (popped
+        # first when there are no manual targets, trace.py:170-172); pops run
+        # b_{nb-1}..b_0, then slot 0
+        n_before = t(n_before)
+        use_root_slot = soma_mode & has_root
+        slot0_used = use_root_slot | (~soma_mode & (n_before == 0))
+        slot0 = torch.where(use_root_slot[:, None], root_in, daf_target)
+        slot0_i = slot0_used.long()
+        before_ext = torch.cat((slot0[:, None, :], t(before)), dim=1)
+        after = t(after)
+        nb = torch.where(lane_active,
+                         torch.where(slot0_used, n_before + 1, n_before), 0)
+        na = torch.where(lane_active, t(n_after), 0)
+        vc = torch.where(lane_active, valid_count, 0)
+        mp = t(max_paths_in)
+        max_paths = torch.where(mp > 0, mp, torch.clamp(vc, min=1))
+        # reference compute_paths early-out (trace.py:217-218)
+        blocked = (nb + na) >= max_paths
 
-    # --- initial rails + rail distance field
-    pdrf = _scatter(pdrf, root[:, None, :], 0.0)
-    d0 = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
-    d_rail, conv_r = relax_rounds_batched(_scatter(d0, root[:, None, :], 0.0),
-                                          fg, pdrf, anis, r_main, gate=gate)
-    nc_bits |= torch.where(conv_r, 0, 8).int()
-    del d0
+        # --- initial rails + rail distance field
+        pdrf = _scatter(pdrf, root[:, None, :], 0.0)
+        d0 = torch.full(fg.shape, INF, dtype=torch.float32, device=dev)
+        d_rail, conv_r = relax_rounds_batched(
+            _scatter(d0, root[:, None, :], 0.0), fg, pdrf, anis, r_main,
+            gate=gate)
+        nc_bits |= torch.where(conv_r, 0, 8).int()
+        del d0
 
     # --- the path loop: every iteration runs the JAX body on the lanes
     # whose loop condition holds and commits only those
@@ -450,69 +453,75 @@ def _trace_lanes(cc, dbf_vol, lids, offs, before, n_before, after, n_after,
     # the chase's graph: no permission across the crop's edge
     vg_pad = None if vg is None else F.pad(vg, (1, 1, 1, 1, 1, 1), value=0)
     del vg
+    iterations = 0
     while True:
-        act = (((vc > 0) | (nb > 0) | (na > 0)) & (k < cap) & ~ov
-               & (nc == 0) & ~blocked)
-        a = act.nonzero()[:, 0]
-        if a.numel() == 0:
-            break
-        vc_a, nb_a, na_a, valid_a = vc[a], nb[a], na[a], valid[a]
-        use_before = nb_a > 0
-        use_after = ~use_before & (vc_a == 0)
-        auto_t = _masked_argmax_coords(daf[a], valid_a)
-        bt = before_ext[a, torch.clamp(nb_a - slot0_i[a], min=0)]
-        at = after[a, torch.clamp(na_a - 1, min=0)]
-        target = torch.where(use_before[:, None], bt,
-                             torch.where(use_after[:, None], at, auto_t))
-        nb[a] = torch.where(use_before, nb_a - 1, nb_a)
-        na[a] = torch.where(use_after, na_a - 1, na_a)
+        with profiling.span("crop_path"):
+            act = (((vc > 0) | (nb > 0) | (na > 0)) & (k < cap) & ~ov
+                   & (nc == 0) & ~blocked)
+            a = profiling.host(act, torch.nonzero)[:, 0]
+            if a.numel() == 0:
+                break
+            iterations += 1
+            profiling.annotate(lanes=int(a.numel()))
+            vc_a, nb_a, na_a, valid_a = vc[a], nb[a], na[a], valid[a]
+            use_before = nb_a > 0
+            use_after = ~use_before & (vc_a == 0)
+            auto_t = _masked_argmax_coords(daf[a], valid_a)
+            bt = before_ext[a, torch.clamp(nb_a - slot0_i[a], min=0)]
+            at = after[a, torch.clamp(na_a - 1, min=0)]
+            target = torch.where(use_before[:, None], bt,
+                                 torch.where(use_after[:, None], at, auto_t))
+            nb[a] = torch.where(use_before, nb_a - 1, nb_a)
+            na[a] = torch.where(use_after, na_a - 1, na_a)
 
-        d_pad = F.pad(d_rail[a], (1, 1, 1, 1, 1, 1), value=INF)
-        gate_a = None if gate is None else gate[a]
-        path, plen, reached = chase_batched(
-            d_pad, target, L, None if vg_pad is None else vg_pad[a])
-        del d_pad
-        ov[a] = ov[a] | ~reached
+            d_pad = F.pad(d_rail[a], (1, 1, 1, 1, 1, 1), value=INF)
+            gate_a = None if gate is None else gate[a]
+            path, plen, reached = chase_batched(
+                d_pad, target, L, None if vg_pad is None else vg_pad[a])
+            del d_pad
+            ov[a] = ov[a] | ~reached
 
-        if soma_possible:
-            dist = root_distance(path, root[a, None, :], anis_t)
-            keep = ((dist > soma_radius[a, None])
-                    | (pos == plen[:, None] - 1)) & (pos < plen[:, None])
-            path = torch.where((soma_mode[a, None] & ~keep)[..., None], -1,
-                               path)
+            if soma_possible:
+                dist = root_distance(path, root[a, None, :], anis_t)
+                keep = ((dist > soma_radius[a, None])
+                        | (pos == plen[:, None] - 1)) & (pos < plen[:, None])
+                path = torch.where((soma_mode[a, None] & ~keep)[..., None], -1,
+                                   path)
 
-        # rolling-ball invalidation (reference trace.py:253-259)
-        dbf_a = dbf[a]
-        radii_b = fma_f32(_gather(dbf_a, path, 0.0), prm["scale"],
-                          prm["const"])
-        init = torch.full(dbf_a.shape, INF, dtype=torch.float32, device=dev)
-        init = _scatter(init, path, -radii_b, "amin")
-        ok_inv = _scatter(valid_a, path, True)
-        inv = vc_a > 0
-        bd, conv_b = _relax_where(inv, init, ok_inv, None, anis, r_ball,
-                                  clamp_positive=True, conv="negative",
-                                  gate=gate_a)
-        ball = (bd <= 0.0) & _bcast(inv)
-        valid[a] = valid_a & ~ball
-        vc[a] = vc_a - (ball & valid_a).flatten(1).sum(dim=1)
-        nc_a = nc[a] | torch.where(conv_b, 0, 16).int()
-        del dbf_a, init, ok_inv, bd, ball, valid_a
+            # rolling-ball invalidation (reference trace.py:253-259)
+            dbf_a = dbf[a]
+            radii_b = fma_f32(_gather(dbf_a, path, 0.0), prm["scale"],
+                              prm["const"])
+            init = torch.full(dbf_a.shape, INF, dtype=torch.float32,
+                              device=dev)
+            init = _scatter(init, path, -radii_b, "amin")
+            ok_inv = _scatter(valid_a, path, True)
+            inv = vc_a > 0
+            bd, conv_b = _relax_where(inv, init, ok_inv, None, anis, r_ball,
+                                      clamp_positive=True, conv="negative",
+                                      gate=gate_a)
+            ball = (bd <= 0.0) & _bcast(inv)
+            valid[a] = valid_a & ~ball
+            vc[a] = vc_a - (ball & valid_a).flatten(1).sum(dim=1)
+            nc_a = nc[a] | torch.where(conv_b, 0, 16).int()
+            del dbf_a, init, ok_inv, bd, ball, valid_a
 
-        # new rails (reference trace.py:261-263)
-        if fix_branching:
-            pdrf_a = _scatter(pdrf[a], path, 0.0)
-            d_warm, conv_w = relax_rounds_batched(
-                _scatter(d_rail[a], path, 0.0), fg[a], pdrf_a, anis, r_warm,
-                gate=gate_a)
-            pdrf[a] = pdrf_a
-            d_rail[a] = d_warm
-            nc_a = nc_a | torch.where(conv_w, 0, 32).int()
-            del pdrf_a, d_warm
-        nc[a] = nc_a
-        ka = k[a]
-        paths[a, ka] = path
-        lens[a, ka] = plen
-        k[a] = ka + 1
+            # new rails (reference trace.py:261-263)
+            if fix_branching:
+                pdrf_a = _scatter(pdrf[a], path, 0.0)
+                d_warm, conv_w = relax_rounds_batched(
+                    _scatter(d_rail[a], path, 0.0), fg[a], pdrf_a, anis,
+                    r_warm, gate=gate_a)
+                pdrf[a] = pdrf_a
+                d_rail[a] = d_warm
+                nc_a = nc_a | torch.where(conv_w, 0, 32).int()
+                del pdrf_a, d_warm
+            nc[a] = nc_a
+            ka = k[a]
+            paths[a, ka] = path
+            lens[a, ka] = plen
+            k[a] = ka + 1
+    profiling.count("crop_path_iterations", iterations)
 
     work_left = (vc > 0) | (nb > 0) | (na > 0)
     ov = ov | (work_left & (k >= K) & (k < max_paths) & ~blocked & (nc == 0))
@@ -602,37 +611,40 @@ def trace_batched(
         return (-cnt / (r_vox ** 3), -int(np.prod(j["shape"])))
 
     def drain(chunk, outs, retry):
-        paths, lens, n_paths, overflow, nonconv, radii = outs
-        header = torch.stack((n_paths, overflow.long(), nonconv.long(),
-                              lens.amax(dim=1)), dim=1).cpu().numpy()
-        max_n, max_l = int(header[:, 0].max()), int(header[:, 3].max())
-        paths_np = paths[:, :max_n, :max_l].cpu().numpy()
-        radii_np = radii[:, :max_n, :max_l].cpu().numpy()
-        for j, job in enumerate(chunk):
-            if header[j, 2] & 64 and not header[j, 2] & 1:
-                # a truncated re-EDT of a converged (so fixed) refill is
-                # truncated again at every rung: straight to the host path
-                fallback.append(job)
-                continue
-            if header[j, 2]:  # unconverged relaxation -> escalate
-                retry.append(job)
-                continue
-            if header[j, 1]:  # capacity overflow -> host fallback
-                fallback.append(job)
-                continue
-            out = []
-            for kk in range(int(header[j, 0])):
-                row, rad = paths_np[j, kk], radii_np[j, kk]
-                m = row[:, 0] >= 0
-                # device rows run target -> rail; paths are rail-first,
-                # in the job's bbox frame
-                row = row[m][::-1] + (job["crop_off"]
-                                      - np.asarray(job["offset"]))
-                out.append((row, rad[m][::-1]))
-            if not _paths_structurally_valid(out):
-                fallback.append(job)
-                continue
-            results[job["segid"]] = out
+        # the host copy of a lane set's outputs and their unpacking
+        with profiling.span("crop_drain"):
+            paths, lens, n_paths, overflow, nonconv, radii = outs
+            header = torch.stack((n_paths, overflow.long(), nonconv.long(),
+                                  lens.amax(dim=1)), dim=1)
+            header = profiling.host(header).numpy()
+            max_n, max_l = int(header[:, 0].max()), int(header[:, 3].max())
+            paths_np = profiling.host(paths[:, :max_n, :max_l]).numpy()
+            radii_np = profiling.host(radii[:, :max_n, :max_l]).numpy()
+            for j, job in enumerate(chunk):
+                if header[j, 2] & 64 and not header[j, 2] & 1:
+                    # a truncated re-EDT of a converged (so fixed) refill is
+                    # truncated again at every rung: straight to the host path
+                    fallback.append(job)
+                    continue
+                if header[j, 2]:  # unconverged relaxation -> escalate
+                    retry.append(job)
+                    continue
+                if header[j, 1]:  # capacity overflow -> host fallback
+                    fallback.append(job)
+                    continue
+                out = []
+                for kk in range(int(header[j, 0])):
+                    row, rad = paths_np[j, kk], radii_np[j, kk]
+                    m = row[:, 0] >= 0
+                    # device rows run target -> rail; paths are rail-first,
+                    # in the job's bbox frame
+                    row = row[m][::-1] + (job["crop_off"]
+                                          - np.asarray(job["offset"]))
+                    out.append((row, rad[m][::-1]))
+                if not _paths_structurally_valid(out):
+                    fallback.append(job)
+                    continue
+                results[job["segid"]] = out
 
     def run_pass(pass_buckets, relax_rounds):
         """Every bucket at the given sweep rounds; returns the jobs whose
@@ -658,18 +670,21 @@ def trace_batched(
                         aft[j, t_i] = np.asarray(tgt) + shift
                     if job.get("root") is not None:
                         roots[j] = np.asarray(job["root"]) + shift
-                outs = _trace_lanes(
-                    cc_dev, dbf_dev,
-                    [int(j["segid"]) for j in chunk],
-                    [j["crop_off"] for j in chunk],
-                    bef, [len(j["before"]) for j in chunk],
-                    aft, [len(j["after"]) for j in chunk],
-                    roots, [j.get("root") is not None for j in chunk],
-                    [int(max_paths) if max_paths is not None else -1] * B,
-                    prm, bshape, anis, bool(fix_branching), K_CAP, L,
-                    relax_rounds, soma, vg_vol, crop_source,
-                    voxel_graph is not None)
-                drain(chunk, outs, retry)
+                lids = [int(j["segid"]) for j in chunk]
+                with profiling.span("crop_lanes", shape=bshape, lanes=B,
+                                    rung=relax_rounds, soma=soma,
+                                    labels=lids):
+                    outs = _trace_lanes(
+                        cc_dev, dbf_dev, lids,
+                        [j["crop_off"] for j in chunk],
+                        bef, [len(j["before"]) for j in chunk],
+                        aft, [len(j["after"]) for j in chunk],
+                        roots, [j.get("root") is not None for j in chunk],
+                        [int(max_paths) if max_paths is not None else -1]
+                        * B, prm, bshape, anis, bool(fix_branching), K_CAP,
+                        L, relax_rounds, soma, vg_vol, crop_source,
+                        voxel_graph is not None)
+                    drain(chunk, outs, retry)
         return retry
 
     # escalation ladder: unconverged lanes re-run with doubled sweep

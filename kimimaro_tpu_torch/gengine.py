@@ -101,7 +101,7 @@ def _lanes_touched(mask, cc, lids, live):
     foreground, so the label owning a changed voxel is the only label the
     change can affect. Returns a host bool array."""
     ids = torch.unique(cc[mask])
-    return torch.isin(lids, ids).to("cpu").numpy() & live
+    return profiling.host(torch.isin(lids, ids)).numpy() & live
 
 
 def _scatter_min(vol, flat_idx, src):
@@ -176,7 +176,8 @@ def _chase_codes(code_flat, starts, L: int, vol_shape, active):
         cur = torch.where(act & ~at_rail, nxt, cur)
         plen = plen + act.to(torch.int64)
         done = done | at_rail
-        if t % _CHASE_CHECK == _CHASE_CHECK - 1 and bool(done.all()):
+        if (t % _CHASE_CHECK == _CHASE_CHECK - 1
+                and profiling.host(done.all(), bool)):
             break
     return path, plen, done
 
@@ -197,8 +198,8 @@ def _root_daf_phase(probe, cc_v, offs, lids, roots_in, has_root, live_d,
     packed = torch.where(torch.isfinite(probe), probe, NEG_INF)
     auto_root, _ = _grouped_argmax(packed, cc_v.x, offs, lids, crops, boxes)
     roots = torch.where(has_root[:, None], roots_in, auto_root)
-    d0 = _sources(probe.shape, _flat(roots[live_d], probe.shape),
-                  probe.device)
+    live_roots = profiling.host(live_d, lambda m: roots[m])
+    d0 = _sources(probe.shape, _flat(live_roots, probe.shape), probe.device)
     daf, mask = gsweep.relax_full(d0, cc_v, None, None, anisotropy, rounds,
                                   mode="euclid")
     return roots, daf, mask
@@ -312,7 +313,7 @@ def _iteration(st, it, it_w, daf, dbf, cc_v, offs, lids, roots,
     plen = torch.where(active, plen, 0)
     pmask = ((torch.arange(L, device=plen.device)[None, :] < plen[:, None])
              & active[:, None])
-    sel = path_flat[pmask].long()
+    sel = profiling.host(pmask, lambda m: path_flat[m]).long()
 
     # --- rolling-ball invalidation
     radii = fma_f32(dbf.reshape(-1)[sel], scale, const)
@@ -349,7 +350,7 @@ def _iteration(st, it, it_w, daf, dbf, cc_v, offs, lids, roots,
         dim=-1).to(torch.int16)
     st.update(valid=valid, pdrf=pdrf, d_rail=d_rail, nb=nb, na=na,
               done=done | (~work) | overflow)
-    return int(active.sum()), ball_mask, rail_mask
+    return profiling.host(active.sum(), int), ball_mask, rail_mask
 
 
 def _drain(path_buf, dbf, gather_idx):
@@ -397,7 +398,6 @@ def trace_global(
     # --- eligibility split
     eligible: List[dict] = []
     leftover: List[dict] = []
-    n_soma = n_tcap = n_blocked = 0
     for job in jobs:
         dmx = job.get("dbfmax")
         soma_possible = (dmx is None) or (float(dmx) > soma_cut)
@@ -405,14 +405,8 @@ def trace_global(
         blocked = (max_paths is not None) and (n_b + n_a) >= int(max_paths)
         if soma_possible or n_b > T_CAP or n_a > T_CAP or blocked:
             leftover.append(job)
-            n_soma += int(soma_possible)
-            n_tcap += int(n_b > T_CAP or n_a > T_CAP)
-            n_blocked += int(blocked)
         else:
             eligible.append(job)
-    profiling.count("gengine_skip_soma", n_soma)
-    profiling.count("gengine_skip_tcap", n_tcap)
-    profiling.count("gengine_skip_maxpaths", n_blocked)
 
     tiers = _tier_crops(vol_shape)
     crop_max = tiers[-1]
@@ -422,7 +416,6 @@ def trace_global(
 
     refit = [j for j in eligible if not fits(j, crop_max)]
     leftover.extend(refit)
-    profiling.count("gengine_skip_refit", len(refit))
     eligible = [j for j in eligible if fits(j, crop_max)]
 
     if len(eligible) < 2:
@@ -496,7 +489,8 @@ def trace_global(
     # first foreground voxel per label (lexicographic min = the crop
     # engine's argmax(fg.ravel()) in any containing crop)
     if firstvox_arr is None:
-        flat_first = _first_voxels(cc_dev, int(np.max(lids)) + 1).cpu()
+        flat_first = profiling.host(
+            _first_voxels(cc_dev, int(np.max(lids)) + 1))
         firstvox = np.stack(np.unravel_index(
             np.minimum(flat_first.numpy()[lids], int(np.prod(vol_shape)) - 1),
             vol_shape), axis=-1)
@@ -521,11 +515,12 @@ def trace_global(
         unconverged label corrupts only itself)."""
         nc_v = None if nodecost is None else gsweep.MaskViews(nodecost)
         stages = 0
-        while bool(mask.any()) and stages < EXTRA_ROUND_STAGES:
+        while (profiling.host(mask.any(), bool)
+               and stages < EXTRA_ROUND_STAGES):
             field, mask = gsweep.relax_full(field, cc_v, nc_v, None, anis,
                                             EXTRA_ROUNDS, mode=mode)
             stages += 1
-        if bool(mask.any()):
+        if profiling.host(mask.any(), bool):
             setup_taint[:] |= _lanes_touched(mask, cc_v.x, lids_d, live)
         return field
 
@@ -547,7 +542,8 @@ def trace_global(
         m_fl = _continue_until(m_fl, mask_m, mode="maxflood")
         d_fl = _continue_until(d_fl, mask_d, mode="maxflood")
 
-        roots_flat = _flat(roots[live_d], vol_shape)
+        roots_flat = _flat(profiling.host(live_d, lambda m: roots[m]),
+                           vol_shape)
         pdrf, d_rail, mask = _pdrf_rail_phase(
             daf, dbf, m_fl, d_fl, cc_v, roots_flat, pdrf_scale, anis, r_main,
             pdrf_exponent)
@@ -578,7 +574,7 @@ def trace_global(
         """Fetch a segment's finished paths into per_lane. Tainted lanes
         are dropped at final assembly: a taint found in a LATER segment
         must still discard the lane's earlier rows."""
-        lens = st["len_buf"].to("cpu").numpy()  # (K_ITER, N, 3)
+        lens = profiling.host(st["len_buf"]).numpy()  # (K_ITER, N, 3)
         plens = lens[:, :, 0].astype(np.int64)
         actives = lens[:, :, 1].astype(bool)
         t_overflow[:] |= lens[:, :, 2].astype(bool).any(axis=0) & live
@@ -594,8 +590,8 @@ def trace_global(
         if idx_list:
             flat, radii = _drain(st["path_buf"], dbf,
                                  dev(np.concatenate(idx_list)))
-            flat = flat.to("cpu").numpy()
-            radii = radii.to("cpu").numpy()
+            flat = profiling.host(flat).numpy()
+            radii = profiling.host(radii).numpy()
             pos = 0
             for (lane, ln) in meta:
                 f = flat[pos: pos + ln]
@@ -630,7 +626,7 @@ def trace_global(
                 # taint labels whose ball/rail relax still changed past
                 # the escalation budget
                 for m in (ball_mask, rail_mask):
-                    if m is not None and bool(m.any()):
+                    if m is not None and profiling.host(m.any(), bool):
                         taint_nc[:] |= _lanes_touched(m, cc_v.x, lids_d,
                                                       live)
                 # the bail reads the previous iteration's active count in
@@ -639,7 +635,7 @@ def trace_global(
                 # each iteration's count while the next one runs
                 if (bail_n and not purged and it_w >= 1 and it >= 3
                         and n_prev <= bail_n):
-                    act = live & ~st["done"].to("cpu").numpy()
+                    act = live & ~profiling.host(st["done"]).numpy()
                     bigs = act & ~bail_ok
                     big_vol = float(np.prod(crop_of[bigs], axis=1).sum())
                     if big_vol < BAIL_KEEP_FRAC * float(np.prod(vol_shape)):
@@ -658,27 +654,21 @@ def trace_global(
             if seg >= MAX_SEGS:
                 break
     profiling.count("gengine_iterations", it)
-    profiling.count("gengine_segments", seg + 1)
 
-    # taint causes, tracked separately
-    t_setup = setup_taint & live
-    t_nonconv = taint_nc & live
-    t_over = t_overflow & live
+    # the labels handed back for capacity are counted apart
     t_capacity = taint_bail & live
     if bailed or n_act > 0:
         # still active when the loop stopped (bail or MAX_SEGS exhausted)
         t_capacity |= last_actives[max(seg_rows, 1) - 1] & live
-    tainted = t_setup | t_nonconv | t_over | t_capacity
+    tainted = (setup_taint | taint_nc | t_overflow) & live | t_capacity
 
     # --- final assembly
     results: Dict[int, List[Tuple[np.ndarray, np.ndarray]]] = {}
-    t_struct = np.zeros(N, dtype=bool)
     for lane, paths in per_lane.items():
         if tainted[lane] or lane_jobs[lane] is None:
             continue
         if not _paths_structurally_valid(paths):
             tainted[lane] = True
-            t_struct[lane] = True
             continue
         results[int(lids[lane])] = paths
     for n_i in np.nonzero(tainted)[0]:
@@ -690,11 +680,7 @@ def trace_global(
     n_tainted = int((tainted & live).sum())
     profiling.count("gengine_jobs", n_live - n_tainted)
     profiling.count("gengine_fallback", n_tainted)
-    profiling.count("gengine_taint_setup", int(t_setup.sum()))
-    profiling.count("gengine_taint_nonconv", int(t_nonconv.sum()))
-    profiling.count("gengine_taint_overflow", int(t_over.sum()))
     profiling.count("gengine_taint_capacity", int(t_capacity.sum()))
-    profiling.count("gengine_taint_structural", int(t_struct.sum()))
     return results, leftover
 
 

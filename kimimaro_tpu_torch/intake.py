@@ -164,6 +164,7 @@ def _plan_streaming(clv: CompressedLabelVolume, object_ids):
     return minlabel, maxlabel, wide_back, upload
 
 
+@profiling.entry("skeletonize")
 def skeletonize(
     all_labels,
     teasar_params=DEFAULT_TEASAR_PARAMS,
@@ -310,7 +311,7 @@ def skeletonize(
             info = label_info(cc_dev, labels_dev, n_max=n_max,
                               rep_prefix=rep_prefix, dbf=dbf_dev)
             counts, bbmin, bbmax, orig, dbfmax_arr = (
-                a.to("cpu").numpy()[: n_components + 1] for a in info)
+                profiling.host(a).numpy()[: n_components + 1] for a in info)
             orig = orig.view(np.uint32)
         remapping = {i: int(orig[i]) for i in range(1, n_components + 1)}
         counts_map = {i: int(counts[i]) for i in range(1, n_components + 1)}
@@ -454,9 +455,9 @@ def _trace_global(cc_dev, dbf_dev, jobs, teasar_params, anisotropy,
     if rep_prefix is not None:
         # each component's lexicographically first voxel, from the
         # monotone root prefix (compact ids are first-appearance ordered)
-        fv_flat = torch.searchsorted(
+        fv_flat = profiling.host(torch.searchsorted(
             rep_prefix, torch.arange(1, n_components + 1, dtype=torch.int32,
-                                     device=device)).to("cpu").numpy()
+                                     device=device))).numpy()
         fv_flat = np.minimum(fv_flat, n_voxels - 1)
         firstvox_arr = np.zeros((n_components + 1, 3), np.int64)
         firstvox_arr[1:] = np.stack(
@@ -934,8 +935,8 @@ def compute_border_targets(cc_labels, anisotropy) -> Dict[int, np.ndarray]:
 
     stack_dev = _face_stack(cc_labels)
     cc_stack_dev = connected_components(stack_dev)
-    stack_np = stack_dev[0::2].to("cpu").numpy()
-    cc_stack = cc_stack_dev[0::2].to("cpu").numpy()
+    stack_np = profiling.host(stack_dev[0::2]).numpy()
+    cc_stack = profiling.host(cc_stack_dev[0::2]).numpy()
 
     # batched EDT per anisotropy pair: stacking along axis 0 with a huge
     # axis-0 weight leaves in-plane distances exact
@@ -948,7 +949,7 @@ def compute_border_targets(cc_labels, anisotropy) -> Dict[int, np.ndarray]:
         wy = float(anisotropy[dims[1]])
         sub = torch.stack([cc_stack_dev[2 * i] for i in pair])
         dt = edt_ops.edt(sub, (1e9, wx, wy), black_border=True)
-        dt = dt.to("cpu").numpy()
+        dt = profiling.host(dt).numpy()
         dt_faces[pair[0]], dt_faces[pair[1]] = dt[0], dt[1]
 
     target_list = defaultdict(set)

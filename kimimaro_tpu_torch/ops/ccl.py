@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import gsweep
 from .stencils import as_tensor, graph_into
 
@@ -59,8 +60,9 @@ def label_words(labels) -> torch.Tensor:
         return labels.view(torch.int32)
     if labels.element_size() < 4 or labels.dtype == torch.bool:
         return labels.to(torch.int32)
-    uniq, inv = torch.unique(labels, return_inverse=True)
-    zero = torch.nonzero(uniq == 0)
+    uniq, inv = profiling.host(
+        labels, lambda t: torch.unique(t, return_inverse=True))
+    zero = profiling.host(uniq == 0, torch.nonzero)
     rank = inv.to(torch.int32) + 1
     if zero.numel():
         rank = torch.where(inv == zero[0, 0], 0, rank)
@@ -97,7 +99,7 @@ def connected_components(labels, voxel_graph=None,
             nids = sweep_round(ids)
         else:
             nids = _jump(sweep_round(sweep_round(ids)))
-        if torch.equal(nids, ids):
+        if profiling.host(nids, lambda t: torch.equal(t, ids)):
             break
         ids = nids
     else:
@@ -122,7 +124,7 @@ def compact_cc(cc_raw: torch.Tensor):
     Returns (cc int32 compact, n_components int, rep_prefix (flat int32)).
     """
     prefix = rep_prefix(cc_raw)
-    n_components = int(prefix[-1]) if prefix.numel() else 0
+    n_components = profiling.host(prefix[-1], int) if prefix.numel() else 0
     if n_components == 0:
         return torch.zeros_like(cc_raw), 0, prefix
     idx = torch.clamp(cc_raw.reshape(-1) - 1, min=0).long()
@@ -145,12 +147,13 @@ def runs_bbox(flat, shape, ids, values):
     """
     device = flat.device
     nx, ny, nz = (int(s) for s in shape)
-    n_ids = max(int(flat.max()) + 1 if flat.numel() else 1,
-                int(ids.max()) + 1 if ids.numel() else 1)
+    n_ids = max(profiling.host(flat.max(), int) + 1 if flat.numel() else 1,
+                profiling.host(ids.max(), int) + 1 if ids.numel() else 1)
     key = flat.long()
     lin = torch.arange(flat.numel(), dtype=torch.int64, device=device)
     coords = (lin // (ny * nz), (lin // nz) % ny, lin % nz)
-    counts_all = torch.bincount(key, minlength=n_ids)
+    counts_all = profiling.host(
+        key, lambda k: torch.bincount(k, minlength=n_ids))
     imax = torch.iinfo(torch.int32).max
     mn_all, mx_all = [], []
     for c in coords:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .stencils import GRAPH_BITS
 
 # Default sweep-round count of a relaxation stage. Rounds needed = number
@@ -132,7 +133,8 @@ def chase_batched(d_pad, start, max_len: int, vg_pad=None):
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     for step in range(L):
         go = ~done & (i < L)
-        if step % _CHASE_CHECK == 0 and not bool(go.any()):
+        if (step % _CHASE_CHECK == 0
+                and not profiling.host(go.any(), bool)):
             break
         slot = torch.clamp(i, max=L - 1)
         path[lanes, slot] = torch.where(go[:, None], cur, path[lanes, slot])

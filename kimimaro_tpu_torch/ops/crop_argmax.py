@@ -24,6 +24,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import kernels
+from ..utils import profiling
 
 Boxes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -98,7 +99,7 @@ def crop_argmax(field: torch.Tensor, cc: torch.Tensor, offs: torch.Tensor,
         bad = bad | (box_size < 0) | (box_off < offs) \
             | (box_off + box_size > offs + crops)
     bad = bad.any() | (box_size.long().prod(dim=1) >= 2**32).any()
-    if bool(bad):
+    if profiling.host(bad, bool):
         raise ValueError("crop_argmax: a crop window leaves the volume, or "
                          "a box its window")
     if field.device.type == "cpu":

@@ -29,6 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .stencils import as_tensor, graph_allows
 
 BIG = float(np.float32(3.4e37))  # stand-in for +inf that survives arithmetic
@@ -130,7 +131,7 @@ def _banded_with_escalation(d, labels, w: float, black_border: bool, n: int,
     if band >= n - 1:
         return out
     thresh = float((np.float32(w) * band) ** 2)
-    max_out = float(out.max())
+    max_out = profiling.host(out.max(), float)
     if max_out <= thresh:
         return out
     need = int(np.ceil(np.sqrt(max_out) / w)) + 1

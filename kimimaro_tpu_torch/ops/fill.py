@@ -14,7 +14,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import profiling
 from .geodesic import _flood6_stage, flood_fill
 from .stencils import as_tensor
 
@@ -133,7 +132,6 @@ def fill_label_crops(
             # the stage (from scratch) at a deeper budget while any lane's
             # flood has not stalled
             for rounds in (6, 24, 96, max(int(sum(crop)) + 8, 384)):
-                profiling.count("fill_stages")
                 holes, cnt, conv = _fill_crops_stage(
                     vol_dev, o, lab, crop, rounds)
                 if bool(conv.all()):

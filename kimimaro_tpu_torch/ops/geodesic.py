@@ -209,7 +209,7 @@ def relax_rounds_batched(d, ok, nc, anisotropy, rounds: int,
                                          bool(clamp_positive), desc,
                                          gate=gp, gate_bits9=bits)
             nd = dm.permute(inv).contiguous()
-        same = not bool((nd != d).any())
+        same = not profiling.host((nd != d).any(), bool)
         changed = _lane_changed(nd, d, conv)
         d = nd
         if same:
@@ -771,14 +771,13 @@ def _flood6_stage(ok, reached, rounds: int):
     reached = reached & ok
     changed = torch.ones(ok.shape[:-3], dtype=torch.bool, device=ok.device)
     for _ in range(int(rounds) + 1):
-        profiling.count("flood6_rounds")
         nr = reached
         for axis in range(nd - 3, nd):
             for descending in (False, True):
                 nr = _reach_scan(nr, ok, axis, descending)
         changed = (nr != reached).flatten(nd - 3).any(dim=-1)
         reached = nr
-        if not bool(changed.any()):
+        if not profiling.host(changed.any(), bool):
             break
     return reached, ~changed
 

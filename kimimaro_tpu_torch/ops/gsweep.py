@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from .stencils import GRAPH_BITS, OCC_BIT, pad_const
 
 INF = float("inf")
@@ -459,7 +460,7 @@ def relax_escalated(d, cc_v: MaskViews, nc_v, ok_v, anisotropy, rounds: int,
     d, mask = relax_full(d, cc_v, nc_v, ok_v, anisotropy, rounds, mode,
                          clamp_positive, conv)
     for _ in range(int(extra_stages)):
-        if not bool(mask.any()):
+        if not profiling.host(mask.any(), bool):
             break
         d, mask = relax_full(d, cc_v, nc_v, ok_v, anisotropy,
                              int(extra_rounds), mode, clamp_positive, conv)
@@ -509,7 +510,8 @@ def relax_escalated_dual(da, db, cc_v: MaskViews, nc_v, ok_v, anisotropy,
     (da, db), (ma, mb) = relax_full_dual(da, db, cc_v, nc_v, ok_v,
                                          anisotropy, rounds, kind)
     for _ in range(int(extra_stages)):
-        if not (bool(ma.any()) or bool(mb.any())):
+        if not (profiling.host(ma.any(), bool)
+                or profiling.host(mb.any(), bool)):
             break
         (da, db), (ma, mb) = relax_full_dual(da, db, cc_v, nc_v, ok_v,
                                              anisotropy, int(extra_rounds),

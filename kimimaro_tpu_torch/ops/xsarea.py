@@ -15,7 +15,6 @@ Torch counterpart of kimimaro_tpu.ops.xsarea:
 
 from __future__ import annotations
 
-import time
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -122,14 +121,13 @@ def _sections_batch(fg, verts, normals, anisotropy, rounds: int):
 def _run_rungs(rungs, verts, normals, out, count_first: bool = True):
     """Run the first rung over every query, then each later rung over the
     queries still unconverged; `out` is (areas, contacts, conv) host
-    arrays the rungs fill in. Counts `xs_rung{r}_queries` and `_ms` per
-    rung (the first one only with `count_first`)."""
+    arrays the rungs fill in. Counts `xs_rung{r}_queries` per rung (the
+    first one only with `count_first`)."""
     areas, contacts, conv = out
     for r, (run, per_lane_bytes) in enumerate(rungs):
         todo = np.arange(len(verts)) if r == 0 else np.flatnonzero(~conv)
         if len(todo) == 0:
             break
-        t0 = time.perf_counter()
         pend = []
         for sl in lane_chunks(len(todo), per_lane_bytes):
             idx = todo[sl]
@@ -140,8 +138,6 @@ def _run_rungs(rungs, verts, normals, out, count_first: bool = True):
             conv[idx] = cv.cpu().numpy()
         if r or count_first:
             profiling.count(f"xs_rung{r}_queries", len(todo))
-            profiling.count(f"xs_rung{r}_ms",
-                            int(1000 * (time.perf_counter() - t0)))
 
 
 def cross_section_areas(binimg, verts, normals,

@@ -216,9 +216,7 @@ def cross_section_areas_volume(all_labels, verts, normals, labels_q,
         dtype=np.int32)
     anis = np.asarray(anisotropy, dtype=np.float32)
 
-    t0 = time.perf_counter()
     vol_dev = torch.from_numpy(vol).to(dev)
-    profiling.count("xsb_upload_ms", int(1000 * (time.perf_counter() - t0)))
     # one permuted contiguous copy per dominant-axis group dispatched
     # (537 MB each at 512^3)
     vol_cache = {}

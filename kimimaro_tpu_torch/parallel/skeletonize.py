@@ -123,6 +123,7 @@ def _label_info_sharded(cc: ShardedVolume, labels: ShardedVolume, n_max: int,
     return counts, bbmin, bbmax, orig, dbfmax
 
 
+@profiling.entry("skeletonize_sharded")
 def skeletonize_sharded(
     all_labels,
     mesh: Optional[Mesh] = None,

@@ -15,7 +15,6 @@ equality test, take the per-label bounding-box path (ops.xsarea).
 
 from __future__ import annotations
 
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Union
 
@@ -26,7 +25,6 @@ from .intake import resolve_device
 from .ops.xsarea import cross_section_areas
 from .skeleton import Skeleton
 from .utility import add_property, find_objects, moving_average
-from .utils import profiling
 from .utils.bbox import Bbox
 
 XS_PROP = {
@@ -104,10 +102,8 @@ def shape_iterator(all_labels, skeletons, fill_holes, in_place, progress, fn,
         fn(skel, binimg, roi)
 
     if all_labels.dtype != bool:
-        t0 = time.perf_counter()
         bboxes = _id_bboxes_device(
             all_labels, [s.id for s in iterator if s.id != 0], dev)
-        profiling.count("xs_bbox_ms", int(1000 * (time.perf_counter() - t0)))
         if bboxes is not None:
             for skel in iterator:
                 if skel.id == 0 or skel.id not in bboxes:
@@ -122,7 +118,6 @@ def shape_iterator(all_labels, skeletons, fill_holes, in_place, progress, fn,
                 crop(all_labels[roi.to_slices()] == skel.id, skel, roi)
             return iterator
 
-    t0 = time.perf_counter()
     if all_labels.dtype == bool:
         remapping = {True: 1, False: 0, 1: 1, 0: 0}
         lookup = all_labels.view(np.uint8)
@@ -138,11 +133,8 @@ def shape_iterator(all_labels, skeletons, fill_holes, in_place, progress, fn,
         full_new = np.concatenate([[0], new_ids]) if has_bg else new_ids
         lookup = full_new[inv].reshape(all_labels.shape)
         remapping = {int(u): int(n) for u, n in zip(fg_uniq, new_ids)}
-    profiling.count("xs_renumber_ms", int(1000 * (time.perf_counter() - t0)))
 
-    t0 = time.perf_counter()
     all_slices = find_objects(lookup)
-    profiling.count("xs_findobj_ms", int(1000 * (time.perf_counter() - t0)))
 
     for skel in iterator:
         label = 1 if all_labels.dtype == bool else skel.id

@@ -662,8 +662,10 @@ def test_connect_points_matches_jax():
         profiling.collect(False)
     _assert_same_skeleton(want, got)
     assert got.space == want.space == "physical"
-    assert set(profiling.get_stats()["phases"]) == {"connect_ccl",
-                                                    "point_to_point"}
+    # each phase and the blocking reads it waited in
+    assert set(profiling.get_stats()["phases"]) == {
+        "connect_ccl", "point_to_point", "connect_ccl_wait",
+        "point_to_point_wait"}
 
 
 def test_connect_points_2d_and_disconnected():
