@@ -89,7 +89,10 @@ Phases (any failure exits non-zero):
      timed in turns with the ungated form on the same inputs (B5-vg at
      96^3), and G1 (the graph gate, csrc/gate.cu) at its stress shapes
      and on the recorded calls, with kernel-table rows for B1-vg, B5-vg,
-     B4's graph-gated shapes and G1;
+     B4's graph-gated shapes and G1; C1 (the crop engine's chase,
+     csrc/chase.cu) launched once a crop path iteration, bit-equal to its
+     plain version on the recorded lane sets with and without their graph,
+     with kernel-table rows;
  11. the analysis extras: V1 (the joint Voronoi sweep) against its plain
      version at small, odd and strip-stressing shapes, on each side of its
      form rule and at 512^3 with ties, its distance against B5's euclid
@@ -157,6 +160,13 @@ volume's and the dense cross sections' warm walls with either.
     python3 chip_smoke.py --self-touch
 
 runs phase 10 alone (after the build).
+
+    python3 chip_smoke.py --chase
+
+runs C1's checks alone (after the build): the dense and soma volumes'
+main-path runs (phases 5 and 6) and the self-touch volume skeletonized
+once, each with the chase calls recorded, C1 against its plain version on
+them, both timed.
 
     python3 chip_smoke.py --analysis
 
@@ -1460,12 +1470,19 @@ def log_routing(tag, counters):
 
 def dense_main_path(vol):
     """Returns (skeletons, the global engine's inputs and results, launches,
-    the B3 calls recorded in the first run)."""
+    the B3 calls recorded in the first run, C1's kernel-table rows from
+    the crop engine's chase calls of both runs)."""
     n = vol.shape[0]
     b3_spy = B3Spy()
-    skels, counters, launches, captured = run_main_path(
-        "dense", vol, ("gsweep_sweep0", "gsweep_sweep0_dual", "crop_argmax"),
-        capture=True, b3_spy=b3_spy)
+    chase_spy = ChaseSpy()
+    restore = chase_spy.install()
+    try:
+        skels, counters, launches, captured = run_main_path(
+            "dense", vol, ("gsweep_sweep0", "gsweep_sweep0_dual",
+                           "crop_argmax", "chase_batched"),
+            capture=True, b3_spy=b3_spy)
+    finally:
+        restore()
     if len(skels) < 0.9 * DENSE_LABELS * (n / 512) ** 3:
         raise AssertionError(f"dense run: only {len(skels)} skeletons")
     log_routing("dense", counters)
@@ -1480,17 +1497,25 @@ def dense_main_path(vol):
     if launches["crop_argmax"] != want:
         raise AssertionError(f"dense runs: {launches['crop_argmax']} B3 "
                              f"calls, expected {want}")
-    return skels, captured, launches, b3_spy
+    c1_rows = chase_rows("dense", chase_spy, launches, counters, 2, False)
+    return skels, captured, launches, b3_spy, c1_rows
 
 
 def hollow_main_path(vol):
     """The soma volume: both balls go to the crop engine, and every label
-    with a component above the dust threshold gets a skeleton."""
+    with a component above the dust threshold gets a skeleton. Returns
+    (skeletons, launches, C1's kernel-table rows from the crop engine's
+    chase calls of both runs)."""
     import scipy.ndimage
 
-    skels, counters, launches, _ = run_main_path(
-        "soma", vol, ("sweep_axis0_batched",), fill_holes=False,
-        fix_avocados=False)
+    chase_spy = ChaseSpy()
+    restore = chase_spy.install()
+    try:
+        skels, counters, launches, _ = run_main_path(
+            "soma", vol, ("sweep_axis0_batched", "chase_batched"),
+            fill_holes=False, fix_avocados=False)
+    finally:
+        restore()
     log_routing("soma", counters)
     if counters.get("crop_engine_jobs", 0) < 2:
         raise AssertionError(f"soma volume: crop_engine_jobs "
@@ -1507,7 +1532,8 @@ def hollow_main_path(vol):
     log(f"[soma] every label with a component above the dust threshold has "
         f"a skeleton ({len(skels)}; {len(missing)} labels split into "
         f"dust only)")
-    return skels, launches
+    return skels, launches, chase_rows("soma", chase_spy, launches, counters,
+                                       2, False)
 
 
 def global_pdrf_formula():
@@ -2308,15 +2334,18 @@ def fill_main_path(vol):
     fix_avocados=True) of the hollow volume once (a second run took as
     long), then its filled volume
     against the serial oracle, the avocado invariants, and a skeleton for
-    every label above the dust threshold. Returns the run's launches."""
-    spy = HostStageSpy()
-    restore = spy.install()
+    every label above the dust threshold. Returns (the run's launches,
+    C1's kernel-table rows from the crop engine's chase calls)."""
+    spy, chase_spy = HostStageSpy(), ChaseSpy()
+    restores = [spy.install(), chase_spy.install()]
     try:
         skels, counters, launches, _ = run_main_path(
-            "fill", vol, ("gsweep_sweep0", "sweep_axis0_batched", "fma_f32"),
+            "fill", vol, ("gsweep_sweep0", "sweep_axis0_batched", "fma_f32",
+                          "chase_batched"),
             runs=("first",), fill_holes=True, fix_avocados=True)
     finally:
-        restore()
+        for restore in reversed(restores):
+            restore()
     if counters.get("gengine_iterations", 0):
         raise AssertionError("fill path: the global engine traced labels")
     t0 = time.perf_counter()
@@ -2351,7 +2380,8 @@ def fill_main_path(vol):
         f"threshold after the host stages has a skeleton; of the {len(big)} "
         f"input labels above it, {len(gone)} have none (absorbed by the "
         f"host stages or split into dust: {sorted(gone)[:20]})")
-    return launches
+    return launches, chase_rows("fill", chase_spy, launches, counters, 1,
+                                False)
 
 
 def small_fill_volume():
@@ -3013,6 +3043,158 @@ def check_g1(spy, gen):
     return out
 
 
+# C1's bound: one dependent L2 round trip a step of the longest walk. The
+# round trip is taken as an L2 hit's latency on an H100, about 270 cycles
+# at the 1,980 MHz boost clock (assumed, not measured here)
+L2_ROUND_TRIP_S = 270 / 1.98e9
+
+
+class ChaseSpy:
+    """While installed, counts the crop engine's chase calls per form and
+    keeps the arguments of the first call of every (lanes, padded crop,
+    form), up to `keep` of them."""
+
+    def __init__(self, keep=8):
+        self.keep = keep
+        self.kept = {}
+        self.calls = {}
+
+    def install(self):
+        from kimimaro_tpu_torch import engine
+
+        inner = engine.chase_batched
+
+        def spy(d_pad, start, max_len, vg_pad=None):
+            if d_pad.device.type == "cuda":
+                key = (tuple(d_pad.shape), int(max_len), vg_pad is not None)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if key not in self.kept and len(self.kept) < self.keep:
+                    self.kept[key] = (d_pad.clone(), start.clone(),
+                                      None if vg_pad is None
+                                      else vg_pad.clone())
+            return inner(d_pad, start, max_len, vg_pad)
+
+        engine.chase_batched = spy
+
+        def restore():
+            engine.chase_batched = inner
+
+        return restore
+
+
+def c1_device_ms(d, start, L, vg, reps=20):
+    """C1's own milliseconds a launch: `reps` launches back to back into
+    outputs made once, by CUDA events, without the wrapper's host work
+    (its checks and allocations take about as long as a short walk)."""
+    import torch
+
+    from kimimaro_tpu_torch.ops import chase
+
+    B = d.shape[0]
+    path = torch.empty((B, L, 3), dtype=torch.int64, device=d.device)
+    length = torch.empty((B,), dtype=torch.int64, device=d.device)
+    reached = torch.empty((B,), dtype=torch.bool, device=d.device)
+    vgi = None if vg is None else vg.view(torch.int32)
+    start = start.to(torch.int64).contiguous()
+
+    def launches():
+        for _ in range(reps):
+            chase._launch(d, vgi, start, L, path, length, reached)
+
+    return cuda_ms(launches, 3) / reps
+
+
+def check_chase_recorded(spy):
+    """C1 against its plain version on the recorded lane sets, each call
+    made twice, and the gated lane sets again without their graph (the
+    ungated form). Returns {key: (ms, plain_ms, bound_ms, steps, ungated ms,
+    ungated plain ms)}: C1's own time (`c1_device_ms`; the wrapper's call,
+    host work included, is logged beside it), the plain version once,
+    whose cost is its Python loop, and the bound: the longest walk's steps
+    times one L2 round trip."""
+    from kimimaro_tpu_torch.ops import chase
+
+    out = {}
+    for key in sorted(spy.kept):
+        shape, L, gated = key
+        d, start, vg = spy.kept[key]
+        row = []
+        for g in ((vg, None) if gated else (None,)):
+            got = chase.chase_batched(d, start, L, g)
+            again = chase.chase_batched(d, start, L, g)
+            want, plain = timed_once(
+                lambda: chase._chase_batched_plain(d, start, L, g))
+            what = f"C1 {'gated' if g is not None else 'ungated'} {key}"
+            require_equal(what, got, want)
+            require_equal(f"{what} run twice", again, got)
+            call = cuda_ms(lambda: chase.chase_batched(d, start, L, g), 5)
+            ms = c1_device_ms(d, start, L, g)
+            steps = int(want[1].max())
+            row.append((ms, plain, steps))
+            log(f"[kernels] {what} ({spy.calls[key]} calls): {ms:.4f} ms "
+                f"({call:.4f} ms a wrapper call) vs plain {plain:.1f} ms; "
+                f"longest walk {steps} of {L} steps, "
+                f"{int(want[2].sum())} of {shape[0]} lanes reached a rail; "
+                f"bound {1e3 * steps * L2_ROUND_TRIP_S:.4f} ms "
+                f"({1e6 * ms * 1e-3 / max(steps, 1):.3f} us a step)")
+        (ms, plain, steps), *bare = row
+        out[key] = (ms, plain, 1e3 * steps * L2_ROUND_TRIP_S, steps,
+                    bare[0][0] if bare else None,
+                    bare[0][1] if bare else None)
+    log(f"[kernels] C1 bit-equal on the {len(spy.kept)} recorded chase "
+        f"calls (distinct lanes, crop and form), twice, the gated ones "
+        f"without their graph too")
+    return out
+
+
+def chase_rows(tag, spy, launches, counters, runs, gated):
+    """C1 on a main-path run's recorded chase calls: every chase launched
+    C1 once in the run's form (`gated`: under a voxel graph) and never in
+    the other, a launch a path iteration of the crop engine (`runs` runs
+    of the same volume, `counters` the last run's), and each recorded call
+    bit-equal to the plain version. Returns the kernel-table rows: the
+    run's form on the two recorded lane sets of the most calls, and for a
+    gated run the ungated form on the first of them."""
+    seen = sum(spy.calls.values())
+    form, other = (("chase_batched_vg", "chase_batched") if gated
+                   else ("chase_batched", "chase_batched_vg"))
+    iters = counters.get("crop_path_iterations", 0)
+    log(f"[{tag}] chase launches {form} {launches[form]}, {other} "
+        f"{launches[other]} over {runs} run(s), {iters} crop path "
+        f"iterations a run, {seen} chase calls seen")
+    if launches[form] != seen or seen != runs * iters or launches[other]:
+        raise AssertionError(f"{tag}: a chase did not launch C1 ({form}) "
+                             f"once a path iteration")
+    if seen == 0 or any(k[2] != gated for k in spy.calls):
+        raise AssertionError(f"{tag}: no chase call, or one in the other "
+                             f"form")
+    checked = check_chase_recorded(spy)
+    rows = []
+    top = sorted(checked, key=lambda k: -spy.calls[k])[:2]
+    for key in top:
+        ms, plain, bms, steps, _, _ = checked[key]
+        rows.append({
+            "name": f"{form} {key[0]} L={key[1]} ({tag})", "route": "cuda",
+            "source": "kimimaro_tpu_torch/csrc/chase.cu",
+            "replaces": "kimimaro_tpu/ops/fused_trace.py:115",
+            "launches": spy.calls[key], "max_abs_err": 0.0,
+            "ms": round(ms, 4), "plain_ms": round(plain, 4),
+            "bound_ms": round(bms, 4),
+            "bound_by": f"latency ({steps} steps, assumed L2 round trip)",
+            "library_ms": None})
+    if gated:
+        ms, plain = checked[top[0]][4:6]
+        rows.append({
+            "name": f"chase_batched {top[0][0]} L={top[0][1]} ({tag}, "
+                    f"graph removed)",
+            "route": "cuda", "source": "kimimaro_tpu_torch/csrc/chase.cu",
+            "replaces": "kimimaro_tpu/ops/fused_trace.py:115",
+            "launches": None, "max_abs_err": 0.0, "ms": round(ms, 4),
+            "plain_ms": round(plain, 4), "bound_ms": None,
+            "bound_by": None, "library_ms": None})
+    return rows
+
+
 class RefillSpy:
     """While installed, keeps the component volume and the jobs of the
     last crop-engine call; `labels()` then names the labels (in
@@ -3051,6 +3233,22 @@ class RefillSpy:
                 first = (cc_dev[sl] == job["segid"]).reshape(-1).nonzero()
                 out.add(int(self.labels_dev[sl].reshape(-1)[first[0, 0]]))
         return out
+
+
+def chase_phase(dense):
+    """C1 alone: the self-touch volume of `dense` skeletonized once under
+    its graph, the chase calls recorded, then `chase_rows`. Returns C1's
+    kernel-table rows."""
+    merged, vg, _, _ = self_touch_volume(dense)
+    spy = ChaseSpy()
+    restore = spy.install()
+    try:
+        _, counters, launches, _ = run_main_path(
+            "self-touch", merged, ("chase_batched_vg",), runs=("first",),
+            voxel_graph=vg)
+    finally:
+        restore()
+    return chase_rows("self-touch", spy, launches, counters, 1, True)
 
 
 def first_voxels(vol):
@@ -3172,10 +3370,11 @@ def self_touch_phase(dense, gen):
     counts, skeletonize twice (cold, warm) with B1-vg, B4 and B5 recorded,
     the identity against skeletonize(pre, all-ones graph), the 64^3 volume
     card against CPU, then the graph-gated kernels against their plain
-    versions. Returns (launches of the two 512^3 runs, launches of the
-    64^3 card run, B1-vg timing, B5-vg timing, B4's recorded shapes and
-    calls, the B4-vg rule's error, G1's recorded shapes and their calls in
-    the two 512^3 runs)."""
+    versions, and C1 on the recorded chase calls. Returns (launches of the
+    two 512^3 runs, launches of the 64^3 card run, B1-vg timing, B5-vg
+    timing, B4's recorded shapes and calls, the B4-vg rule's error, G1's
+    recorded shapes and their calls in the two 512^3 runs, C1's
+    kernel-table rows)."""
     import torch
 
     import kimimaro_tpu_torch
@@ -3202,15 +3401,16 @@ def self_touch_phase(dense, gen):
 
     gate_spy, b5_spy, g1_spy = GateSpy(), B5Spy(), G1Spy()
     b4_spy = B4Spy("self-touch", keep=4096, per_shape=True)
+    chase_spy = ChaseSpy()
     labels_dev = torch.from_numpy(merged.view(np.int32)).cuda()
     refill_spy = RefillSpy(labels_dev, TEASAR["soma_detection_threshold"])
     restores = [s.install() for s in (gate_spy, b5_spy, g1_spy, b4_spy,
-                                      refill_spy)]
+                                      refill_spy, chase_spy)]
     try:
         skels, counters, launches, _ = run_main_path(
             "self-touch", merged, ("gsweep_sweep0_vg",
                                    "sweep_axis0_batched_vg", "graph_into",
-                                   "graph_into_ccl"),
+                                   "graph_into_ccl", "chase_batched_vg"),
             voxel_graph=vg)
     finally:
         for restore in reversed(restores[3:]):
@@ -3278,9 +3478,11 @@ def self_touch_phase(dense, gen):
             f"{[round(t, 4) for t in tb]} ms without (in turns a, b, b, a):"
             f" x{np.mean(ta) / np.mean(tb):.3f}")
     g1_rows = check_g1(g1_spy, gen)
+    c1_rows = chase_rows("self-touch", chase_spy, launches, counters, 2,
+                         True)
     return (launches, small, b1_vg,
             (b5_vg[0], b5_vg[1], max(b5_vg[2], b5_err)), b4_rows,
-            dict(calls), b4_err, g1_rows, g1_calls)
+            dict(calls), b4_err, g1_rows, g1_calls, c1_rows)
 
 
 
@@ -4510,7 +4712,7 @@ def ab_parent(parent):
     finally:
         restore()
     hollow = hollow_volume(dense)
-    sskels, _ = hollow_main_path(hollow)
+    sskels, _, _ = hollow_main_path(hollow)
     sel, _ = xs_select(dskels)
     dspy, sspy = XsSpy("dense"), XsSpy("soma")
     f1_xs = F1Spy("xs-dense", keep=64)
@@ -5428,6 +5630,18 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--chase"]:
+        log(device_line())
+        log(f"[build] nvcc {kernels.build():.2f} s")
+        dense = dense_volume(DENSE_N)
+        _, captured, _, _, rows = dense_main_path(dense)
+        del captured
+        rows += hollow_main_path(hollow_volume(dense))[2]
+        print(json.dumps({"kernels": rows + chase_phase(dense)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--analysis"]:
         import kimimaro_tpu_torch
 
@@ -5472,10 +5686,10 @@ def main() -> int:
                 f"({time.perf_counter() - t0:.1f} s, set-up)")
             cli_phase(dense, skels)
         else:
-            skels, captured, _, _ = dense_main_path(dense)
+            skels, captured, _, _, _ = dense_main_path(dense)
             del captured
             hollow = hollow_volume(dense)
-            soma_skels, _ = hollow_main_path(hollow)
+            soma_skels, _, _ = hollow_main_path(hollow)
             launches, rows = sharded_phase(dense, skels, hollow, soma_skels)
             print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
@@ -5573,7 +5787,8 @@ def main() -> int:
     dense = dense_volume(n)
     log(f"[dense] volume {dense.shape}, {len(np.unique(dense))} labels, made "
         f"in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    dense_skels, captured, dense_launches, b3_spy = dense_main_path(dense)
+    (dense_skels, captured, dense_launches, b3_spy,
+     c1_dense) = dense_main_path(dense)
     mark("phase 5 (dense)")
     # B3 at the shapes the dense run handed it: the kernel table's row
     b3 = check_b3_recorded(b3_spy)
@@ -5585,7 +5800,7 @@ def main() -> int:
     hollow = hollow_volume(dense)
     log(f"[soma] volume {hollow.shape}, {len(np.unique(hollow))} labels, "
         f"made in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    soma_skels, soma_launches = hollow_main_path(hollow)
+    soma_skels, soma_launches, c1_soma = hollow_main_path(hollow)
     mark("phase 6 (soma)")
     restore_f1()
     # B4's calls on the main path (phase 4's runs)
@@ -5611,7 +5826,7 @@ def main() -> int:
     b5_fill, f1_fill = B5Spy(), F1Spy("fill")
     restores = [b4_fill.install(), b5_fill.install(), f1_fill.install()]
     try:
-        fill_launches = fill_main_path(hollow)
+        fill_launches, c1_fill = fill_main_path(hollow)
         mark("phase 9 (the fill path)")
         small_fill_launches = small_fill_path()
     finally:
@@ -5626,8 +5841,8 @@ def main() -> int:
     del b5_fill
     # 10. self-touch: the dense volume under a voxel graph
     (touch_launches, touch_small_launches, b1_vg, b5_vg, b4_touch,
-     b4_touch_calls, b4_rule_err, g1_touch,
-     g1_touch_calls) = self_touch_phase(dense, gen)
+     b4_touch_calls, b4_rule_err, g1_touch, g1_touch_calls,
+     c1_rows) = self_touch_phase(dense, gen)
     mark("phase 10 (self-touch)")
     # 11. the analysis extras on the dense run's skeletons
     (analysis_launches, v1, v1_rows, v1_lanes_rows, v1b_err,
@@ -5859,6 +6074,9 @@ def main() -> int:
                 "max_abs_err": g1_err, "ms": round(ms, 4),
                 "plain_ms": round(plain, 4), "bound_ms": round(bms, 4),
                 "bound_by": by, "library_ms": None})
+    # C1 on the recorded lane sets of the dense, soma, fill and self-touch
+    # runs
+    table.extend(c1_dense + c1_soma + c1_fill + c1_rows)
     table.extend(v1_table(launches, v1, v1_rows, v1_lanes_rows, v1b_err))
     # B5 at phase 11's connect_points shape (512^3), each mode
     table.extend(b5_connect)

@@ -7,7 +7,7 @@ library at import time, so the package imports on machines without a GPU;
 the CPU code paths never call `lib()`.
 
 Each kernel wrapper (ops.gsweep, ops.crop_argmax, ops.sweep, ops.xsfetch,
-ops.xsslab, ops.fma, ops.voronoi, ops.stencils) adds one to its entry in `LAUNCHES` where
+ops.xsslab, ops.fma, ops.voronoi, ops.stencils, ops.chase) adds one to its entry in `LAUNCHES` where
 it launches its kernel, and nowhere else.
 """
 
@@ -25,7 +25,7 @@ from typing import Dict, Optional
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("gsweep.cu", "argmax.cu", "sweep.cu", "xsfetch.cu", "xsflood.cu",
-            "fma.cu", "voronoi.cu", "gate.cu")
+            "fma.cu", "voronoi.cu", "gate.cu", "chase.cu")
 _HEADERS = ("plane.cuh",)
 
 NVCC_FLAGS = (
@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel since the last reset (B1, B2, B3, B4, B5, B6, X1,
-# F1, V1 and its lane-batched form, G1); the forms gated by a voxel graph
-# (B1, B4, B5) and G1's CCL form count apart
+# F1, V1 and its lane-batched form, G1, C1); the forms gated by a voxel
+# graph (B1, B4, B5, C1) and G1's CCL form count apart
 LAUNCHES: Dict[str, int] = {
     "gsweep_sweep0": 0,
     "gsweep_sweep0_vg": 0,
@@ -55,6 +55,8 @@ LAUNCHES: Dict[str, int] = {
     "voronoi_sweep_batched": 0,
     "graph_into": 0,
     "graph_into_ccl": 0,
+    "chase_batched": 0,
+    "chase_batched_vg": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -178,6 +180,9 @@ def lib() -> ctypes.CDLL:
         so.kt_voronoi_lanes_limits.restype = i
         so.kt_graph_into.argtypes = [p, p, p, ll, i, i, i, p, p]
         so.kt_graph_into.restype = i
+        so.kt_chase_batched.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p,
+                                        p]
+        so.kt_chase_batched.restype = i
         _LIB = so
     return _LIB
 

@@ -5,13 +5,19 @@ without the fused on-device path loop: the host trace path (trace.py) and
 the global engine (gengine.py) use the host `_chase`; the crop engine
 (engine.py) walks all lanes of a batch at once on the device with
 `chase_batched`.
+
+For CUDA tensors `chase_batched` launches C1 (csrc/chase.cu), one launch
+a chase; for CPU tensors it runs the plain version beside it.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils import profiling
 from .stencils import GRAPH_BITS
 
@@ -37,6 +43,8 @@ def _chase_bit_table() -> np.ndarray:
 
 
 CHASE_BITS = _chase_bit_table()
+# the same table as the C int[27] that C1 takes by value
+_CHASE_BITS_C = (ctypes.c_int * 27)(*CHASE_BITS.tolist())
 
 
 def _chase(d_pad, start, max_len: int, vg_pad=None):
@@ -97,19 +105,9 @@ def _wrap_clamp(idx, size, hi):
     return torch.minimum(torch.clamp(idx, min=0), hi)
 
 
-def chase_batched(d_pad, start, max_len: int, vg_pad=None):
-    """`_chase` for every lane of a batch on the device, as the JAX crop
-    engine's vmapped `fused_trace._chase` runs it: a lane steps while it
-    has not reached a rail and has fewer than `max_len` vertices.
-
-    d_pad: (B, X+2, Y+2, Z+2) float32 rail fields padded by one +inf voxel;
-    start: (B, 3) int64 crop coordinates; vg_pad (optional): the lanes'
-    voxel graphs (int32 or uint32) padded by one zero voxel, closing the
-    steps whose move back the neighbour does not permit. Returns (path
-    (B, L, 3) int64 with -1 padding, length (B,), reached_rail (B,)). The
-    first minimum of the 26-window in lexicographic offset order wins;
-    windows and reads follow JAX's dynamic-slice index rule at the padded
-    edge."""
+def _chase_batched_plain(d_pad, start, max_len: int, vg_pad=None):
+    """Plain torch version of C1: one step of every lane at a time, until
+    no lane steps (checked every `_CHASE_CHECK` steps)."""
     B = d_pad.shape[0]
     L = int(max_len)
     dev = d_pad.device
@@ -154,3 +152,57 @@ def chase_batched(d_pad, start, max_len: int, vg_pad=None):
         i = torch.where(go, i + 1, i)
         done = done | (go & at_rail)
     return path, i, done
+
+
+def chase_batched(d_pad, start, max_len: int, vg_pad=None):
+    """`_chase` for every lane of a batch on the device, as the JAX crop
+    engine's vmapped `fused_trace._chase` runs it: a lane steps while it
+    has not reached a rail and has fewer than `max_len` vertices.
+
+    d_pad: (B, X+2, Y+2, Z+2) float32 rail fields padded by one +inf voxel;
+    start: (B, 3) int64 crop coordinates; vg_pad (optional): the lanes'
+    voxel graphs (int32 or uint32) padded by one zero voxel, closing the
+    steps whose move back the neighbour does not permit. Returns (path
+    (B, L, 3) int64 with -1 padding, length (B,), reached_rail (B,)). The
+    first minimum of the 26-window in lexicographic offset order wins;
+    windows and reads follow JAX's dynamic-slice index rule at the padded
+    edge."""
+    if d_pad.device.type == "cpu":
+        return _chase_batched_plain(d_pad, start, max_len, vg_pad)
+    B, X, Y, Z = d_pad.shape
+    L = int(max_len)
+    if L < 0 or min(X, Y, Z) < 3:
+        raise ValueError("chase_batched: max_len >= 0 and padded fields of "
+                         "at least 3 voxels a side")
+    name = "chase_batched"
+    vg = None
+    if vg_pad is not None:
+        name = "chase_batched_vg"
+        vg = vg_pad.view(torch.int32) if vg_pad.dtype == torch.uint32 \
+            else vg_pad
+    kernels.require_cuda(name, d_pad, vg,
+                         dtypes=((torch.float32,), (torch.int32,)),
+                         shape=d_pad.shape)
+    dev = d_pad.device
+    start = start.to(device=dev, dtype=torch.int64).contiguous()
+    kernels.require_cuda(name, start, shape=(B, 3))
+    path = torch.empty((B, L, 3), dtype=torch.int64, device=dev)
+    length = torch.empty((B,), dtype=torch.int64, device=dev)
+    reached = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return path, length, reached
+    _launch(d_pad, vg, start, L, path, length, reached)
+    kernels.LAUNCHES[name] += 1
+    return path, length, reached
+
+
+def _launch(d_pad, vg, start, L: int, path, length, reached) -> None:
+    """One launch of C1 into the given outputs, on the current stream, with
+    no checks: `chase_batched`'s arguments as it has checked them (`vg`
+    int32 or None, `start` int64, all contiguous on one CUDA device)."""
+    B, X, Y, Z = d_pad.shape
+    rc = kernels.lib().kt_chase_batched(
+        kernels.ptr(d_pad), kernels.ptr(vg), kernels.ptr(start), B, X, Y, Z,
+        L, _CHASE_BITS_C, kernels.ptr(path), kernels.ptr(length),
+        kernels.ptr(reached), kernels.stream_ptr(d_pad.device))
+    kernels.check(rc, "chase_batched")

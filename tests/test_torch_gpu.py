@@ -13,6 +13,7 @@ import torch
 
 import kimimaro_tpu_torch
 from kimimaro_tpu_torch import kernels
+from kimimaro_tpu_torch.ops import chase as tchase
 from kimimaro_tpu_torch.ops import crop_argmax as tcrop
 from kimimaro_tpu_torch.ops import geodesic as tgeodesic
 from kimimaro_tpu_torch.ops import gsweep as tgsweep
@@ -1454,3 +1455,127 @@ def test_crop_argmax_with_boxes_cut_to_slabs_matches_cpu(gen):
             shape[1:])
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g.cpu(), w)
+
+
+# C1 at the crop shapes of the benchmark's lane sets, with a path buffer of
+# 2 * sum(crop) rows as the crop engine gives it
+CHASE_CROPS = ((64, 64, 32), (32, 128, 128), (128, 128, 64))
+
+
+def _chase_lanes(gen, B, crop):
+    """Padded rail fields and starts of B lanes, a kind by lane index mod 4:
+    0, a descending field of many exact ties (the Chebyshev distance to
+    three rail voxels) with +inf holes and +inf padding; 1, all +inf
+    (every window steps to offset 0); 2, small positive integers and a few
+    NaN, no rail (the walk runs to the buffer's end); 3, kind 0 with finite
+    padding and a start on the padded edge or outside it, negative
+    coordinates included."""
+    P = tuple(c + 2 for c in crop)
+    idx = torch.stack(torch.meshgrid(
+        *[torch.arange(n, device="cuda") for n in P], indexing="ij"), -1)
+    hi = torch.tensor(crop, device="cuda")
+    d = torch.empty((B,) + P, device="cuda")
+    start = torch.empty((B, 3), dtype=torch.int64, device="cuda")
+    for b in range(B):
+        kind = b % 4
+        if kind in (0, 3):
+            rails = (torch.rand((3, 1, 1, 1, 3), generator=gen,
+                                device="cuda") * hi).long() + 1
+            f = (idx - rails).abs().amax(dim=-1).amin(dim=0).float()
+            f = torch.where(_rand(gen, P) < 0.1, float("inf"), f)
+            if kind == 0:
+                f[0], f[-1] = float("inf"), float("inf")
+                f[:, 0], f[:, -1] = float("inf"), float("inf")
+                f[..., 0], f[..., -1] = float("inf"), float("inf")
+        elif kind == 1:
+            f = torch.full(P, float("inf"), device="cuda")
+        else:
+            f = torch.randint(1, 4, P, generator=gen, device="cuda").float()
+            f = torch.where(_rand(gen, P) < 0.01, float("nan"), f)
+        d[b] = f
+        if kind == 3:
+            lo = torch.tensor([-3, -3, -3], device="cuda")
+            top = hi + 3
+        else:
+            lo, top = torch.zeros(3, dtype=torch.int64, device="cuda"), hi
+        start[b] = lo + (torch.rand(3, generator=gen, device="cuda")
+                         * (top - lo)).long()
+    return d, start
+
+
+def _chase_graph(gen, shape, kind):
+    """Random voxel-graph words, about three bits in four set, as int32 or
+    as the same bits in uint32; None for kind None."""
+    if kind is None:
+        return None
+    words = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                           device="cuda", dtype=torch.int32)
+             for _ in range(2)]
+    vg = words[0] | words[1]
+    return vg.view(torch.uint32) if kind == "uint32" else vg
+
+
+@pytest.mark.parametrize("graph", (None, "uint32", "int32"))
+@pytest.mark.parametrize("crop", CHASE_CROPS)
+@pytest.mark.parametrize("B", (1, 7, 64))
+def test_chase_kernel_matches_plain(gen, B, crop, graph):
+    """C1 walks every lane as the plain version does, bit for bit (path,
+    length, rail flag), twice, in one launch a call counted under its
+    form; lanes that reach a rail, run to the buffer's end, start outside
+    the crop or see only +inf are mixed in one launch."""
+    d, start = _chase_lanes(gen, B, crop)
+    vg = _chase_graph(gen, d.shape, graph)
+    L = 2 * sum(crop)
+    name = "chase_batched" if graph is None else "chase_batched_vg"
+    before = kernels.LAUNCHES[name]
+    got = tchase.chase_batched(d, start, L, vg)
+    assert kernels.LAUNCHES[name] == before + 1
+    again = tchase.chase_batched(d, start, L, vg)
+    want = tchase._chase_batched_plain(d, start, L, vg)
+    _assert_bit_equal(got, want)
+    _assert_bit_equal(again, got)
+    if B >= 4:
+        # each kind is in the launch: rails reached, buffers run out
+        reached, plen = want[2].cpu(), want[1].cpu()
+        assert reached[0::4].any() and not reached[1::4].any()
+        assert (plen[2::4] == L).all()
+
+
+@pytest.mark.parametrize("graph", (None, "uint32", "int32"))
+def test_chase_kernel_matches_jax_fixture(gen, graph):
+    """C1 equals the JAX package's vmapped chase exactly on the lanes of
+    tests/data/chase_jax.npz (walks that leave the crop, all +inf windows,
+    exact ties, no rail), stored with JAX's output by
+    tests/test_torch_chase.py, which checks them against JAX."""
+    from pathlib import Path
+
+    with np.load(Path(__file__).resolve().parent / "data"
+                 / "chase_jax.npz") as f:
+        fx = dict(f)
+    vg = None if graph is None else torch.from_numpy(
+        fx["vg"] if graph == "uint32" else fx["vg"].view(np.int32)).cuda()
+    tag = "plain" if graph is None else "vg"
+    name = "chase_batched" if graph is None else "chase_batched_vg"
+    before = kernels.LAUNCHES[name]
+    got = tchase.chase_batched(torch.from_numpy(fx["d_pad"]).cuda(),
+                               torch.from_numpy(fx["start"]).cuda(),
+                               int(fx["max_len"]), vg)
+    assert kernels.LAUNCHES[name] == before + 1
+    for k, a in zip(("path", "length", "reached"), got):
+        assert a.is_cuda
+        np.testing.assert_array_equal(a.cpu().numpy(), fx[f"{k}_{tag}"])
+
+
+def test_chase_cuda_never_takes_the_plain_loop(gen, monkeypatch):
+    """chase_batched on CUDA tensors launches C1 or raises: the plain loop
+    is never reached."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain chase ran on CUDA tensors")
+
+    d, start = _chase_lanes(gen, 4, (16, 12, 10))
+    monkeypatch.setattr(tchase, "_chase_batched_plain", refuse)
+    for vg in (None, _chase_graph(gen, d.shape, "int32")):
+        path, plen, reached = tchase.chase_batched(d, start, 76, vg)
+        assert path.shape == (4, 76, 3) and plen.shape == (4,)
+    with pytest.raises(TypeError):
+        tchase.chase_batched(d.double(), start, 76)
