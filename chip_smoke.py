@@ -168,6 +168,12 @@ main-path runs (phases 5 and 6) and the self-touch volume skeletonized
 once, each with the chase calls recorded, C1 against its plain version on
 them, both timed.
 
+    python3 chip_smoke.py --fill
+
+runs phase 9's fill path alone (after the build): the soma volume with
+`fill_holes` and `fix_avocados` against the serial oracle and the avocado
+invariants, then the 64^3 fill volume on the card against the CPU.
+
     python3 chip_smoke.py --analysis
 
 runs phase 11 alone (after the build, with the dense volume's skeletons
@@ -5638,6 +5644,15 @@ def main() -> int:
         del captured
         rows += hollow_main_path(hollow_volume(dense))[2]
         print(json.dumps({"kernels": rows + chase_phase(dense)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--fill"]:
+        log(device_line())
+        log(f"[build] nvcc {kernels.build():.2f} s")
+        fill_main_path(hollow_volume(dense_volume(DENSE_N)))
+        small_fill_path()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

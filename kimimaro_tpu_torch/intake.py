@@ -23,9 +23,9 @@ the global engine is bypassed, and every label goes to the crop engine,
 which gates its relaxations, re-EDT and chase by the graph (the labels it
 hands back take the host trace path with their crop of it).
 
-Stages: upload, ccl, edt, label_info (or fill_holes, avocado_pass_{i},
-avocado_edt), border_targets, gengine, crop_engine, finalize,
-host_fallback, merge.
+Stages: upload, ccl, edt, label_info (or host_stages, which holds
+fill_holes, avocado_pass (one a pass), avocado_edt and host_label_info),
+border_targets, gengine, crop_engine, finalize, host_fallback, merge.
 """
 
 from __future__ import annotations
@@ -262,47 +262,52 @@ def skeletonize(
 
     dbfmax_arr = None  # per-label DBF max; only the device preamble has it
     if host_stages:
-        # the host stages need the labels on the host once
-        cc_labels = cc_dev.cpu().numpy()
-        # each component's original label, read at its first voxel
-        firstcc = gengine._first_voxels(cc_dev, n_components + 1).cpu()
-        flat_orig = all_labels.reshape(-1)
-        remapping = {u: int(flat_orig[int(firstcc[u])])
-                     for u in range(1, n_components + 1)}
+        # one phase from the labels' download to the counts and boxes, so
+        # that every blocking read of the host stages counts under it
+        with phase("host_stages", device):
+            cc_labels = profiling.host(cc_dev).numpy()
+            # each component's original label, read at its first voxel
+            firstcc = profiling.host(
+                gengine._first_voxels(cc_dev, n_components + 1))
+            flat_orig = all_labels.reshape(-1)
+            remapping = {u: int(flat_orig[int(firstcc[u])])
+                         for u in range(1, n_components + 1)}
 
-        if fill_holes:
-            with phase("fill_holes", device):
-                cc_labels = fill_all_holes(cc_labels, progress,
-                                           vol_dev=cc_dev)
+            if fill_holes:
+                with phase("fill_holes", device):
+                    cc_labels = fill_all_holes(cc_labels, progress,
+                                               vol_dev=cc_dev)
 
-        def edtfn(labels):
-            with phase("avocado_edt", device):
-                return edtfn_dev(torch.from_numpy(labels).to(device)).cpu(
-                ).numpy()
+            def edtfn(labels):
+                with phase("avocado_edt", device):
+                    return profiling.host(edtfn_dev(
+                        torch.from_numpy(labels).to(device))).numpy()
 
-        all_dbf = edtfn(cc_labels)
-        if fix_avocados:
-            cc_labels, all_dbf, remapping = engage_avocado_protection(
-                cc_labels, all_dbf, remapping,
-                soma_detection_threshold=teasar_params.get(
-                    "soma_detection_threshold", 0),
-                edtfn=edtfn, progress=progress, device=device)
-        with phase("host_label_info", device):
-            cc_dev = torch.from_numpy(cc_labels).to(device)
-            dbf_dev = torch.from_numpy(all_dbf).to(device)
-            cc_segids_all, pxct = _unique_ids(cc_labels, return_counts=True)
-            counts_map = dict(zip(cc_segids_all.tolist(), pxct.tolist()))
-            slices = find_objects(cc_labels)
-            bb = {}
-            for sid in cc_segids_all:
-                sid = int(sid)
-                if sid == 0 or slices[sid - 1] is None:
-                    continue
-                roi = Bbox.from_slices(slices[sid - 1])
-                bb[sid] = (roi.minpt, roi.maxpt - 1)
-            segid_iter = [s for s in counts_map
-                          if s != 0 and counts_map[s] > dust_threshold
-                          and s in bb]
+            all_dbf = edtfn(cc_labels)
+            if fix_avocados:
+                cc_labels, all_dbf, remapping = engage_avocado_protection(
+                    cc_labels, all_dbf, remapping,
+                    soma_detection_threshold=teasar_params.get(
+                        "soma_detection_threshold", 0),
+                    edtfn=edtfn, progress=progress, device=device)
+            with phase("host_label_info", device):
+                cc_dev = torch.from_numpy(cc_labels).to(device)
+                dbf_dev = torch.from_numpy(all_dbf).to(device)
+                cc_segids_all, pxct = _unique_ids(cc_labels,
+                                                  return_counts=True)
+                counts_map = dict(zip(cc_segids_all.tolist(),
+                                      pxct.tolist()))
+                slices = find_objects(cc_labels)
+                bb = {}
+                for sid in cc_segids_all:
+                    sid = int(sid)
+                    if sid == 0 or slices[sid - 1] is None:
+                        continue
+                    roi = Bbox.from_slices(slices[sid - 1])
+                    bb[sid] = (roi.minpt, roi.maxpt - 1)
+                segid_iter = [s for s in counts_map
+                              if s != 0 and counts_map[s] > dust_threshold
+                              and s in bb]
     else:
         with phase("edt", device):
             dbf_dev = edtfn_dev(cc_dev)
@@ -691,7 +696,7 @@ def _paint_walls(binimg: np.ndarray, device) -> np.ndarray:
             idx = [slice(None)] * 3
             idx[axis] = side
             wall = torch.from_numpy(binimg[tuple(idx)]).to(device)
-            binimg[tuple(idx)] = fill_ops.fill(wall).cpu().numpy()
+            binimg[tuple(idx)] = profiling.host(fill_ops.fill(wall)).numpy()
     return binimg
 
 
@@ -718,6 +723,7 @@ def engage_avocado_protection(cc_labels, all_dbf, remapping,
         profiling.count("avocado_passes")
         profiling.count("avocado_candidates", len(candidates))
         with phase("avocado_pass", device):
+            profiling.annotate(candidates=len(candidates))
             cc_labels, unchanged_this_cycle, changes = _avocado_single_pass(
                 cc_labels, all_dbf, candidates=sorted(candidates),
                 device=device)
@@ -731,14 +737,14 @@ def engage_avocado_protection(cc_labels, all_dbf, remapping,
     # labels by first occurrence): the first voxel of each id by a
     # scatter-min on the device, in place of a sort of the volume
     cc_t = torch.from_numpy(cc_labels.astype(np.int64, copy=False)).to(device)
-    n_ids = int(cc_t.max()) + 1 if cc_t.numel() else 1
-    first = gengine._first_voxels(cc_t, n_ids).cpu().numpy()
+    n_ids = profiling.host(cc_t.max(), int) + 1 if cc_t.numel() else 1
+    first = profiling.host(gengine._first_voxels(cc_t, n_ids)).numpy()
     fg_ids = np.flatnonzero(first[1:] < cc_labels.size) + 1
     order = np.argsort(first[fg_ids], kind="stable")
     lut = np.zeros(n_ids, dtype=np.int64)
     lut[fg_ids[order]] = np.arange(1, len(fg_ids) + 1)
     new_t = torch.from_numpy(lut).to(device)[cc_t]
-    new_cc = new_t.cpu().numpy().astype(cc_labels.dtype)
+    new_cc = profiling.host(new_t).numpy().astype(cc_labels.dtype)
 
     # new cc id -> the smallest old cc id occupying its voxels that the
     # remapping holds -> original label
@@ -751,9 +757,10 @@ def engage_avocado_protection(cc_labels, all_dbf, remapping,
     big = torch.iinfo(torch.int64).max
     old_t = torch.where(torch.from_numpy(known).to(device)[old_t], old_t,
                         big)
-    least = torch.full((len(fg_ids) + 1,), big, dtype=torch.int64,
-                       device=device).scatter_reduce_(
-        0, new_t.reshape(-1), old_t, "amin").cpu().numpy()
+    least = profiling.host(torch.full(
+        (len(fg_ids) + 1,), big, dtype=torch.int64,
+        device=device).scatter_reduce_(
+        0, new_t.reshape(-1), old_t, "amin")).numpy()
     seen = {i: remapping[int(least[i])] for i in range(1, len(least))
             if least[i] != big}
 
@@ -793,7 +800,8 @@ def _avocado_single_pass(cc_labels, all_dbf, candidates, device="cuda"):
             binimg |= cc_labels[slc] == fruit
 
         filled = fill_ops.fill(torch.from_numpy(binimg).to(device))
-        cc_labels[slc] = np.where(filled.cpu().numpy(), fruit, cc_labels[slc])
+        cc_labels[slc] = np.where(profiling.host(filled).numpy(), fruit,
+                                  cc_labels[slc])
 
     return cc_labels, unchanged, changed
 

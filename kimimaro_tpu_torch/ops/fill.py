@@ -14,6 +14,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .geodesic import _flood6_stage, flood_fill
 from .stencils import as_tensor
 
@@ -134,13 +135,14 @@ def fill_label_crops(
             for rounds in (6, 24, 96, max(int(sum(crop)) + 8, 384)):
                 holes, cnt, conv = _fill_crops_stage(
                     vol_dev, o, lab, crop, rounds)
-                if bool(conv.all()):
+                if profiling.host(conv.all(), bool):
                     break
-            cnt_h = cnt.cpu().numpy()
+            cnt_h = profiling.host(cnt).numpy()
             nz = np.flatnonzero(cnt_h > 0)
             if len(nz) == 0:
                 continue
-            holes_h = holes[torch.as_tensor(nz, device=dev)].cpu().numpy()
+            holes_h = profiling.host(
+                holes[torch.as_tensor(nz, device=dev)]).numpy()
             for k, j in enumerate(nz):
                 gi = int(idx[j])
                 sh = shapes[gi]

@@ -805,6 +805,6 @@ def flood_fill(seed_mask, ok_mask, connectivity: int = 6,
     while done < _MAX_ROUNDS:
         reached, converged = _flood6_stage(ok, reached, _STAGE_ROUNDS)
         done += _STAGE_ROUNDS + 1
-        if bool(converged.all()):
+        if profiling.host(converged.all(), bool):
             break
     return reached

@@ -1,8 +1,11 @@
 """The port's span tracer (kimimaro_tpu_torch.utils.profiling) on small
 CPU runs of `skeletonize`: span ids, parents and call ids, the phases as
 the spans' sums, the blocking reads counted against what the crop engine
-is known to have read, collection off and without synchronizes, and the
-spans on the clock of torch.profiler's events."""
+is known to have read, collection off and without synchronizes, the
+spans on the clock of torch.profiler's events, and the host stages' outer
+phase with every read made inside it."""
+
+import time
 
 import numpy as np
 import pytest
@@ -222,3 +225,62 @@ def test_spans_share_the_clock_of_torch_profiler_events():
         # each path iteration selects its lanes first
         assert any(s["start_ns"] - MS <= a and b <= s["end_ns"] + MS
                    for a, b in inside), s
+
+
+def test_host_stages_span_encloses_its_phases_and_counts_every_read(
+        monkeypatch):
+    # fill_holes and fix_avocados at 64^3: one outer phase from the
+    # labels' download to the host's counts and boxes, and each blocking
+    # read made inside it counted under it
+    from chip_smoke import small_fill_volume
+
+    vol = small_fill_volume()
+    kw = dict(teasar_params={"scale": 1.5, "const": 300,
+                             "soma_detection_threshold": 1100,
+                             "soma_acceptance_threshold": 3500},
+              anisotropy=(16, 16, 40), dust_threshold=1000,
+              fill_holes=True, fix_avocados=True, device="cpu")
+    want = kimimaro_tpu_torch.skeletonize(vol, **kw)
+    reads = []
+    host = profiling.host
+
+    def timed(t, read=None):
+        reads.append(time.time_ns())
+        return host(t, read)
+
+    monkeypatch.setattr(profiling, "host", timed)
+    profiling.reset_stats()
+    profiling.collect(True)
+    try:
+        got = kimimaro_tpu_torch.skeletonize(vol, **kw)
+    finally:
+        profiling.collect(False)
+    spans = profiling.spans()
+    by_id = {s["id"]: s for s in spans}
+    (outer,) = [s for s in spans if s["name"] == "host_stages"]
+
+    def inside(s):
+        while s["parent"] is not None:
+            s = by_id[s["parent"]]
+            if s is outer:
+                return True
+        return False
+
+    names = ("fill_holes", "avocado_pass", "avocado_edt", "host_label_info")
+    for name in names:
+        held = [s for s in spans if s["name"] == name]
+        assert held and all(inside(s) for s in held), name
+    counters = profiling.get_stats()["counters"]
+    routed = sum(outer["start_ns"] <= t <= outer["end_ns"] for t in reads)
+    assert counters["host_stages_syncs"] == routed > 0
+    assert not any(k in counters for k in (
+        "fill_holes_syncs", "avocado_pass_syncs", "avocado_edt_syncs"))
+    passes = [s for s in spans if s["name"] == "avocado_pass"]
+    assert len(passes) == counters["avocado_passes"]
+    assert sum(s["attrs"]["candidates"] for s in passes) \
+        == counters["avocado_candidates"] > 0
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].vertices, want[k].vertices)
+        np.testing.assert_array_equal(got[k].edges, want[k].edges)
+        np.testing.assert_array_equal(got[k].radii, want[k].radii)
